@@ -8,12 +8,17 @@ TPU-native flags are added at the end (mesh shape, aug mode, precision,
 pretrained checkpoint path — the reference downloads weights via open_clip;
 here they come from a converted checkpoint file).
 
-The port adds ``--device {cuda,cpu}``.  ``--use_pallas``, ``--remat`` and
-``--accum`` are accepted and do nothing for inference; a mesh other than
-one device raises.  Only the zero-shot path is ported so far.
+The port adds ``--device {cuda,cpu}``.  ``--use_pallas`` is accepted and
+does nothing (the kernels always run on the card); ``--remat`` and
+``--accum`` do nothing for inference and raise in training; a mesh other
+than one device raises.  Ported so far: ``--method zeroshot``, and stage 1
+of ``--method cutmix`` / ``finetune`` with ``--skip_stage2``.
 
 Usage:
     python -m swat_tpu_torch.cli.main --dataset semi-aves --method zeroshot \
+        --checkpoint_path /path/to/openclip_vitb32.pt
+    python -m swat_tpu_torch.cli.main --dataset semi-aves --method cutmix \
+        --data_source fewshot+retrieved --epochs 10 --skip_stage2 \
         --checkpoint_path /path/to/openclip_vitb32.pt
 """
 

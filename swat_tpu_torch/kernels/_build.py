@@ -1,7 +1,10 @@
 """Build the port's CUDA kernels with nvcc and bind them through ctypes.
 
 The sources under ``swat_tpu_torch/csrc`` have a plain C interface, so they
-compile in seconds with ``nvcc -shared`` (no PyTorch headers) into
+compile in seconds (no PyTorch headers): one ``nvcc -c`` per source, all
+started together, then one ``nvcc -shared`` link (14.5-14.9 s on an H100
+host with 8 cores, against 21.3-21.5 s for one ``nvcc`` over both sources,
+measured in one run) into
 ``build/swat_tpu_torch/<digest>/libswat_kernels.so`` at the root of the
 checkout, a directory that ``.gitignore`` lists.  ``<digest>`` hashes the
 sources and the flags: an edited source builds anew, an unchanged one is
@@ -21,11 +24,11 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build",
                           "swat_tpu_torch")
-SOURCES = ("mha_fwd.cu",)
+SOURCES = ("mha_fwd.cu", "mha_bwd.cu")
 # sm_90a: the Hopper target with wgmma / setmaxnreg (plain sm_90 lacks them);
 # -Xptxas -v writes each kernel's registers and spills into build.log
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libswat_kernels.so"
 
 
@@ -62,18 +65,32 @@ def build_library() -> str:
         return lib_path
     nvcc = find_nvcc()
     os.makedirs(out_dir, exist_ok=True)
-    # build under a per-process name, then rename: concurrent builds
-    # never load a half-written library
-    tmp = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(CSRC_DIR, s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    # build under per-process names, then rename: concurrent builds never
+    # load a half-written library
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(out_dir, f"{src}.{tag}.o") for src in SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, os.path.join(CSRC_DIR, src)]
+            for src, obj in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    runs = [(cmd, p.communicate()[0], p.returncode)
+            for cmd, p in zip(cmds, procs)]
+    if all(rc == 0 for *_, rc in runs):
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", f"{lib_path}.{tag}", *objs]
+        p = subprocess.run(cmd, stdout=subprocess.PIPE,
+                           stderr=subprocess.STDOUT, text=True)
+        runs.append((cmd, p.stdout, p.returncode))
     with open(os.path.join(out_dir, "build.log"), "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
-    os.replace(tmp, lib_path)
+        f.writelines(" ".join(cmd) + "\n" + out for cmd, out, _ in runs)
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    for cmd, out, rc in runs:
+        if rc:
+            raise RuntimeError(f"nvcc failed (exit {rc}) on {cmd[-1]}:\n"
+                               f"{out[-4000:]}")
+    os.replace(f"{lib_path}.{tag}", lib_path)
     return lib_path
 
 
@@ -86,6 +103,9 @@ def load() -> ctypes.CDLL:
     lib.swat_mha_fwd.argtypes = [p, p, p, p, i, i, i, i, i,
                                  ll, ll, ll, ll, ll, ll, ll, ll,
                                  ctypes.c_float, i, p]
+    lib.swat_mha_bwd.restype = i
+    lib.swat_mha_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i,
+                                 *([ll] * 14), ctypes.c_float, i, p]
     lib.swat_cuda_error_string.restype = ctypes.c_char_p
     lib.swat_cuda_error_string.argtypes = [i]
     return lib

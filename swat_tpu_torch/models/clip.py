@@ -7,15 +7,22 @@ OpenCLIP ``.pt`` loads with ``load_state_dict`` (key map in
 ``swat_tpu/models/loader.py``).  Public functions keep the JAX package's
 layouts: images ``[B, H, W, 3]`` NHWC, features ``[B, embed]`` fp32.
 
-Attention.  On CUDA every inference attention goes through the hand-written
-kernel (``kernels.flash_attention.mha_packed``) in BOTH precision policies.
-That departs from ``swat_tpu.models.functional._pick_pallas``, whose rule,
-measured on a TPU, uses Pallas only for bf16 on a TPU: the CLI's default
+Attention.  On CUDA every attention goes through the hand-written kernels
+(``kernels.flash_attention.mha_qkv``, an autograd Function over the qkv
+projection's output: the forward kernel, and the backward kernel as its
+gradient) in BOTH precision
+policies, for inference and for training.  That departs from
+``swat_tpu.models.functional._pick_pallas``, whose rule, measured on a TPU,
+uses Pallas only for bf16 on a TPU, and in training only from S = 197 up
+(``_PALLAS_TRAIN_MIN_SEQ``; below it, XLA autodiff): the CLI's default
 ``--compute_dtype float32`` would otherwise run no kernel at all on the
-card, and the kernel computes fp32 in full fp32 (the "highest" precision
-of the JAX fp32 policy).  On the CPU the same call runs the kernel's plain
-PyTorch twin.  ``attention=`` swaps in another function of the same
-signature (the smoke test passes the plain twin on the card).
+card, and the B/32 train step (S = 50) no backward kernel.  The kernels
+compute fp32 in full fp32 (the "highest" precision of the JAX fp32 policy).
+On the CPU the same Function runs the kernels' plain PyTorch twins.
+``attention=`` swaps in another function of the same signature,
+``(qkv, heads, causal) -> out`` (the smoke test passes the plain twin,
+``mha_qkv_reference``, on the card).  Training differentiates the image
+tower only: the train state turns ``requires_grad`` off for the text tower.
 """
 
 from __future__ import annotations
@@ -28,12 +35,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from swat_tpu_torch.core.precision import DEFAULT_PRECISION, Precision
-from swat_tpu_torch.kernels.flash_attention import mha_packed
+from swat_tpu_torch.kernels.flash_attention import mha_qkv
 from swat_tpu_torch.models.configs import (CLIPConfig, ResNetConfig,
                                            TextConfig, VisionConfig)
 
-Attention = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, int, bool],
-                     torch.Tensor]
+# (qkv [B, S, 3*H*D], heads, causal) -> out [B, S, H*D]
+Attention = Callable[[torch.Tensor, int, bool], torch.Tensor]
 
 
 def layer_norm(ln: nn.LayerNorm, x: torch.Tensor, precision: Precision,
@@ -99,14 +106,12 @@ class ResidualAttentionBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, causal: bool, precision: Precision,
                 attention: Attention) -> torch.Tensor:
-        width = x.shape[-1]
         h = layer_norm(self.ln_1, x, precision)
         qkv = dense(h, self.attn.in_proj_weight, self.attn.in_proj_bias,
                     precision)
-        # three strided views of qkv (row stride 3*width): the kernel reads
-        # them in place
-        q, k, v = qkv.split(width, dim=-1)
-        a = attention(q, k, v, self.heads, causal)
+        # the kernels read q, k, v in place from qkv and write its gradient
+        # whole
+        a = attention(qkv, self.heads, causal)
         x = x + dense(a, self.attn.out_proj.weight, self.attn.out_proj.bias,
                       precision)
         h = layer_norm(self.ln_2, x, precision)
@@ -222,13 +227,13 @@ class CLIPModel(TextTower):
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
 
     def encode_image(self, images: torch.Tensor, normalize: bool = False,
-                     attention: Attention = mha_packed) -> torch.Tensor:
+                     attention: Attention = mha_qkv) -> torch.Tensor:
         """images [B, H, W, 3] (CLIP-normalized) -> [B, embed] fp32."""
         feats = self.visual(images, self.precision, attention)
         return _normalize(feats) if normalize else feats
 
     def encode_text(self, token_ids: torch.Tensor, normalize: bool = False,
-                    attention: Attention = mha_packed) -> torch.Tensor:
+                    attention: Attention = mha_qkv) -> torch.Tensor:
         """token ids [B, context] -> [B, embed] fp32."""
         feats = self.encode_text_features(token_ids, self.precision,
                                           attention)

@@ -1,11 +1,13 @@
-"""Loss registry (counterpart of ``swat_tpu/train/losses.py:20-78``).
+"""Loss registry (counterpart of ``swat_tpu/train/losses.py:20-84``).
 
 CE, WeightedCE (few-shot vs retrieved weights via the source flag), Focal
 and BalancedSoftmax, dispatched by ``set_loss`` as in the reference
 (utils/losses.py:9-23).  Each is a mean over per-sample terms, so each
 ``LossFn`` also exposes ``per_sample``: evaluation sums it under the
 validity mask (the JAX package gets the same numbers by vmapping the mean
-loss over rows).  The mixup criteria wait for the training slice.
+loss over rows).  ``mixup_criterion`` mixes two label sets; the per-sample
+lambda criterion of saliencymix/attentivemix is not ported yet (ROADMAP
+Queue A item 6).
 """
 
 from __future__ import annotations
@@ -83,3 +85,9 @@ def set_loss(loss_name: str, *, fewshot_weight: float = 1.0,
             raise ValueError("BalancedSoftmax needs cls_num_list")
         return make_balanced_softmax(cls_num_list)
     raise NotImplementedError(f"Loss {loss_name} not implemented.")
+
+
+def mixup_criterion(loss: LossFn, logits, y_a, y_b, lam, source=None):
+    """lam * L(y_a) + (1 - lam) * L(y_b) (reference utils/training.py:1157)."""
+    return (lam * loss(logits, y_a, source)
+            + (1.0 - lam) * loss(logits, y_b, source))

@@ -1,0 +1,89 @@
+"""Train state (counterpart of ``swat_tpu/train/state.py:29-123``).
+
+The trainable set is the CLIP model, the classifier head and logit_scale;
+the state also holds the AdamW optimizer over them and the step count.
+The JAX package keeps these as one immutable pytree; here the model is
+trained in place, and the head and logit_scale are the state's own
+parameters.  Frozen tensors have ``requires_grad`` off and sit in no
+optimizer group.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+from torch import nn
+
+from swat_tpu_torch.models.clip import CLIPModel
+from swat_tpu_torch.train.optim import (build_optimizer, label_params,
+                                        set_lr, trains_logit_scale)
+
+LOG100 = 4.60517  # ln(100), fixed logit_scale for frozen methods
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: CLIPModel
+    head: nn.Parameter            # [num_classes, embed_dim] fp32
+    logit_scale: nn.Parameter     # scalar, the log of the scale
+    optimizer: torch.optim.AdamW
+    step: int = 0
+
+    def apply_update(self) -> None:
+        """One optimizer step with this count's learning rates, then the
+        count moves on (the gradients are already in .grad)."""
+        set_lr(self.optimizer, self.step)
+        self.optimizer.step()
+        self.step += 1
+
+
+def init_logit_scale(method: str, temperature: float = 0.07) -> float:
+    """ln(1/temperature) for finetune methods, fixed ln(100) for frozen
+    ones (reference utils/optimizers.py:51-59,80)."""
+    if trains_logit_scale(method):
+        return float(np.log(1.0 / temperature))
+    return LOG100
+
+
+def make_labels(model: CLIPModel, method: str) -> dict:
+    """Labels of the trainable set: {'model': {name: label}, 'head':
+    'head', 'logit_scale': 'head' | 'frozen'}.  fixmatch's loss never
+    reads logit_scale, so it stays out of the optimizer (no phantom
+    decay), as in the JAX package."""
+    trains = trains_logit_scale(method) and method != "fixmatch"
+    return {"model": label_params(model, method), "head": "head",
+            "logit_scale": "head" if trains else "frozen"}
+
+
+def create_train_state(model: CLIPModel, head: torch.Tensor, method: str, *,
+                       lr_classifier: float = 1e-4,
+                       lr_backbone: float = 1e-6,
+                       total_iter: int = 1000, wd: float = 1e-2,
+                       optim_type: str = "AdamW",
+                       temperature: float = 0.07) -> TrainState:
+    """Marks the model's frozen tensors (``requires_grad`` off), copies the
+    head and makes logit_scale on the model's device, and builds AdamW
+    over the labeled groups."""
+    labels = make_labels(model, method)
+    groups = {"backbone": [], "head": []}
+    for name, p in model.named_parameters():
+        trained = labels["model"][name] == "backbone"
+        p.requires_grad_(trained)
+        if trained:
+            groups["backbone"].append(p)
+    device = model.logit_scale.device
+    head_p = nn.Parameter(torch.as_tensor(head).detach().to(
+        device=device, dtype=torch.float32).clone())
+    scale_p = nn.Parameter(torch.tensor(init_logit_scale(method, temperature),
+                                        dtype=torch.float32, device=device),
+                           requires_grad=labels["logit_scale"] == "head")
+    groups["head"].append(head_p)
+    if scale_p.requires_grad:
+        groups["head"].append(scale_p)
+    optimizer = build_optimizer(groups, lr_classifier=lr_classifier,
+                                lr_backbone=lr_backbone,
+                                total_iter=total_iter, wd=wd,
+                                optim_type=optim_type)
+    return TrainState(model, head_p, scale_p, optimizer)

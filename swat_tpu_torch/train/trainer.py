@@ -1,0 +1,134 @@
+"""The epoch loop with best-model tracking (counterpart of
+``swat_tpu/train/trainer.py:32-216``), with the reference's semantics:
+
+* validation every epoch only for the methods in VALIDATE_EVERY_EPOCH,
+  else only on ``--early_stop`` epochs or the last one;
+* the best snapshot when ``val_acc >= best_val_acc`` (ties move forward),
+  taken only on those snapshot epochs;
+* one loss.csv row and one log line per epoch, with -1 before the first
+  validation;
+* ``--stop_epochs`` breaks early; ``--epochs 0`` snapshots the initial
+  weights.
+
+Periodic checkpoints (``--save_ckpt``) and ``--resume`` are not ported yet
+(ROADMAP Queue A item 4; ``SwatPipeline.run`` refuses them).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Dict, Iterable, Optional
+
+import numpy as np
+
+from swat_tpu_torch.eval.metrics import calculate_scores
+from swat_tpu_torch.train.state import TrainState
+
+VALIDATE_EVERY_EPOCH = {
+    "probing", "REAL-Linear", "finetune-mixed", "finetune-multitask",
+    "mixup", "mixup-fs", "cutmix-fs", "resizemix", "attentivemix",
+}
+
+
+@dataclasses.dataclass
+class BestSnapshot:
+    trainable: Any = None     # {'model': state dict, 'head', 'logit_scale'}
+    records: Dict = dataclasses.field(default_factory=dict)
+    val_acc: float = -1.0
+
+
+def snapshot_trainable(state: TrainState) -> dict:
+    """A cloned copy of the trainable set, on its device (the reference
+    deep-copies the model per improvement, utils/training.py:1514-1515)."""
+    return {"model": {k: v.detach().clone()
+                      for k, v in state.model.state_dict().items()},
+            "head": state.head.detach().clone(),
+            "logit_scale": state.logit_scale.detach().clone()}
+
+
+def train_loop(*, cfg, state: TrainState, step_fn: Callable,
+               sample_fn: Callable,
+               train_batches: Callable[[], Iterable[dict]],
+               steps_per_epoch: int, validate_fn: Callable,
+               test_fn: Callable, logger, loss_logger=None,
+               epoch_runner: Optional[Callable] = None):
+    """Runs cfg.epochs epochs -> (final state, BestSnapshot).
+
+    ``step_fn(state, batch, draws)`` updates the state in place;
+    ``sample_fn(rng, batch)`` draws each step's random inputs from one
+    generator seeded from ``--training_seed``.  ``epoch_runner(state,
+    epoch, rng) -> mean loss`` replaces the per-batch loop for resident
+    data."""
+    every_epoch = cfg.method in VALIDATE_EVERY_EPOCH
+    # the draws' own stream: the loaders shuffle with default_rng(seed)
+    rng = np.random.default_rng([cfg.training_seed, 1])
+
+    best = BestSnapshot()
+    num_iter = 0
+    val_acc, val_loss, test_acc = -1.0, -1.0, -1.0
+    for epoch in range(1, cfg.epochs + 1):
+        t0 = time.perf_counter()
+        if epoch_runner is not None:
+            avg_loss = epoch_runner(state, epoch, rng)
+            num_iter += steps_per_epoch
+            train_loss_sum = float(avg_loss) * steps_per_epoch
+        else:
+            # losses stay on the device until the epoch ends: a host sync
+            # per step would stall the launch queue
+            epoch_losses = []
+            for batch in train_batches():
+                num_iter += 1
+                epoch_losses.append(step_fn(state, batch,
+                                            sample_fn(rng, batch)))
+            train_loss_sum = (float(sum(epoch_losses[1:], epoch_losses[0]))
+                              if epoch_losses else 0.0)
+        secs = time.perf_counter() - t0
+
+        snapshot_epoch = cfg.early_stop or epoch == cfg.epochs
+        if every_epoch or snapshot_epoch:
+            val_acc, val_loss, cm = validate_fn(state)
+            scores = calculate_scores(cm) if cm is not None else {}
+            if snapshot_epoch and val_acc >= best.val_acc:
+                best.val_acc = val_acc
+                best.trainable = snapshot_trainable(state)
+                best.records = {
+                    "best_val_acc": val_acc,
+                    "best_logit_scale": state.logit_scale.item(),
+                    "best_epoch": epoch,
+                    "best_iter": num_iter,
+                    "best_scores": scores,
+                    "best_confusion_matrix": cm,
+                }
+            test_acc = test_fn(state)
+
+        train_loss_avg = train_loss_sum / max(steps_per_epoch, 1)
+        if loss_logger is not None:
+            loss_logger.write(
+                f"{epoch},{num_iter},{round(train_loss_avg, 6)},"
+                f"{round(val_loss, 6)},{round(val_acc, 6)},"
+                f"{round(test_acc, 6)}\n")
+            loss_logger.flush()
+        logger.info(
+            f"Epoch {epoch}, Iter {num_iter}, "
+            f"Trn Loss: {round(train_loss_avg, 6)}, "
+            f"Val Loss: {round(val_loss, 6)}, "
+            f"Val Acc: {round(val_acc, 3)}, Test Acc: {round(test_acc, 3)}, "
+            f"{steps_per_epoch * cfg.bsz / max(secs, 1e-9):.0f} img/s")
+        if epoch == cfg.stop_epochs:
+            break
+
+    if best.trainable is None:  # epochs == 0: keep the current weights
+        logger.info("No training epochs ran; snapshotting current weights "
+                    f"(val_acc {round(val_acc, 3)} recorded as best)")
+        best.trainable = snapshot_trainable(state)
+        best.records = {"best_val_acc": val_acc, "best_epoch": -1,
+                        "best_iter": num_iter, "best_scores": {},
+                        "best_confusion_matrix": None,
+                        "best_logit_scale": state.logit_scale.item()}
+    logger.info(
+        f"Training done. Best val Acc: {round(best.val_acc, 3)} at epoch "
+        f"{best.records.get('best_epoch', -1)}, "
+        f"iter {best.records.get('best_iter', -1)}")
+    return state, best
+

@@ -21,12 +21,16 @@ PORT_MODULES = [
     "swat_tpu_torch", "swat_tpu_torch.cli.main", "swat_tpu_torch.core.config",
     "swat_tpu_torch.core.precision", "swat_tpu_torch.data.features",
     "swat_tpu_torch.data.pipeline", "swat_tpu_torch.data.transforms",
-    "swat_tpu_torch.eval.resident", "swat_tpu_torch.eval.validate",
-    "swat_tpu_torch.kernels._build", "swat_tpu_torch.kernels.flash_attention",
+    "swat_tpu_torch.eval.metrics", "swat_tpu_torch.eval.resident",
+    "swat_tpu_torch.eval.validate", "swat_tpu_torch.kernels._build",
+    "swat_tpu_torch.kernels.augment", "swat_tpu_torch.kernels.flash_attention",
     "swat_tpu_torch.models.clip", "swat_tpu_torch.models.configs",
     "swat_tpu_torch.models.head", "swat_tpu_torch.models.loader",
-    "swat_tpu_torch.models.tokenizer", "swat_tpu_torch.train.losses",
-    "swat_tpu_torch.train.stages",
+    "swat_tpu_torch.models.tokenizer", "swat_tpu_torch.train.checkpoint",
+    "swat_tpu_torch.train.losses", "swat_tpu_torch.train.optim",
+    "swat_tpu_torch.train.resident", "swat_tpu_torch.train.stages",
+    "swat_tpu_torch.train.state", "swat_tpu_torch.train.steps",
+    "swat_tpu_torch.train.trainer",
 ]
 
 
@@ -46,6 +50,61 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "NEW_JAX_MODULES []" in out.stdout, out.stdout
+
+
+def test_loaders_import_no_jax_for_images_the_native_decoder_rejects(
+        tmp_path):
+    """A PNG (which the C++ JPEG decoder rejects) and a JPEG through every
+    loader of the port: TrainLoader (canvas mode), EvalLoader, ResidentData
+    and ResidentEval.  The rejected image takes the port's own transforms,
+    so no jax module is imported at run time, and its rows are those
+    transforms' output."""
+    code = f"""
+import sys
+import numpy as np
+from PIL import Image
+from swat_tpu.data.splits import Sample
+from swat_tpu_torch.data import pipeline
+from swat_tpu_torch.data.transforms import eval_crop, load_image, train_canvas
+from swat_tpu_torch.eval.resident import ResidentEval
+from swat_tpu_torch.train.resident import ResidentData
+import torch
+
+rng = np.random.default_rng(0)
+samples = []
+for i, ext in enumerate(("png", "jpg", "png", "jpg")):
+    path = "{tmp_path}/img%d.%s" % (i, ext)
+    mode = "RGBA" if ext == "png" else "RGB"
+    Image.fromarray(rng.integers(0, 256, (70 + 9 * i, 90, len(mode)),
+                                 dtype=np.uint8), mode).save(path)
+    samples.append(Sample(path, i % 2, 1))
+before = set(sys.modules)
+batches = list(pipeline.TrainLoader(samples, batch_size=4, seed=0,
+                                    num_workers=2))
+evals = list(pipeline.EvalLoader(samples, batch_size=4, num_workers=2))
+res = ResidentData.from_samples(samples, torch.device("cpu"), num_workers=2)
+res_eval = ResidentEval.from_samples(samples, torch.device("cpu"),
+                                     batch_size=4, num_workers=2)
+new = sorted(m for m in set(sys.modules) - before
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
+print("NEW_JAX_MODULES", new)
+png = [i for i, s in enumerate(samples) if s.path.endswith("png")]
+canvases, valid_hw = pipeline.train_canvases(samples, 2)
+for i in png:
+    c, hw = train_canvas(load_image(samples[i].path))
+    assert np.array_equal(canvases[i], c) and tuple(valid_hw[i]) == hw
+    assert np.array_equal(res.canvases[i].numpy(), c)
+    crop = np.asarray(eval_crop(load_image(samples[i].path), 224), np.uint8)
+    assert np.array_equal(res_eval.images_u8[i].numpy(), crop)
+assert len(batches) == 1 and batches[0]["canvases"].shape == (4, 256, 256, 3)
+assert evals[0]["images"].shape == (4, 224, 224, 3)
+print("ROWS_OK")
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "NEW_JAX_MODULES []" in out.stdout, out.stdout
+    assert "ROWS_OK" in out.stdout, out.stdout
 
 
 ARGVS = [

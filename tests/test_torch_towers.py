@@ -106,13 +106,13 @@ def test_attention_argument_swaps_the_attention(towers):
     model.load_state_dict(sd)
     calls = []
 
-    def attention(q, k, v, heads, causal):
-        calls.append((heads, causal, q.stride(1)))
-        return FA.mha_packed_reference(q, k, v, heads, causal)
+    def attention(qkv, heads, causal):
+        calls.append((heads, causal, qkv.shape[-1]))
+        return FA.mha_qkv_reference(qkv, heads, causal)
 
     with torch.inference_mode():
         model.encode_image(torch.from_numpy(images), attention=attention)
-    # q/k/v are strided thirds of the qkv projection (row stride 3*width)
+    # the attention gets the qkv projection's output whole (3*width wide)
     assert calls == [(cfg.vision.heads, False, 3 * cfg.vision.width)] * \
         cfg.vision.layers
 

@@ -143,7 +143,7 @@ def test_cli_main_prints_the_summary_on_cpu(setup, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"method": "cutmix"}, "Queue A"),
+    ({"method": "FLYP"}, "Queue A"),
     ({"method": "cutmix", "skip_stage1": True}, "skip_stage1"),
 ])
 def test_unported_paths_raise(setup, tmp_path, kw, match):
