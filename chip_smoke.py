@@ -3,13 +3,18 @@
 
     python3 chip_smoke.py
 
-Phases, one line each: the card; the CUDA kernels' build; the attention
-forward kernel and the backward kernel against their plain PyTorch versions
-at the main path's shapes, and their timings; the full-width ViT-B/32
-towers with and without the kernels; zero-shot classification through
-``swat_tpu_torch.cli.main``; one full-width ViT-B/32 cutmix train step,
-kernel against plain attention, timed and profiled; and stage-1 cutmix
-finetuning through ``swat_tpu_torch.cli.main``.  The data are a synthetic
+Phases, one line each: the card; the CUDA kernels' build; the packed-head
+attention forward and backward kernels against their plain PyTorch versions
+at the main path's shapes, and their timings; the same for the heads-first
+forward and backward kernels (the backward in both of its forms), with the
+time of ``scaled_dot_product_attention`` beside all four as a yardstick;
+the full-width ViT-B/32 towers with and without the kernels; zero-shot
+classification through ``swat_tpu_torch.cli.main``; one full-width ViT-B/32
+cutmix train step, kernel against plain attention, timed and profiled; one
+attentivemix train step (heatmaps through the heads-first forward); one
+cutmix train step with the heads-first backward (``bwd="fused"``); and
+stage-1 finetuning through ``swat_tpu_torch.cli.main`` with cutmix,
+attentivemix and mixup.  The data are a synthetic
 JPEG dataset (few-shot, retrieved and test splits) and a seeded
 OpenCLIP-format checkpoint.  Any failure raises and exits non-zero.  The
 last line is a JSON object naming the device.  Without a GPU, or without
@@ -249,6 +254,193 @@ def phase_bwd_timing(smi):
     return times
 
 
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense): device
+# memory rate, and operation rates by type: fp32 outside the tensor cores
+# (the port computes fp32 in full fp32), bf16 in them
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
+
+
+def _bound_ms(kind, b, s, h, d, dname, causal):
+    """The least time the card could take for one attention call: the
+    larger of its bytes (forward: q, k, v read and o written; backward: q,
+    k, v, do read and dq, dk, dv written, once each) over the memory rate
+    and its operations (2 matrix products forward, 5 backward, of 2*D
+    operations for each query-key pair that is not masked) over the peak
+    rate of the type -> (ms, 'bytes' | 'operations')."""
+    itemsize = 4 if dname == "float32" else 2
+    tensors, products = (4, 2) if kind == "fwd" else (7, 5)
+    pairs = s * (s + 1) // 2 if causal else s * s
+    t_bytes = tensors * b * h * s * d * itemsize / HBM_BYTES_PER_S
+    t_ops = products * 2 * b * h * pairs * d / PEAK_OPS_PER_S[dname]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _heads_first(batch, seq, heads, width, dtype, gen, views, n=3):
+    """n tensors [B, H, S, D]: contiguous, or the transposed views of one
+    [B, S, n*H*D] projection output, as the towers pass them."""
+    import torch
+
+    d = width // heads
+    if views:
+        x = torch.randn(batch, seq, n * width, generator=gen,
+                        device="cuda").to(dtype)
+        return tuple(t.reshape(batch, seq, heads, d).transpose(1, 2)
+                     for t in x.chunk(n, dim=-1))
+    return tuple(torch.randn(batch, heads, seq, d, generator=gen,
+                             device="cuda").to(dtype) for _ in range(n))
+
+
+def phase_flash_kernels_vs_plain():
+    """The heads-first forward kernel, and the heads-first backward kernel
+    in both forms (keep_dtype off: the gradient of flash_attention; on: the
+    backward of bwd='fused'), against their plain versions at every shape,
+    fp32 and bf16, contiguous and as transposed views."""
+    import torch
+
+    from swat_tpu_torch.kernels import flash_attention as FA
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    worst = {}
+    for name, b, s, h, w, causal in KERNEL_SHAPES:
+        for dname, dtype in (("float32", torch.float32),
+                             ("bfloat16", torch.bfloat16)):
+            for views in (False, True):
+                q, k, v, do = _heads_first(b, s, h, w, dtype, gen, views, 4)
+                layout = "views" if views else "contiguous"
+                head = (f"{name} B={b} H={h} S={s} D={w // h} "
+                        f"causal={causal} {dname} {layout}")
+                atol, rtol = TOLERANCE[dname]
+                got = FA.flash_attention_fwd(q, k, v, causal)
+                ref = FA.flash_attention_reference(q, k, v, causal)
+                torch.cuda.synchronize()
+                err = (got.float() - ref.float()).abs()
+                ok = bool((err <= atol + rtol * ref.float().abs()).all()) \
+                    and bool(torch.isfinite(got).all())
+                share = float((got == ref).float().mean())
+                if dtype == torch.bfloat16:
+                    ok &= share >= BWD_MIN_EQUAL_SHARE
+                key = ("flash_fwd", name, dname)
+                worst[key] = max(worst.get(key, 0.0), float(err.max()))
+                log(f"[flash-kernel] fwd {head}: max_abs_err="
+                    f"{float(err.max()):.3e} (tol {atol:g} + {rtol:g}*|ref|)"
+                    f", bit-equal {share:.5f} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"heads-first forward kernel "
+                                         f"disagrees at {head}")
+                atol, rtol = TOLERANCE_BWD[dname]
+                for keep in (False, True):
+                    got = FA.flash_attention_bwd(q, k, v, do, causal, keep)
+                    ref = FA.flash_attention_bwd_reference(q, k, v, do,
+                                                           causal, keep)
+                    torch.cuda.synchronize()
+                    errs, shares = [], []
+                    ok = True
+                    for g, r in zip(got, ref):
+                        err = (g.float() - r.float()).abs()
+                        ok &= bool((err <= atol
+                                    + rtol * r.float().abs()).all())
+                        ok &= bool(torch.isfinite(g).all())
+                        errs.append(float(err.max()))
+                        shares.append(float((g == r).float().mean()))
+                    if dtype == torch.bfloat16:
+                        ok &= min(shares) >= BWD_MIN_EQUAL_SHARE
+                    key = ("flash_bwd", name, dname)
+                    worst[key] = max(worst.get(key, 0.0), *errs)
+                    log(f"[flash-kernel] bwd keep_dtype={keep} {head}: "
+                        f"max_abs_err dq={errs[0]:.3e} dk={errs[1]:.3e} "
+                        f"dv={errs[2]:.3e} (tol {atol:g} + {rtol:g}*|ref|), "
+                        f"bit-equal {'/'.join(f'{x:.5f}' for x in shares)} "
+                        f"{'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        raise AssertionError(
+                            f"heads-first backward kernel (keep_dtype="
+                            f"{keep}) disagrees at {head}")
+    return worst
+
+
+def phase_flash_timing(smi):
+    """The heads-first kernels and their plain versions on the towers'
+    transposed views, in turns plain, kernel, kernel, plain; the backward of
+    bwd='fused' against the packed-head backward on the same packed
+    operands; and, as the yardstick for all four kernels, one
+    scaled_dot_product_attention call (forward) and the gradient of one
+    (backward) on the same views.  The library call is timed here and used
+    nowhere in the port.  Launches made here are not counted."""
+    import torch
+    import torch.nn.functional as F
+
+    from swat_tpu_torch.kernels import flash_attention as FA
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    times = {}
+    for name, b, s, h, w, causal in KERNEL_SHAPES[:2]:
+        for dname, dtype in (("float32", torch.float32),
+                             ("bfloat16", torch.bfloat16)):
+            q, k, v, do = _heads_first(b, s, h, w, dtype, gen, True, 4)
+            head = f"{name} B={b} H={h} S={s} D={w // h} {dname}"
+
+            def quad(kernel, plain):
+                p1, k1, k2, p2 = (_time_ms(plain), _time_ms(kernel),
+                                  _time_ms(kernel), _time_ms(plain))
+                return ((k1 + k2) / 2, (p1 + p2) / 2,
+                        f"runs {k1:.4f}/{k2:.4f} vs {p1:.4f}/{p2:.4f}")
+
+            ms, plain_ms, runs = quad(
+                lambda: FA.flash_attention_fwd(q, k, v, causal),
+                lambda: FA.flash_attention_reference(q, k, v, causal))
+            times[("flash_fwd", name, dname)] = (ms, plain_ms)
+            log(f"[flash-timing] fwd {head}: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms ({runs}) on {smi}")
+            for keep in (False, True):
+                ms, plain_ms, runs = quad(
+                    lambda: FA.flash_attention_bwd(q, k, v, do, causal, keep),
+                    lambda: FA.flash_attention_bwd_reference(q, k, v, do,
+                                                             causal, keep))
+                times[("flash_bwd", keep, name, dname)] = (ms, plain_ms)
+                log(f"[flash-timing] bwd keep_dtype={keep} {head}: kernel "
+                    f"{ms:.4f} ms, plain {plain_ms:.4f} ms ({runs}) on {smi}")
+            # bwd='fused' against bwd='pallas': two kernels, one math
+            pq, pk, pv, pdo = (t.transpose(1, 2).reshape(b, s, w)
+                               for t in (q, k, v, do))
+            fused, packed, runs = quad(
+                lambda: FA._fused_bwd(pq, pk, pv, pdo, h, causal),
+                lambda: FA.mha_packed_bwd(pq, pk, pv, pdo, h, causal))
+            same = torch.equal(FA._fused_bwd(pq, pk, pv, pdo, h, causal),
+                               FA.mha_packed_bwd(pq, pk, pv, pdo, h, causal))
+            log(f"[flash-timing] bwd='fused' {head}: heads-first backward "
+                f"{fused:.4f} ms, packed-head backward {packed:.4f} ms "
+                f"({runs}), gradients bit-equal: {same} on {smi}")
+            if not same:
+                raise AssertionError(f"bwd='fused' and bwd='pallas' differ "
+                                     f"at {head}")
+            # the library's attention on the same views
+            lq, lk, lv = (t.detach().requires_grad_(True) for t in (q, k, v))
+            lib_fwd = _time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal))
+            out = F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal)
+            lib_bwd = _time_ms(lambda: torch.autograd.grad(
+                out, (lq, lk, lv), do, retain_graph=True))
+            ref = FA.flash_attention_reference(q, k, v, causal)
+            lib_err = float((out.detach().float() - ref.float()).abs().max())
+            times[("library", name, dname)] = (lib_fwd, lib_bwd)
+            log(f"[flash-timing] library {head}: "
+                f"scaled_dot_product_attention forward {lib_fwd:.4f} ms, "
+                f"its gradient {lib_bwd:.4f} ms (forward + backward "
+                f"{lib_fwd + lib_bwd:.4f} ms), max abs difference from the "
+                f"plain forward {lib_err:.3e} on {smi}")
+            bounds = [_bound_ms(kind, b, s, h, w // h, dname, causal)
+                      for kind in ("fwd", "bwd")]
+            log(f"[flash-timing] bound {head}: forward "
+                f"{bounds[0][0]:.4f} ms ({bounds[0][1]}), backward "
+                f"{bounds[1][0]:.4f} ms ({bounds[1][1]}) at "
+                f"{HBM_BYTES_PER_S / 1e12:g} TB/s and "
+                f"{PEAK_OPS_PER_S[dname] / 1e12:g} TFLOP/s")
+            del out
+    return times
+
+
 MODEL_CFG = "vitb32_openclip_laion400m"
 # kernel vs plain attention through all 12 layers of a tower: fp32 is the
 # parity bar; in bf16 one flipped rounding per layer feeds the next layer
@@ -444,9 +636,9 @@ def _device_split(prof, steps):
             continue
         name = evt.key.lower()
         ms = evt.self_device_time_total / 1e3 / steps
-        if "mha_fwd" in name:
+        if "attention_fwd" in name:
             fam = "mha_fwd"
-        elif "mha_bwd" in name:
+        elif "attention_bwd" in name:
             fam = "mha_bwd"
         # cuBLAS on Hopper names its GEMMs nvjet_*, older ones *gemm*
         elif any(t in name for t in ("gemm", "nvjet", "cutlass", "xmma")):
@@ -460,26 +652,15 @@ def _device_split(prof, steps):
     return split, sorted(others, reverse=True)[:5]
 
 
-def phase_train_step(ckpt, smi):
-    """One full-width ViT-B/32 cutmix step at bsz 256 from uint8 canvases
-    on the card (augment, cutmix, forward and backward, AdamW), fp32 and
-    bf16: the visual gradients with the kernels against plain attention
-    (autograd through mha_qkv_reference), then steps timed in turns
-    plain, kernel, kernel, plain, then a profiler split of kernel steps
-    with the device's idle share of the same profiled window.
-    Launches made here are not counted for the main path."""
+def _train_setup(ckpt):
+    """The full-width model from the seeded checkpoint, one batch of
+    TRAIN_BSZ random uint8 canvases on the card, and a random head."""
     import numpy as np
     import torch
 
-    from swat_tpu_torch.core.precision import DEFAULT_PRECISION, FP32_PRECISION
-    from swat_tpu_torch.kernels import flash_attention as FA
     from swat_tpu_torch.models.clip import CLIPModel
     from swat_tpu_torch.models.configs import get_model_config
-    from swat_tpu_torch.train.state import create_train_state
-    from swat_tpu_torch.train.steps import (StepDraws, batch_to_device,
-                                            make_encode_loss, make_mix_fn,
-                                            make_mixing_step, make_sampler)
-    from swat_tpu_torch.train.losses import cross_entropy
+    from swat_tpu_torch.train.steps import batch_to_device
 
     cfg = get_model_config(MODEL_CFG)
     model = CLIPModel(cfg)
@@ -500,6 +681,29 @@ def phase_train_step(ckpt, smi):
     head = torch.nn.functional.normalize(torch.from_numpy(
         rng.standard_normal((n_classes, cfg.embed_dim)).astype(np.float32)),
         dim=-1)
+    return cfg, model, batch, head, rng
+
+
+def phase_train_step(ckpt, smi):
+    """One full-width ViT-B/32 cutmix step at bsz 256 from uint8 canvases
+    on the card (augment, cutmix, forward and backward, AdamW), fp32 and
+    bf16: the visual gradients with the kernels against plain attention
+    (autograd through mha_qkv_reference), then steps timed in turns
+    plain, kernel, kernel, plain, then a profiler split of kernel steps
+    with the device's idle share of the same profiled window.
+    Launches made here are not counted for the main path."""
+    import numpy as np
+    import torch
+
+    from swat_tpu_torch.core.precision import DEFAULT_PRECISION, FP32_PRECISION
+    from swat_tpu_torch.kernels import flash_attention as FA
+    from swat_tpu_torch.train.state import create_train_state
+    from swat_tpu_torch.train.steps import (StepDraws, make_encode_loss,
+                                            make_mix_fn, make_mixing_step,
+                                            make_sampler)
+    from swat_tpu_torch.train.losses import cross_entropy
+
+    cfg, model, batch, head, rng = _train_setup(ckpt)
     n_px = cfg.vision.image_size
     sample = make_sampler("cutmix", mix_prob=1.0, image_size=n_px)
     results = {}
@@ -516,7 +720,7 @@ def phase_train_step(ckpt, smi):
                                 ("plain", FA.mha_qkv_reference)):
             state.optimizer.zero_grad(set_to_none=True)
             loss = make_encode_loss(cross_entropy, attn)(
-                state, mix(batch, draws))
+                state, mix(state, batch, draws))
             loss.backward()
             grads[attn_name] = (loss.item(), {
                 n: p.grad.detach().float().flatten().clone()
@@ -581,6 +785,184 @@ def phase_train_step(ckpt, smi):
     return results
 
 
+def _plain_heads_first(qkv, heads, causal):
+    """The towers' heads-first attention on the plain version of the
+    heads-first forward (kernels.attention.heads_first_attention with
+    flash_attention_reference in the kernel's place)."""
+    from swat_tpu_torch.kernels import flash_attention as FA
+
+    b, s, w3 = qkv.shape
+    d = w3 // 3 // heads
+    q, k, v = (t.reshape(b, s, heads, d).transpose(1, 2)
+               for t in qkv.chunk(3, dim=-1))
+    out = FA.flash_attention_reference(q, k, v, causal)
+    return out.transpose(1, 2).reshape(b, s, heads * d)
+
+
+def _reset_counts(FA):
+    FA.LAUNCHES = FA.LAUNCHES_BWD = 0
+    FA.LAUNCHES_FLASH = FA.LAUNCHES_FLASH_BWD = 0
+
+
+def _counts(FA):
+    return (FA.LAUNCHES, FA.LAUNCHES_BWD, FA.LAUNCHES_FLASH,
+            FA.LAUNCHES_FLASH_BWD)
+
+
+# heatmaps (cosines in [-1, 1]) with the heads-first kernel against its
+# plain version through 12 layers: fp32 differs in summation order; in bf16
+# a flipped rounding of a layer's output feeds every later layer
+HEATMAP_ATOL = {"float32": 1e-4, "bfloat16": 5e-2}
+
+
+def phase_attentive_step(ckpt, smi):
+    """One full-width ViT-B/32 attentivemix step at bsz 256 from uint8
+    canvases, fp32 and bf16: the heatmaps through the heads-first forward
+    kernel (one launch a layer), forward and backward through the
+    packed-head kernels.  Before it, the heatmaps with the kernel against
+    its plain version, and the share of images whose peak cell agrees
+    (reported; a near-tie may move a peak).  The four counts are set to 0
+    just before the step and read just after."""
+    import numpy as np
+    import torch
+
+    from swat_tpu_torch.core.precision import DEFAULT_PRECISION, FP32_PRECISION
+    from swat_tpu_torch.eval.heatmap import clip_attention_heatmap
+    from swat_tpu_torch.kernels import augment as aug
+    from swat_tpu_torch.kernels import flash_attention as FA
+    from swat_tpu_torch.train.state import create_train_state
+    from swat_tpu_torch.train.steps import make_mixing_step, make_sampler
+
+    cfg, model, batch, head, rng = _train_setup(ckpt)
+    n_px, layers = cfg.vision.image_size, cfg.vision.layers
+    sample = make_sampler("attentivemix", mix_prob=1.0, image_size=n_px)
+    total = 0
+    for dname, precision in (("float32", FP32_PRECISION),
+                             ("bfloat16", DEFAULT_PRECISION)):
+        precision.apply_backend_flags()
+        model.precision = precision
+        state = create_train_state(model, head, "attentivemix",
+                                   total_iter=100)
+        draws = sample(rng, batch)
+        with torch.no_grad():
+            images = aug.train_augment(batch["canvases"], draws.crops, n_px)
+            got = clip_attention_heatmap(model, images)
+            ref = clip_attention_heatmap(model, images,
+                                         attention=_plain_heads_first)
+            torch.cuda.synchronize()
+        grid = n_px // cfg.vision.patch_size
+        if got.shape != (TRAIN_BSZ, grid, grid) or not bool(
+                torch.isfinite(got).all()):
+            raise AssertionError(f"heatmaps malformed ({dname})")
+        err = float((got - ref).abs().max())
+        peaks = float((got.flatten(1).argmax(-1)
+                       == ref.flatten(1).argmax(-1)).float().mean())
+        ok = err <= HEATMAP_ATOL[dname]
+        log(f"[attentive-step] {MODEL_CFG} heatmaps [{TRAIN_BSZ}, {grid}, "
+            f"{grid}] {dname}: heads-first kernel vs plain max_abs_err="
+            f"{err:.3e} (tol {HEATMAP_ATOL[dname]:g}), peak cell agrees in "
+            f"{100 * peaks:.1f} % of images {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"heatmaps disagree ({dname})")
+        step = make_mixing_step(
+            "attentivemix", image_size=n_px,
+            heatmap_fn=lambda m, x, y: clip_attention_heatmap(m, x))
+        _reset_counts(FA)
+        loss = step(state, batch, draws)
+        torch.cuda.synchronize()
+        counts = _counts(FA)
+        ms = _time_ms(lambda: step(state, batch, draws), iters=3, warmup=0)
+        log(f"[attentive-step] {dname}: loss {float(loss):.6f} (summed over "
+            f"the batch), launches fwd {counts[0]} bwd {counts[1]} "
+            f"heads-first fwd {counts[2]} heads-first bwd {counts[3]} (need "
+            f"{layers}, {layers}, {layers}, 0); {ms:.2f} ms/step "
+            f"({TRAIN_BSZ * 1e3 / ms:.1f} images/s) on {smi}")
+        if not np.isfinite(float(loss)) or counts != (layers, layers,
+                                                      layers, 0):
+            raise AssertionError(f"attentivemix step did not go through the "
+                                 f"kernels as expected ({dname}): {counts}")
+        total += counts[2]
+        del state, step
+    del model
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_fused_step(ckpt, smi):
+    """One full-width ViT-B/32 cutmix step at bsz 256 with bwd='fused' (the
+    packed-head forward, the heads-first backward kernel in its keep-dtype
+    form as its gradient), fp32 and bf16: the visual gradients against
+    bwd='pallas', then the step itself with the counts set to 0 just before
+    it and read just after."""
+    import numpy as np
+    import torch
+
+    from swat_tpu_torch.core.precision import DEFAULT_PRECISION, FP32_PRECISION
+    from swat_tpu_torch.kernels import flash_attention as FA
+    from swat_tpu_torch.train.losses import cross_entropy
+    from swat_tpu_torch.train.state import create_train_state
+    from swat_tpu_torch.train.steps import (make_encode_loss, make_mix_fn,
+                                            make_mixing_step, make_sampler)
+
+    def fused(qkv, heads, causal):
+        return FA.mha_qkv(qkv, heads, causal, "fused")
+
+    cfg, model, batch, head, rng = _train_setup(ckpt)
+    n_px, layers = cfg.vision.image_size, cfg.vision.layers
+    sample = make_sampler("cutmix", mix_prob=1.0, image_size=n_px)
+    mix = make_mix_fn("cutmix", image_size=n_px)
+    total = 0
+    for dname, precision in (("float32", FP32_PRECISION),
+                             ("bfloat16", DEFAULT_PRECISION)):
+        precision.apply_backend_flags()
+        model.precision = precision
+        state = create_train_state(model, head, "cutmix", total_iter=100)
+        draws = sample(rng, batch)
+        grads = {}
+        for attn_name, attn in (("fused", fused), ("pallas", FA.mha_qkv)):
+            state.optimizer.zero_grad(set_to_none=True)
+            loss = make_encode_loss(cross_entropy, attn)(
+                state, mix(state, batch, draws))
+            loss.backward()
+            grads[attn_name] = (loss.item(), {
+                n: p.grad.detach().float().flatten().clone()
+                for n, p in model.named_parameters() if p.grad is not None})
+        (lf, gf), (lp, gp) = grads["fused"], grads["pallas"]
+        cos = {n: float(torch.nn.functional.cosine_similarity(
+            gf[n], gp[n], dim=0)) for n in gf if gp[n].abs().max() > 0}
+        worst = min(cos, key=cos.get)
+        equal = sum(bool(torch.equal(gf[n], gp[n])) for n in gf)
+        ok = lf == lp and cos[worst] >= GRAD_MIN_COS[dname]
+        log(f"[fused-step] {MODEL_CFG} cutmix bsz {TRAIN_BSZ} {dname}: loss "
+            f"fused {lf:.6f} / pallas {lp:.6f}; min cosine of {len(cos)} "
+            f"visual grads bwd='fused' vs bwd='pallas' = {cos[worst]:.8f} "
+            f"({worst}; bound {GRAD_MIN_COS[dname]}), {equal} of {len(gf)} "
+            f"tensors bit-equal {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"bwd='fused' gradients disagree ({dname})")
+        del grads, gf, gp
+        state.optimizer.zero_grad(set_to_none=True)
+        step = make_mixing_step("cutmix", image_size=n_px, attention=fused)
+        _reset_counts(FA)
+        loss = step(state, batch, draws)
+        torch.cuda.synchronize()
+        counts = _counts(FA)
+        ms = _time_ms(lambda: step(state, batch, draws), iters=3, warmup=0)
+        log(f"[fused-step] {dname}: loss {float(loss):.6f}, launches fwd "
+            f"{counts[0]} bwd {counts[1]} heads-first fwd {counts[2]} "
+            f"heads-first bwd {counts[3]} (need {layers}, 0, 0, {layers}); "
+            f"{ms:.2f} ms/step ({TRAIN_BSZ * 1e3 / ms:.1f} images/s) on "
+            f"{smi}")
+        if not np.isfinite(float(loss)) or counts != (layers, 0, 0, layers):
+            raise AssertionError(f"bwd='fused' step did not go through the "
+                                 f"heads-first backward ({dname}): {counts}")
+        total += counts[3]
+        del state, step
+    del model
+    torch.cuda.empty_cache()
+    return total
+
+
 def _write_retrieved(root, dataset, n_per_class, n_classes=10, seed=1):
     """A retrieved split beside the smoke dataset's few-shot and test
     splits (retrieved data lives under retrieved_path/<dataset>)."""
@@ -610,11 +992,12 @@ RETRIEVAL_SPLIT = "retrieved_smoke.txt"
 CLI_BSZ = 64
 
 
-def phase_train_cli(workdir, ckpt, dataset, smi):
-    """Stage-1 cutmix finetuning through swat_tpu_torch.cli.main at full
-    width: fp32 with resident train data, fp32 streaming, bf16 resident.
-    LAUNCHES and LAUNCHES_BWD are set to 0 just before each run and read
-    just after it."""
+def _train_cli_run(workdir, ckpt, dataset, method, dtype, resident, smi,
+                   extra=()):
+    """One stage-1 run of ``method`` through swat_tpu_torch.cli.main at full
+    width (2 epochs at bsz CLI_BSZ, --skip_stage2), its summary line,
+    loss.csv and output files checked.  The four counts are set to 0 just
+    before the run and read just after -> (counts, steps)."""
     import contextlib
     import csv
     import io
@@ -624,67 +1007,93 @@ def phase_train_cli(workdir, ckpt, dataset, smi):
 
     from swat_tpu_torch.cli.main import main as cli_main
     from swat_tpu_torch.kernels import flash_attention as FA
+
+    folder = f"{workdir}/train_{method}_{dtype}_{resident}"
+    _reset_counts(FA)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli_main(["--dataset", dataset, "--method", method,
+                  "--data_source", "fewshot+retrieved",
+                  "--retrieval_split", RETRIEVAL_SPLIT,
+                  "--shots", "4", "--epochs", "2", "--skip_stage2",
+                  "--bsz", str(CLI_BSZ), "--model_cfg", MODEL_CFG,
+                  "--checkpoint_path", ckpt,
+                  "--config_yml", f"{workdir}/config.yml",
+                  "--folder", folder, "--compute_dtype", dtype,
+                  "--resident", resident, "--num_workers", "8",
+                  "--recal_prompt", "--device", "cuda", *extra])
+    counts = _counts(FA)
+    out = buf.getvalue()
+    summary = [ln for ln in out.splitlines()
+               if ln.startswith(f"{dataset},{method},")]
+    if len(summary) != 1 or len(summary[0].split(",")) != 11:
+        raise AssertionError(f"no 11-field summary line:\n{out[-2000:]}")
+    accs = [float(x) for x in summary[0].split(",")[7:]]
+    if not all(0.0 <= a <= 100.0 for a in accs[:2]) or \
+            accs[2:] != [-1.0, -1.0]:
+        raise AssertionError(f"bad accuracies in {summary[0]}")
+    (run_dir,) = [r for r, _, files in os.walk(folder)
+                  if "loss.csv" in files]
+    with open(os.path.join(run_dir, "loss.csv")) as f:
+        rows = list(csv.DictReader(f))
+    losses = [float(r["Train_loss"]) for r in rows]
+    if len(rows) != 2 or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"loss.csv malformed: {rows}")
+    files = sorted(os.listdir(run_dir))
+    want = ["stage1_test_confusion_matrix.npy", "stage1_test_scores.json",
+            "stage1_val_confusion_matrix_best.npy",
+            "stage1_val_scores_best.json"]
+    bundles = [f for f in files if re.fullmatch(
+        r"stage1_model_best-epoch_\d+_best\.pt(\.json)?", f)]
+    missing = [w for w in want if w not in files]
+    if missing or len(bundles) != 2:
+        raise AssertionError(f"stage-1 outputs missing: {missing} "
+                             f"(bundle files {bundles})")
+    resident_run = "resident epochs" in out
+    rate = re.findall(r"Epoch \d+, Iter \d+, .*?, (\d+) img/s", out)
+    steps = len(rows) * ((40 + 220) // CLI_BSZ)
+    log(f"[train-cli] {method} {dtype} resident={resident}"
+        f"{' (resident epochs)' if resident_run else ' (streaming)'}: "
+        f"{summary[0]} | train loss {losses[0]:.6f} -> {losses[1]:.6f} | "
+        f"{steps} steps at bsz {CLI_BSZ}, epoch rates {'/'.join(rate)} "
+        f"images/s (host clock, decode included when streaming) on {smi} | "
+        f"kernel launches fwd {counts[0]} bwd {counts[1]} heads-first fwd "
+        f"{counts[2]} heads-first bwd {counts[3]}")
+    return counts, steps, resident_run
+
+
+def phase_train_cli(workdir, ckpt, dataset, smi):
+    """Stage-1 finetuning through swat_tpu_torch.cli.main at full width:
+    cutmix in fp32 with resident train data, fp32 streaming and bf16
+    resident; attentivemix (streaming, its heatmaps through the heads-first
+    forward at every step: --mix_prob 1) and mixup (resident) in fp32.
+    -> the four counts summed over the runs, each run counted from 0."""
     from swat_tpu_torch.models.configs import get_model_config
 
-    cfg = get_model_config(MODEL_CFG)
-    n_train = 40 + _write_retrieved(workdir, dataset, 22)
-    steps = 2 * (n_train // CLI_BSZ)
-    need = cfg.vision.layers * steps
-    total = [0, 0]
-    for dtype, resident in (("float32", "auto"), ("float32", "off"),
-                            ("bfloat16", "auto")):
-        folder = f"{workdir}/train_{dtype}_{resident}"
-        FA.LAUNCHES = FA.LAUNCHES_BWD = 0
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            cli_main(["--dataset", dataset, "--method", "cutmix",
-                      "--data_source", "fewshot+retrieved",
-                      "--retrieval_split", RETRIEVAL_SPLIT,
-                      "--shots", "4", "--epochs", "2", "--skip_stage2",
-                      "--bsz", str(CLI_BSZ), "--model_cfg", MODEL_CFG,
-                      "--checkpoint_path", ckpt,
-                      "--config_yml", f"{workdir}/config.yml",
-                      "--folder", folder, "--compute_dtype", dtype,
-                      "--resident", resident, "--num_workers", "8",
-                      "--recal_prompt", "--device", "cuda"])
-        fwd, bwd = FA.LAUNCHES, FA.LAUNCHES_BWD
-        total[0] += fwd
-        total[1] += bwd
-        out = buf.getvalue()
-        summary = [ln for ln in out.splitlines()
-                   if ln.startswith(f"{dataset},cutmix,")]
-        if len(summary) != 1 or len(summary[0].split(",")) != 11:
-            raise AssertionError(f"no 11-field summary line:\n{out[-2000:]}")
-        accs = [float(x) for x in summary[0].split(",")[7:]]
-        if not all(0.0 <= a <= 100.0 for a in accs[:2]) or \
-                accs[2:] != [-1.0, -1.0]:
-            raise AssertionError(f"bad accuracies in {summary[0]}")
-        (run_dir,) = [r for r, _, files in os.walk(folder)
-                      if "loss.csv" in files]
-        with open(os.path.join(run_dir, "loss.csv")) as f:
-            rows = list(csv.DictReader(f))
-        losses = [float(r["Train_loss"]) for r in rows]
-        if len(rows) != 2 or not all(math.isfinite(x) for x in losses):
-            raise AssertionError(f"loss.csv malformed: {rows}")
-        files = sorted(os.listdir(run_dir))
-        want = ["stage1_model_best-epoch_2_best.pt",
-                "stage1_model_best-epoch_2_best.pt.json",
-                "stage1_test_confusion_matrix.npy",
-                "stage1_test_scores.json",
-                "stage1_val_confusion_matrix_best.npy",
-                "stage1_val_scores_best.json"]
-        missing = [w for w in want if w not in files]
-        if missing:
-            raise AssertionError(f"stage-1 outputs missing: {missing}")
-        rate = re.findall(r"Epoch \d+, Iter \d+, .*?, (\d+) img/s", out)
-        log(f"[train-cli] {dtype} resident={resident}: {summary[0]} | train "
-            f"loss {losses[0]:.6f} -> {losses[1]:.6f} | {steps} steps at bsz "
-            f"{CLI_BSZ}, epoch rates {'/'.join(rate)} images/s (host clock, "
-            f"decode included when streaming) on {smi} | kernel launches "
-            f"fwd {fwd} bwd {bwd} (need >= {need} each)")
-        if fwd < need or bwd < need:
-            raise AssertionError("stage-1 training did not go through the "
-                                 "attention kernels")
+    layers = get_model_config(MODEL_CFG).vision.layers
+    _write_retrieved(workdir, dataset, 22)
+    total = [0, 0, 0, 0]
+    runs = [("cutmix", "float32", "auto", (), True),
+            ("cutmix", "float32", "off", (), False),
+            ("cutmix", "bfloat16", "auto", (), True),
+            ("attentivemix", "float32", "auto", ("--mix_prob", "1.0"), False),
+            ("mixup", "float32", "auto", (), True)]
+    for method, dtype, resident, extra, want_resident in runs:
+        counts, steps, resident_run = _train_cli_run(
+            workdir, ckpt, dataset, method, dtype, resident, smi, extra)
+        need = layers * steps
+        need_flash = need if method == "attentivemix" else 0
+        log(f"[train-cli] {method}: need >= {need} fwd and bwd, "
+            f"{need_flash} heads-first fwd, 0 heads-first bwd")
+        if (counts[0] < need or counts[1] < need or counts[2] != need_flash
+                or counts[3] != 0):
+            raise AssertionError(f"stage-1 {method} training did not go "
+                                 f"through the attention kernels: {counts}")
+        if resident_run != want_resident:
+            raise AssertionError(f"{method} resident={resident}: resident "
+                                 f"epochs {resident_run}, expected "
+                                 f"{want_resident}")
+        total = [t + c for t, c in zip(total, counts)]
     return total
 
 
@@ -713,28 +1122,50 @@ def main() -> int:
     times = phase_timing(smi)
     worst_bwd = phase_bwd_kernel_vs_plain()
     times_bwd = phase_bwd_timing(smi)
+    worst_flash = phase_flash_kernels_vs_plain()
+    times_flash = phase_flash_timing(smi)
     with tempfile.TemporaryDirectory(prefix="swat_smoke_") as workdir:
         ckpt = phase_towers(workdir, smi)
         launches = phase_cli(workdir, ckpt, smi)
         phase_train_step(ckpt, smi)
-        train_fwd, train_bwd = phase_train_cli(workdir, ckpt, "smoke10", smi)
-    # the CLI default (fp32) at the B/32 image shape; launches: the
-    # zero-shot runs and the stage-1 runs, each counted from 0
-    ms, plain_ms = times[("vitb32_image", "float32")]
-    ms_bwd, plain_ms_bwd = times_bwd[("vitb32_image", "float32")]
-    print(json.dumps({"kernels": [{
-        "name": "mha_fwd", "route": "cuda",
-        "source": "swat_tpu_torch/csrc/mha_fwd.cu",
-        "replaces": "swat_tpu/kernels/flash_attention.py:159",
-        "launches": launches + train_fwd,
-        "max_abs_err": worst[("vitb32_image", "float32")],
-        "ms": ms, "plain_ms": plain_ms}, {
-        "name": "mha_bwd", "route": "cuda",
-        "source": "swat_tpu_torch/csrc/mha_bwd.cu",
-        "replaces": "swat_tpu/kernels/flash_attention.py:187",
-        "launches": train_bwd,
-        "max_abs_err": worst_bwd[("vitb32_image", "float32")],
-        "ms": ms_bwd, "plain_ms": plain_ms_bwd}]}), flush=True)
+        step_flash = phase_attentive_step(ckpt, smi)
+        step_flash_bwd = phase_fused_step(ckpt, smi)
+        cli_counts = phase_train_cli(workdir, ckpt, "smoke10", smi)
+    # each kernel at the CLI default (fp32) and the B/32 image shape
+    # (B=256, H=12, S=50, D=64).  launches: the zero-shot runs, the stage-1
+    # runs and the train-step phases that drive a kernel's path, each
+    # counted from 0.  The heads-first backward is reached through
+    # bwd='fused' (the train-step phase); no flag of the CLI selects it, as
+    # in the JAX package.
+    shape = ("vitb32_image", "float32")
+    _, b, s, h, w, causal = KERNEL_SHAPES[0]
+    lib_fwd, lib_bwd = times_flash[("library", *shape)]
+
+    def entry(name, source, line, kind, n_launches, err, ms_pair, lib):
+        bound, by = _bound_ms(kind, b, s, h, w // h, "float32", causal)
+        return {"name": name, "route": "cuda",
+                "source": f"swat_tpu_torch/csrc/{source}",
+                "replaces": f"swat_tpu/kernels/flash_attention.py:{line}",
+                "launches": n_launches, "max_abs_err": err,
+                "ms": ms_pair[0], "plain_ms": ms_pair[1], "bound_ms": bound,
+                "bound_by": by, "library_ms": lib}
+
+    kernels = [
+        entry("mha_fwd", "mha_fwd.cu", 159, "fwd", launches + cli_counts[0],
+              worst[shape], times[shape], lib_fwd),
+        entry("mha_bwd", "mha_bwd.cu", 187, "bwd", cli_counts[1],
+              worst_bwd[shape], times_bwd[shape], lib_bwd),
+        entry("flash_fwd", "flash_fwd.cu", 39, "fwd",
+              step_flash + cli_counts[2], worst_flash[("flash_fwd", *shape)],
+              times_flash[("flash_fwd", *shape)], lib_fwd),
+        entry("flash_bwd", "flash_bwd.cu", 61, "bwd", step_flash_bwd,
+              worst_flash[("flash_bwd", *shape)],
+              times_flash[("flash_bwd", False, *shape)], lib_bwd)]
+    for k in kernels:
+        if k["launches"] <= 0:
+            raise AssertionError(f"{k['name']} was launched no time on its "
+                                 f"path")
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,4 +1,4 @@
-# Copied from swat_tpu/cli/main.py, plus --device; the parser collapses into an import once swat_tpu's package inits stop importing JAX (ROADMAP Queue A item 0).
+# Copied from swat_tpu/cli/main.py, plus --device; the port keeps its own copy, permanently (it imports nothing of swat_tpu).
 """main.py-compatible CLI of the PyTorch port.
 
 Same flags, same output formats, same one-line CSV summary as the reference
@@ -12,7 +12,8 @@ The port adds ``--device {cuda,cpu}``.  ``--use_pallas`` is accepted and
 does nothing (the kernels always run on the card); ``--remat`` and
 ``--accum`` do nothing for inference and raise in training; a mesh other
 than one device raises.  Ported so far: ``--method zeroshot``, and stage 1
-of ``--method cutmix`` / ``finetune`` with ``--skip_stage2``.
+of ``--method finetune`` / ``cutmix`` / ``mixup`` / ``resizemix`` /
+``saliencymix`` / ``attentivemix`` with ``--skip_stage2``.
 
 Usage:
     python -m swat_tpu_torch.cli.main --dataset semi-aves --method zeroshot \

@@ -1,4 +1,4 @@
-# Copied from swat_tpu/core/config.py, plus the port's device field; it collapses into an import once swat_tpu's package inits stop importing JAX (ROADMAP Queue A item 0).
+# Copied from swat_tpu/core/config.py, plus the port's device field; the port keeps its own copy, permanently (it imports nothing of swat_tpu).
 """Run configuration.
 
 Flag-compatible with the reference CLI (utils/parser.py:7-218) but held in
@@ -13,7 +13,7 @@ import dataclasses
 import os
 from typing import List, Optional, Tuple, Union
 
-from swat_tpu.data.registry import NUM_CLASSES_DICT
+from swat_tpu_torch.data.registry import NUM_CLASSES_DICT
 
 SplitSpec = Tuple[List[str], List[str]]
 

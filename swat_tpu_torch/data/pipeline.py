@@ -1,4 +1,4 @@
-# Copied in part (_prefetch, EvalLoader, TrainLoader) from swat_tpu/data/pipeline.py; it collapses into an import once swat_tpu's package inits stop importing JAX (ROADMAP Queue A item 0).
+# Copied in part (_prefetch, EvalLoader, TrainLoader) from swat_tpu/data/pipeline.py; the port keeps its own copy, permanently (it imports nothing of swat_tpu).
 """Host input pipeline (counterpart of ``swat_tpu/data/pipeline.py:32-162,
 216-307``).
 
@@ -13,17 +13,16 @@ on-device augmentation (or, in ``eval`` mode, eval-preprocessed images).
 from __future__ import annotations
 
 import concurrent.futures as cf
-import ctypes
 import queue
 import threading
 from typing import Dict, Iterator, List, Sequence
 
 import numpy as np
 
-from swat_tpu.data.splits import Sample
-from swat_tpu_torch.data.transforms import (CANVAS_SIZE, eval_crop,
-                                            eval_preprocess, load_image,
-                                            normalize_u8, train_canvas)
+from swat_tpu_torch.data import native
+from swat_tpu_torch.data.splits import Sample
+from swat_tpu_torch.data.transforms import (CANVAS_SIZE, eval_preprocess,
+                                            load_image, normalize_u8)
 
 
 def _prefetch(gen, depth: int = 2):
@@ -67,48 +66,12 @@ def _prefetch(gen, depth: int = 2):
         stop.set()
 
 
-def _native_decoder():
-    """The C++ decoder of ``swat_tpu/data/native`` (GIL-free JPEG decode,
-    resize onto the canvas or the center crop), or None when it does not
-    build.  The port calls the library itself: for an image it rejects
-    (PNG, CMYK, ...) the package's Python wrappers fall back to
-    ``swat_tpu.data.transforms``, which imports JAX."""
-    from swat_tpu.data import native
-
-    return native._load()
-
-
-def _decode(samples: Sequence[Sample], entry: str, outs, size: int,
-            fallback, num_workers: int) -> None:
-    """Fill ``outs`` (one row per sample): the native decoder's ``entry``
-    where it decodes the image, else ``fallback(image) -> row values``,
-    the port's own PIL transform, on a thread pool."""
-    paths = [s.path for s in samples]
-    status = np.ones(len(paths), np.int32)       # nonzero: not decoded
-    lib = _native_decoder()
-    if lib is not None and paths:
-        c_paths = (ctypes.c_char_p * len(paths))(*[p.encode() for p in paths])
-        ptrs = [o.ctypes.data_as(ctypes.POINTER(np.ctypeslib.as_ctypes_type(
-            o.dtype))) for o in outs + (status,)]
-        getattr(lib, entry)(c_paths, len(paths), size, *ptrs,
-                            max(1, num_workers))
-    todo = np.nonzero(status)[0]
-    with cf.ThreadPoolExecutor(max(1, num_workers)) as pool:
-        for i, rows in zip(todo, pool.map(
-                lambda i: fallback(load_image(paths[i])), todo)):
-            for out, row in zip(outs, rows):
-                out[i] = row
-
-
 def eval_pixels_u8(samples: Sequence[Sample], n_px: int,
                    num_workers: int) -> np.ndarray:
     """uint8 center crops [N, n_px, n_px, 3]: the native decoder where it
     decodes the image, PIL threads for the rest."""
-    out = np.zeros((len(samples), n_px, n_px, 3), np.uint8)
-    _decode(samples, "dec_eval_batch", (out,), n_px,
-            lambda img: (np.asarray(eval_crop(img, n_px), np.uint8),),
-            num_workers)
-    return out
+    return native.batch_eval_pixels([s.path for s in samples], n_px,
+                                    num_workers)
 
 
 class EvalLoader:
@@ -157,12 +120,8 @@ def train_canvases(samples: Sequence[Sample], num_workers: int):
     """uint8 canvases [N, CANVAS_SIZE, CANVAS_SIZE, 3] and valid_hw [N, 2]
     int32: the native decoder where it decodes the image, PIL threads for
     the rest."""
-    n = len(samples)
-    canvases = np.zeros((n, CANVAS_SIZE, CANVAS_SIZE, 3), np.uint8)
-    valid_hw = np.zeros((n, 2), np.int32)
-    _decode(samples, "dec_canvas_batch", (canvases, valid_hw), CANVAS_SIZE,
-            train_canvas, num_workers)
-    return canvases, valid_hw
+    return native.batch_train_canvases([s.path for s in samples],
+                                       CANVAS_SIZE, num_workers)
 
 
 class TrainLoader:

@@ -1,4 +1,4 @@
-# Copied in part (the eval half and train_canvas) from swat_tpu/data/transforms.py; it collapses into an import once swat_tpu's package inits stop importing JAX (ROADMAP Queue A item 0).
+# Copied in part (the eval half and train_canvas) from swat_tpu/data/transforms.py; the port keeps its own copy, permanently (it imports nothing of swat_tpu).
 """Host-side image preprocessing (counterpart of
 ``swat_tpu/data/transforms.py:22-76``; copied, since that module imports
 the JAX augmentation kernels for its constants).

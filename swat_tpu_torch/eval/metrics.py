@@ -1,4 +1,4 @@
-# Copied from swat_tpu/eval/metrics.py (calculate_scores); it collapses into an import once swat_tpu's package inits stop importing JAX (ROADMAP Queue A item 0).
+# Copied from swat_tpu/eval/metrics.py (calculate_scores); the port keeps its own copy, permanently (it imports nothing of swat_tpu).
 """Per-class scores from a confusion matrix (counterpart of
 ``swat_tpu/eval/metrics.py:29-56``; copied, since ``swat_tpu.eval``'s
 package init imports JAX).  Rows are true labels, columns predictions;

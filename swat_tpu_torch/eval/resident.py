@@ -16,7 +16,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from swat_tpu.data.splits import Sample
+from swat_tpu_torch.data.splits import Sample
 from swat_tpu_torch.data.pipeline import eval_pixels_u8
 from swat_tpu_torch.data.transforms import CLIP_MEAN, CLIP_STD
 from swat_tpu_torch.models.clip import CLIPModel

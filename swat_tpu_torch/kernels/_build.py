@@ -3,12 +3,13 @@
 The sources under ``swat_tpu_torch/csrc`` have a plain C interface, so they
 compile in seconds (no PyTorch headers): one ``nvcc -c`` per source, all
 started together, then one ``nvcc -shared`` link (14.5-14.9 s on an H100
-host with 8 cores, against 21.3-21.5 s for one ``nvcc`` over both sources,
-measured in one run) into
+host with 8 cores for the two packed-head sources, against 21.3-21.5 s for
+one ``nvcc`` over both, measured in one run) into
 ``build/swat_tpu_torch/<digest>/libswat_kernels.so`` at the root of the
 checkout, a directory that ``.gitignore`` lists.  ``<digest>`` hashes the
-sources and the flags: an edited source builds anew, an unchanged one is
-loaded as it is.  The build happens at first use, never at import.
+sources, the headers they share and the flags: an edited source builds
+anew, an unchanged one is loaded as it is.  The build happens at first use,
+never at import.
 """
 
 from __future__ import annotations
@@ -24,7 +25,10 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build",
                           "swat_tpu_torch")
-SOURCES = ("mha_fwd.cu", "mha_bwd.cu")
+# one translation unit per kernel; the packed-head and the heads-first
+# kernels instantiate the templates of the two headers
+SOURCES = ("mha_fwd.cu", "mha_bwd.cu", "flash_fwd.cu", "flash_bwd.cu")
+HEADERS = ("attention_fwd.cuh", "attention_bwd.cuh")
 # sm_90a: the Hopper target with wgmma / setmaxnreg (plain sm_90 lacks them);
 # -Xptxas -v writes each kernel's registers and spills into build.log
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -49,7 +53,7 @@ def find_nvcc() -> str:
 
 def source_digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         with open(os.path.join(CSRC_DIR, name), "rb") as f:
             h.update(f.read())
@@ -106,6 +110,13 @@ def load() -> ctypes.CDLL:
     lib.swat_mha_bwd.restype = i
     lib.swat_mha_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i,
                                  *([ll] * 14), ctypes.c_float, i, p]
+    lib.swat_flash_fwd.restype = i
+    lib.swat_flash_fwd.argtypes = [p, p, p, p, i, i, i, i, i, *([ll] * 12),
+                                   ctypes.c_float, i, p]
+    lib.swat_flash_bwd.restype = i
+    lib.swat_flash_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i,
+                                   ctypes.POINTER(ll), ctypes.c_float, i, i,
+                                   p]
     lib.swat_cuda_error_string.restype = ctypes.c_char_p
     lib.swat_cuda_error_string.argtypes = [i]
     return lib

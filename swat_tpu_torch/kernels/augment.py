@@ -1,22 +1,27 @@
 """On-device batched train augmentation (counterpart of
-``swat_tpu/kernels/augment.py:34-231``): random-resized-crop, horizontal
-flip and CLIP normalization from uint8 canvases, and cutmix.
+``swat_tpu/kernels/augment.py``): random-resized-crop, horizontal flip and
+CLIP normalization from uint8 canvases, and the single-loader mixing
+strategies: cutmix, mixup, resizemix, saliencymix and attentivemix.
 
 Every sampled quantity is an explicit input.  The host draws them from a
 ``numpy.random.Generator`` (``sample_crops``, ``sample_flips``,
-``sample_cutmix``): a batch needs B x 10 candidate crop sizes and a few
+``sample_cutmix``, ``sample_mixup``, ``sample_resizemix``,
+``sample_peak_mix``): a batch needs B x 10 candidate crop sizes and a few
 scalars, and torch's Beta sampler takes no generator.  The device functions
-(``random_resized_crop``, ``hflip``, ``train_augment``, ``cutmix``) apply
-the draws, so a test can feed them the JAX package's own draws.  The other
-mixing strategies (mixup, resizemix, saliencymix, CMO) are not ported yet
+(``random_resized_crop``, ``hflip``, ``train_augment``, ``cutmix``,
+``mixup``, ``resizemix``, ``saliencymix``, ``attentivemix``) apply the
+draws, so a test can feed them the JAX package's own draws.  The
+twin-loader strategies (mixup-fs, cutmix-fs, CMO) are not ported yet
 (ROADMAP Queue A item 6).
 
-The resample is ``jax.image.scale_and_translate(method="cubic")``, not
-``F.interpolate``: Keys' cubic (a = -0.5), antialiased on downscale, with
-weights over the whole canvas (zero padding included), normalised per
-output pixel under a 1000*eps guard, and output pixels whose sample point
-falls outside [-0.5, in - 0.5] zeroed.  It runs as two per-sample weight
-matrices applied with batched matmuls.
+The resamples are ``jax.image.scale_and_translate``, not
+``F.interpolate``: weights over the whole input (zero padding included),
+normalised per output pixel under a 1000*eps guard, and output pixels whose
+sample point falls outside [-0.5, in - 0.5] zeroed.  The crop uses Keys'
+cubic (a = -0.5), antialiased on downscale, as two per-sample weight
+matrices applied with batched matmuls; resizemix the triangle kernel
+without antialiasing, with a translation, as one pair of matrices for the
+batch.
 """
 
 from __future__ import annotations
@@ -118,12 +123,84 @@ def sample_cutmix(rng: np.random.Generator, batch: int, height: int,
     U[0,1) < mix_prob; beta <= 0 disables mixing with lam0 = 1
     (``_safe_beta``); the box centre is uniform over the image."""
     gate = bool(rng.random() < mix_prob)
-    lam0 = float(rng.beta(beta, beta)) if beta > 0 else 1.0
+    lam0 = _beta(rng, beta)
     perm = rng.permutation(batch)
     cy = int(rng.integers(0, height))
     cx = int(rng.integers(0, width))
     return CutmixDraws(gate, lam0, perm,
                        rand_bbox(height, width, lam0, cy, cx))
+
+
+@dataclasses.dataclass
+class MixupDraws:
+    """One batch's mixup draws: lam, the Beta draw already replaced by 1
+    where the mix_prob gate is off, and the pairing permutation [B]."""
+    lam: float
+    perm: np.ndarray
+
+
+@dataclasses.dataclass
+class ResizemixDraws:
+    """One batch's resizemix draws: the gate, the pasted patch's size
+    (rh, rw) = int32(size * tau) and its top-left corner, shared by the
+    batch, and the pairing permutation [B]."""
+    gate: bool
+    rh: int
+    rw: int
+    pos_y: int
+    pos_x: int
+    perm: np.ndarray
+
+
+@dataclasses.dataclass
+class PeakMixDraws:
+    """One batch's saliencymix / attentivemix draws: the gate, the Beta
+    draw lam0 that sizes the boxes, and the pairing permutation [B].  The
+    boxes' centres come from the images on the device."""
+    gate: bool
+    lam0: float
+    perm: np.ndarray
+
+
+def _beta(rng: np.random.Generator, beta: float) -> float:
+    """Beta(beta, beta), or 1 when beta <= 0 (``augment._safe_beta``)."""
+    return float(rng.beta(beta, beta)) if beta > 0 else 1.0
+
+
+def sample_mixup(rng: np.random.Generator, batch: int, alpha: float = 1.0,
+                 mix_prob: float = 0.5) -> MixupDraws:
+    """``augment.mixup``'s draws: the gate is U[0,1) <= mix_prob."""
+    gate = bool(rng.random() <= mix_prob)
+    lam = _beta(rng, alpha)
+    return MixupDraws(lam if gate else 1.0, rng.permutation(batch))
+
+
+def resized_patch(height: int, width: int, tau) -> Tuple[int, int]:
+    """(rh, rw) = int32(size * tau) of an fp32 product, truncated, as
+    ``augment.resizemix`` computes them."""
+    tau = np.float32(tau)
+    return int(np.float32(height) * tau), int(np.float32(width) * tau)
+
+
+def sample_resizemix(rng: np.random.Generator, batch: int, height: int,
+                     width: int, mix_prob: float = 0.5,
+                     tau_range=(0.1, 0.8)) -> ResizemixDraws:
+    """``augment.resizemix``'s draws: one tau and one position for the
+    whole batch."""
+    gate = bool(rng.random() < mix_prob)
+    rh, rw = resized_patch(height, width,
+                           rng.uniform(tau_range[0], tau_range[1]))
+    perm = rng.permutation(batch)
+    pos_y = int(rng.integers(0, max(height - rh, 1)))
+    pos_x = int(rng.integers(0, max(width - rw, 1)))
+    return ResizemixDraws(gate, rh, rw, pos_y, pos_x, perm)
+
+
+def sample_peak_mix(rng: np.random.Generator, batch: int, beta: float = 1.0,
+                    mix_prob: float = 0.5) -> PeakMixDraws:
+    """``augment.saliencymix`` / ``attentivemix``'s draws."""
+    gate = bool(rng.random() < mix_prob)
+    return PeakMixDraws(gate, _beta(rng, beta), rng.permutation(batch))
 
 
 # ---------------------------------------------------------------------------
@@ -137,20 +214,28 @@ def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 2.0, torch.zeros_like(out), out)
 
 
+def _triangle(x: torch.Tensor) -> torch.Tensor:
+    """The linear kernel (jax.image's _fill_triangle_kernel)."""
+    return torch.clamp(1.0 - x.abs(), min=0.0)
+
+
 def resample_weights(in_size: int, out_size: int, scale: torch.Tensor,
-                     translation: torch.Tensor) -> torch.Tensor:
-    """Per-sample antialiased cubic weights [B, in_size, out_size] in fp32,
-    jax.image's compute_weight_mat for scale, translation [B]."""
+                     translation: torch.Tensor, kernel=_keys_cubic,
+                     antialias: bool = True) -> torch.Tensor:
+    """Per-sample weights [B, in_size, out_size] in fp32, jax.image's
+    compute_weight_mat for scale, translation [B]: Keys' cubic, antialiased
+    on downscale, unless ``kernel`` / ``antialias`` say otherwise."""
     dev = scale.device
     inv_scale = 1.0 / scale
-    kernel_scale = torch.clamp(inv_scale, min=1.0)
+    kernel_scale = (torch.clamp(inv_scale, min=1.0) if antialias
+                    else torch.ones_like(inv_scale))
     out_pos = torch.arange(out_size, dtype=torch.float32, device=dev)
     sample_f = ((out_pos[None, :] + 0.5) * inv_scale[:, None]
                 - (translation * inv_scale)[:, None] - 0.5)
     in_pos = torch.arange(in_size, dtype=torch.float32, device=dev)
     x = (sample_f[:, None, :] - in_pos[None, :, None]).abs() \
         / kernel_scale[:, None, None]
-    weights = _keys_cubic(x)
+    weights = kernel(x)
     total = weights.sum(dim=1, keepdim=True)
     eps = float(np.finfo(np.float32).eps)
     weights = torch.where(
@@ -224,3 +309,126 @@ def cutmix(images: torch.Tensor, labels: torch.Tensor, draws: CutmixDraws):
     lam = np.float32(1.0) - (np.float32((y2 - y1) * (x2 - x1))
                              / np.float32(h * w))
     return mixed, labels, labels[perm], float(lam)
+
+
+def mixup(images: torch.Tensor, labels: torch.Tensor, draws: MixupDraws):
+    """Reference mixup_data (``augment.mixup``): lam * x + (1 - lam) *
+    x[perm], in fp32 whatever the images' dtype (lam is an fp32 array there,
+    so bf16 images promote).  -> (mixed fp32, y_a, y_b, lam)."""
+    perm = torch.as_tensor(np.asarray(draws.perm), device=images.device)
+    lam = np.float32(draws.lam)
+    x = images.float()
+    mixed = float(lam) * x + float(np.float32(1.0) - lam) * x[perm]
+    return mixed, labels, labels[perm], float(lam)
+
+
+def resizemix(images: torch.Tensor, labels: torch.Tensor,
+              draws: ResizemixDraws):
+    """Reference train_resizemix (``augment.resizemix``): the permutation
+    partner, shrunk to (rh, rw) with the triangle kernel and no
+    antialiasing, replaces the box at (pos_y, pos_x); lam = 1 - the pasted
+    area's share (float32).  With the gate off: the images unchanged,
+    lam = 1, y_b = y_a.  -> (mixed, y_a, y_b, lam).
+
+    ``scale_and_translate`` renders the whole shrunk image on a zero canvas
+    and a box mask selects the patch; only the patch's own rows and columns
+    of the two weight matrices are applied here."""
+    if not draws.gate:
+        return images, labels, labels, 1.0
+    b, h, w, c = images.shape
+    dev, dtype = images.device, images.dtype
+    rh, rw, py, px = draws.rh, draws.rw, draws.pos_y, draws.pos_x
+
+    def weights(size, r, pos):
+        scale = torch.tensor([np.float32(r) / np.float32(size)], device=dev)
+        wt = resample_weights(size, size, scale,
+                              torch.tensor([float(pos)], device=dev),
+                              kernel=_triangle, antialias=False)
+        return wt[0, :, pos:pos + r].to(dtype)              # [size, r]
+
+    wy, wx = weights(h, rh, py), weights(w, rw, px)
+    perm = torch.as_tensor(np.asarray(draws.perm), device=dev)
+    shuffled = images[perm]
+    t = torch.matmul(wy.t(), shuffled.reshape(b, h, w * c))    # [B, rh, w*c]
+    t = t.reshape(b, rh, w, c).transpose(2, 3)                 # [B, rh, c, w]
+    patch = torch.matmul(t, wx).transpose(2, 3)                # [B, rh, rw, c]
+    mixed = images.clone()
+    mixed[:, py:py + rh, px:px + rw] = patch
+    lam = np.float32(1.0) - np.float32(rh * rw) / np.float32(h * w)
+    return mixed, labels, labels[perm], float(lam)
+
+
+def saliency_map(images: torch.Tensor, blur: int = 7) -> torch.Tensor:
+    """Centre-surround saliency proxy (``augment.saliency_map``): |pixel -
+    local mean| of the grayscale image, the local mean a blur x blur box
+    with zero padding that divides by blur^2 at the border too.
+    [B, H, W, 3] -> [B, H, W] float32.  The box mean is an average pool,
+    exact fp32 (a convolution could run in TF32 on the card)."""
+    gray = images.float().mean(dim=-1)
+    blurred = torch.nn.functional.avg_pool2d(
+        gray[:, None], blur, stride=1, padding=blur // 2,
+        count_include_pad=True)[:, 0]
+    return (gray - blurred).abs()
+
+
+def _peak_box_mix(images, labels, shuffled, perm, peak_y, peak_x,
+                  lam0: float):
+    """Per-image boxes of side int32(size * sqrt(1 - lam0)) centred on
+    (peak_y, peak_x) [B], clipped to the image, filled from ``shuffled``;
+    per-image lambdas = 1 - box area share (float32)."""
+    b, h, w, _ = images.shape
+    cut_rat = np.sqrt(np.float32(1.0) - np.float32(lam0))
+    cut_h = int(np.float32(h) * cut_rat)
+    cut_w = int(np.float32(w) * cut_rat)
+    y1 = (peak_y - cut_h // 2).clamp(0, h)
+    y2 = (peak_y + cut_h // 2).clamp(0, h)
+    x1 = (peak_x - cut_w // 2).clamp(0, w)
+    x2 = (peak_x + cut_w // 2).clamp(0, w)
+    rows = torch.arange(h, device=images.device)[None, :, None]
+    cols = torch.arange(w, device=images.device)[None, None, :]
+    mask = ((rows >= y1[:, None, None]) & (rows < y2[:, None, None])
+            & (cols >= x1[:, None, None]) & (cols < x2[:, None, None]))
+    mixed = torch.where(mask[..., None], shuffled, images)
+    lam = 1.0 - ((y2 - y1) * (x2 - x1)).float() / float(h * w)
+    return mixed, labels, labels[perm], lam
+
+
+def _ungated(images, labels):
+    ones = torch.ones(images.shape[0], dtype=torch.float32,
+                      device=images.device)
+    return images, labels, labels, ones
+
+
+def saliencymix(images: torch.Tensor, labels: torch.Tensor,
+                draws: PeakMixDraws):
+    """Reference train_saliencymix2 (``augment.saliencymix``): per-image
+    boxes centred on the saliency peak of the permutation partner,
+    per-image pixel-ratio lambdas.  -> (mixed, y_a, y_b, lam [B] fp32)."""
+    if not draws.gate:
+        return _ungated(images, labels)
+    b, h, w, _ = images.shape
+    perm = torch.as_tensor(np.asarray(draws.perm), device=images.device)
+    shuffled = images[perm]
+    flat = saliency_map(shuffled).reshape(b, -1).argmax(dim=-1)
+    return _peak_box_mix(images, labels, shuffled, perm, flat // w, flat % w,
+                         draws.lam0)
+
+
+def attentivemix(images: torch.Tensor, labels: torch.Tensor,
+                 heatmaps: torch.Tensor, draws: PeakMixDraws):
+    """Reference train_attentivemix2 (``augment.attentivemix``): boxes
+    centred on the peak of a model-provided heatmap.  heatmaps [B, h', w']
+    belong to the unshuffled batch and are permuted with the images; the
+    peak is the CENTRE of the argmax cell.  -> (mixed, y_a, y_b, lam [B]
+    fp32)."""
+    if not draws.gate:
+        return _ungated(images, labels)
+    b, h, w, _ = images.shape
+    perm = torch.as_tensor(np.asarray(draws.perm), device=images.device)
+    hm = heatmaps[perm]
+    hh, hw = hm.shape[1], hm.shape[2]
+    flat = hm.reshape(b, -1).argmax(dim=-1)
+    peak_y = (flat // hw) * (h // hh) + (h // hh) // 2
+    peak_x = (flat % hw) * (w // hw) + (w // hw) // 2
+    return _peak_box_mix(images, labels, images[perm], perm, peak_y, peak_x,
+                         draws.lam0)

@@ -21,7 +21,11 @@ compute fp32 in full fp32 (the "highest" precision of the JAX fp32 policy).
 On the CPU the same Function runs the kernels' plain PyTorch twins.
 ``attention=`` swaps in another function of the same signature,
 ``(qkv, heads, causal) -> out`` (the smoke test passes the plain twin,
-``mha_qkv_reference``, on the card).  Training differentiates the image
+``mha_qkv_reference``, on the card).  ``encode_image_tokens``, the
+heatmaps' forward, takes the heads-first route
+(``kernels.attention.heads_first_attention``), the counterpart of the Flax
+towers' ``use_pallas=True`` attention: the heads-first forward kernel on
+the card, in both precision policies too.  Training differentiates the image
 tower only: the train state turns ``requires_grad`` off for the text tower.
 """
 
@@ -35,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from swat_tpu_torch.core.precision import DEFAULT_PRECISION, Precision
+from swat_tpu_torch.kernels.attention import heads_first_attention
 from swat_tpu_torch.kernels.flash_attention import mha_qkv
 from swat_tpu_torch.models.configs import (CLIPConfig, ResNetConfig,
                                            TextConfig, VisionConfig)
@@ -157,7 +162,10 @@ class VisionTower(nn.Module):
         self.proj = nn.Parameter(torch.empty(w, cfg.embed_dim))
 
     def forward(self, images: torch.Tensor, precision: Precision,
-                attention: Attention) -> torch.Tensor:
+                attention: Attention, pool: bool = True) -> torch.Tensor:
+        """images [B, H, W, 3] -> [B, embed]; ``pool=False`` applies
+        ln_post and the projection to every token -> [B, S, embed], class
+        token first (the heatmaps' input)."""
         p = self.cfg.patch_size
         b, h, w, c = images.shape
         gh, gw = h // p, w // p
@@ -172,7 +180,7 @@ class VisionTower(nn.Module):
         x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(cd)
         x = layer_norm(self.ln_pre, x, precision)
         x = self.transformer(x, False, precision, attention)
-        x = layer_norm(self.ln_post, x[:, 0], precision)
+        x = layer_norm(self.ln_post, x[:, 0] if pool else x, precision)
         return project(x, self.proj, precision)
 
 
@@ -231,6 +239,16 @@ class CLIPModel(TextTower):
         """images [B, H, W, 3] (CLIP-normalized) -> [B, embed] fp32."""
         feats = self.visual(images, self.precision, attention)
         return _normalize(feats) if normalize else feats
+
+    def encode_image_tokens(
+            self, images: torch.Tensor,
+            attention: Attention = heads_first_attention) -> torch.Tensor:
+        """All projected token embeddings [B, S, embed] fp32, class token
+        first.  Its attention is the heads-first route by default, as the
+        Flax tower that computes the heatmaps in ``swat_tpu`` runs under
+        ``--use_pallas``: the heads-first forward kernel on the card, its
+        plain twin on the CPU."""
+        return self.visual(images, self.precision, attention, pool=False)
 
     def encode_text(self, token_ids: torch.Tensor, normalize: bool = False,
                     attention: Attention = mha_qkv) -> torch.Tensor:

@@ -1,4 +1,4 @@
-# Copied from swat_tpu/models/configs.py, with ResNetConfig held here (swat_tpu's lives in the Flax ResNet module); it collapses into an import once swat_tpu's package inits stop importing JAX (ROADMAP Queue A item 0).
+# Copied from swat_tpu/models/configs.py, with ResNetConfig held here (swat_tpu's lives in the Flax ResNet module); the port keeps its own copy, permanently (it imports nothing of swat_tpu).
 """Model configuration registry.
 
 Mirrors the reference's ``model_cfg`` strings (reference utils/extras.py:97-120

@@ -1,4 +1,4 @@
-# Copied from swat_tpu/models/tokenizer.py (collapses into an import once swat_tpu's package inits stop importing JAX; ROADMAP Queue A item 0).
+# Copied from swat_tpu/models/tokenizer.py; the port keeps its own copy, permanently (it imports nothing of swat_tpu).
 """CLIP byte-pair-encoding tokenizer (77-token context).
 
 The reference tokenizes via ``open_clip.get_tokenizer`` /``clip.tokenize``

@@ -1,13 +1,13 @@
-"""Loss registry (counterpart of ``swat_tpu/train/losses.py:20-84``).
+"""Loss registry (counterpart of ``swat_tpu/train/losses.py``).
 
 CE, WeightedCE (few-shot vs retrieved weights via the source flag), Focal
 and BalancedSoftmax, dispatched by ``set_loss`` as in the reference
 (utils/losses.py:9-23).  Each is a mean over per-sample terms, so each
 ``LossFn`` also exposes ``per_sample``: evaluation sums it under the
 validity mask (the JAX package gets the same numbers by vmapping the mean
-loss over rows).  ``mixup_criterion`` mixes two label sets; the per-sample
-lambda criterion of saliencymix/attentivemix is not ported yet (ROADMAP
-Queue A item 6).
+loss over rows).  ``mixup_criterion`` mixes two label sets under one lambda;
+``mixup_criterion_lam_vector`` is the per-sample lambda criterion of
+saliencymix and attentivemix.
 """
 
 from __future__ import annotations
@@ -91,3 +91,13 @@ def mixup_criterion(loss: LossFn, logits, y_a, y_b, lam, source=None):
     """lam * L(y_a) + (1 - lam) * L(y_b) (reference utils/training.py:1157)."""
     return (lam * loss(logits, y_a, source)
             + (1.0 - lam) * loss(logits, y_b, source))
+
+
+def mixup_criterion_lam_vector(logits, y_a, y_b, lam_vec):
+    """Per-sample lambdas, SUMMED over the batch: the reference's
+    mixup_criterion_lam_list (utils/training.py:1160-1162) sums the
+    per-sample CE instead of averaging it (saliencymix and attentivemix use
+    this; the ~bsz x larger gradient scale is part of the method)."""
+    ce_a = _ce_per_sample(logits, y_a)
+    ce_b = _ce_per_sample(logits, y_b)
+    return torch.sum(lam_vec * ce_a + (1.0 - lam_vec) * ce_b)

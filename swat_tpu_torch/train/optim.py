@@ -19,7 +19,8 @@ utils/optimizers.py:
   get neither update nor decay (optax's ``set_to_zero``).
 
 SGD, and the labelings of FLYP and of the frozen-backbone methods, are not
-ported yet (ROADMAP Queue A item 6).
+ported yet (ROADMAP Queue A item 6): ``label_params`` knows the finetune
+family (the single-loader mixes among them) and raises for the rest.
 """
 
 from __future__ import annotations

@@ -18,7 +18,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from swat_tpu.data.splits import Sample
+from swat_tpu_torch.data.splits import Sample
 from swat_tpu_torch.data.pipeline import train_canvases
 from swat_tpu_torch.train.state import TrainState
 

@@ -4,7 +4,8 @@
 ``SwatPipeline`` builds the towers from an OpenCLIP checkpoint, encodes the
 class prompts with the text tower and makes the zero-shot head from the
 prompt means.  ``--method zeroshot`` validates the test split and prints
-the reference's zero-shot summary line.  ``--method cutmix`` / ``finetune``
+the reference's zero-shot summary line.  ``--method finetune`` and the
+single-loader mixes (cutmix, mixup, resizemix, saliencymix, attentivemix)
 run stage 1: the finetune epochs (streaming or resident), WiSE-FT, feature
 re-extraction with the best weights, test scores, tau-normalization and the
 stage-1 bundle, then the 11-field summary line with the stage-2 fields at
@@ -21,9 +22,9 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from swat_tpu.data import prompts as P
-from swat_tpu.data.splits import class_counts, read_split
-from swat_tpu.utils.logging import set_logger
+from swat_tpu_torch.data import prompts as P
+from swat_tpu_torch.data.splits import class_counts, read_split
+from swat_tpu_torch.utils.logging import set_logger
 from swat_tpu_torch.core.config import RunConfig
 from swat_tpu_torch.core.precision import DEFAULT_PRECISION, FP32_PRECISION
 from swat_tpu_torch.data.features import (encode_prompts,
@@ -31,6 +32,8 @@ from swat_tpu_torch.data.features import (encode_prompts,
                                           make_text_encoder)
 from swat_tpu_torch.data.pipeline import EvalLoader, TrainLoader
 from swat_tpu_torch.data.transforms import CANVAS_SIZE
+from swat_tpu_torch.eval.heatmap import (clip_attention_heatmap,
+                                         clip_text_heatmap)
 from swat_tpu_torch.eval.metrics import calculate_scores
 from swat_tpu_torch.eval.resident import ResidentEval, make_scan_eval
 from swat_tpu_torch.eval.validate import Evaluator, validate_features
@@ -46,8 +49,9 @@ from swat_tpu_torch.train.losses import set_loss
 from swat_tpu_torch.train.resident import (ResidentData, epoch_permutation,
                                            make_resident_epoch)
 from swat_tpu_torch.train.state import create_train_state
-from swat_tpu_torch.train.steps import (MIX_METHODS, make_ce_step,
-                                        make_mixing_step, make_sampler)
+from swat_tpu_torch.train.steps import (MIX_METHODS, RESIDENT_METHODS,
+                                        make_ce_step, make_mixing_step,
+                                        make_sampler)
 from swat_tpu_torch.train.trainer import train_loop
 
 
@@ -236,9 +240,9 @@ class SwatPipeline:
     # stage-1 training (reference main.py:236-327)
 
     def train_method(self, cfg: RunConfig, head: torch.Tensor):
-        """The finetune epochs of ``cfg.method`` (cutmix or finetune) from
-        the model's current weights and ``head`` -> (final state,
-        BestSnapshot)."""
+        """The finetune epochs of ``cfg.method`` (finetune or a
+        single-loader mix) from the model's current weights and ``head``
+        -> (final state, BestSnapshot)."""
         method = cfg.method
         logger = self.logger
         loss = self._loss()
@@ -250,7 +254,8 @@ class SwatPipeline:
 
         # the resident path: the split's uint8 canvases on the device
         resident_data = None
-        if cfg.resident != "off" and cfg.aug_mode == "canvas":
+        if (cfg.resident != "off" and cfg.aug_mode == "canvas"
+                and method in RESIDENT_METHODS):
             est = len(samples) * CANVAS_SIZE * CANVAS_SIZE * 3
             if cfg.resident == "on" or est <= cfg.resident_budget_bytes:
                 resident_data = ResidentData.from_samples(
@@ -266,13 +271,18 @@ class SwatPipeline:
             lr_backbone=cfg.lr_backbone, total_iter=total_iter, wd=cfg.wd,
             optim_type=cfg.optim, temperature=cfg.temperature)
 
+        heatmap_fn = (self._heatmap_fn() if method == "attentivemix"
+                      else None)
+
         def make_step(aug_dtype):
             if method == "finetune":
                 return make_ce_step(loss, image_size, aug_dtype)
-            return make_mixing_step(method, loss, image_size=image_size,
+            return make_mixing_step(method, loss, heatmap_fn=heatmap_fn,
+                                    image_size=image_size,
                                     aug_dtype=aug_dtype)
 
-        sample = make_sampler(method, cutmix_beta=cfg.cutmix_beta,
+        sample = make_sampler(method, mixup_alpha=cfg.mixup_alpha,
+                              cutmix_beta=cfg.cutmix_beta,
                               mix_prob=cfg.mix_prob, image_size=image_size)
 
         def validate_fn(state):
@@ -304,6 +314,79 @@ class SwatPipeline:
             steps_per_epoch=steps_per_epoch, validate_fn=validate_fn,
             test_fn=test_fn, logger=logger, loss_logger=self.loss_logger,
             epoch_runner=epoch_runner)
+
+    def _heatmap_fn(self):
+        """CLIP heatmap for attentivemix, the replacement for the
+        reference's external GEM model (main.py:22,
+        utils/training.py:2672).
+
+        Honors --attentive_name (reference :2717-2731): each image is
+        localized with its own class's text, 'c-name' (common name),
+        's-name' (species) or 'general' (the reference hardcodes the word
+        'bird', :2724-2725), encoded ONCE by the frozen initial text tower
+        into a [C, D] bank.  Falls back to class-token self-relevance when
+        no class names can be built from the metrics file."""
+        bank = self._attentive_text_bank()
+        if bank is None:
+
+            def fn(model, images, labels):
+                return clip_attention_heatmap(model, images)
+        else:
+            self.logger.info(
+                f"attentivemix: text-conditioned heatmaps "
+                f"({self.cfg.attentive_name}, {bank.shape[0]} classes)")
+
+            def fn(model, images, labels):
+                return clip_text_heatmap(model, images, bank[labels])
+
+        return fn
+
+    def _attentive_text_bank(self) -> Optional[torch.Tensor]:
+        """[num_classes, D] normalized localization-text embeddings in
+        class order on the device, or None when the metrics file lacks
+        usable names."""
+        cfg = self.cfg
+        try:
+            metrics = P.load_class_metrics(cfg.metrics_file)
+        except (OSError, ValueError, KeyError):
+            return None
+        # the bank is indexed by label inside the step: sparse or
+        # off-by-one ids would misalign classes, so require exactly
+        # 0..num_classes-1
+        try:
+            ids = {int(k) for k in metrics}
+        except ValueError:
+            return None
+        if ids != set(range(cfg.num_classes)):
+            self.logger.warning(
+                "attentivemix: metrics class ids are not contiguous "
+                "0..num_classes-1; falling back to self-relevance "
+                "heatmaps")
+            return None
+        texts = {}
+        for class_id in sorted(metrics, key=int):
+            entry = metrics[class_id]
+            if cfg.attentive_name == "general":
+                name = "bird"   # hardcoded in the reference, :2724-2725
+            elif cfg.attentive_name == "s-name":
+                name = (entry.get("species")
+                        or entry.get("most_common_name")
+                        or entry.get("name"))
+            else:   # 'c-name' (default)
+                name = (entry.get("common_name")
+                        or entry.get("most_common_name")
+                        or entry.get("name"))
+            if isinstance(name, list):
+                name = name[0] if name else None
+            if not isinstance(name, str) or not name:
+                return None
+            texts[class_id] = [name]
+        tokenized = P.tokenize_prompts(texts, self.tokenizer,
+                                       self.model_cfg.text.context_length)
+        tensors = encode_prompts(make_text_encoder(self.model), tokenized)
+        return torch.from_numpy(np.stack(
+            [np.asarray(tensors[cid]["mean"])
+             for cid in sorted(tensors, key=int)])).to(self.device)
 
     # ------------------------------------------------------------------
     # WiSE-FT (reference run_wsft_alpha, main.py:132-195)

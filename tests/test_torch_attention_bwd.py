@@ -87,7 +87,8 @@ def test_bf16_matches_pallas_bwd_interpret(s, heads, hd, causal):
 def _bwd_with(q, k, v, do, heads, wrong):
     """mha_bwd_reference with one rounding point done ``wrong``."""
     scale = 1.0 / (q.shape[2] // heads) ** 0.5
-    p, _ = FA._softmax(q, k, heads, False)
+    p, _ = FA._softmax(FA._split_heads(q, heads), FA._split_heads(k, heads),
+                       False)
     dof = FA._split_heads(do, heads)
     pb = p.to(q.dtype).float()
     dv = torch.matmul((p if wrong == "p_in_dv" else pb).transpose(-1, -2),

@@ -1,9 +1,9 @@
 """The port's CUDA attention kernels on the card (marked ``cuda``; skipped
-without a GPU and nvcc): the forward and the backward against their plain
-twins at ragged and main-path shapes, fp32 and bf16, strided and
-contiguous; the launch counts; determinism; the autograd Function; and the
-wrappers' refusals.  Run them on a GPU machine with
-``python -m pytest tests/test_torch_cuda.py``."""
+without a GPU and nvcc): the packed-head and the heads-first forward and
+backward against their plain twins at ragged and main-path shapes, fp32 and
+bf16, strided and contiguous; the launch counts; determinism; the autograd
+Functions and the three backward modes; and the wrappers' refusals.  Run
+them on a GPU machine with ``python -m pytest tests/test_torch_cuda.py``."""
 
 import pytest
 import torch
@@ -171,3 +171,159 @@ def test_bwd_refusals_raise_and_do_not_count(device):
     with pytest.raises(ValueError, match="do must match"):
         FA.mha_packed_bwd(q, k, v, do.bfloat16(), 4)
     assert FA.LAUNCHES_BWD == before
+
+
+# ---------------------------------------------------------------------------
+# the heads-first kernels
+
+
+def _heads_first(b, h, s, d, dtype, layout, device, seed=0, n=3):
+    """n tensors [B, H, S, D]: 'contiguous', or 'views', the transposed
+    views of one [B, S, n*H*D] projection output that the towers pass."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    if layout == "views":
+        x = torch.randn(b, s, n * h * d, generator=g, device=device).to(dtype)
+        return tuple(t.reshape(b, s, h, d).transpose(1, 2)
+                     for t in x.chunk(n, dim=-1))
+    return tuple(torch.randn(b, h, s, d, generator=g, device=device).to(dtype)
+                 for _ in range(n))
+
+
+FLASH_SHAPES = [
+    (3, 1, 1, 64, False), (3, 4, 5, 16, True), (3, 2, 33, 32, True),
+    (2, 1, 40, 8, False), (16, 12, 50, 64, False), (16, 8, 77, 64, True),
+    (4, 12, 197, 64, False), (2, 16, 257, 64, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["contiguous", "views"])
+@pytest.mark.parametrize("b,h,s,d,causal", FLASH_SHAPES)
+def test_flash_fwd_kernel_matches_plain_twin(device, dtype, layout, b, h, s,
+                                             d, causal):
+    q, k, v = _heads_first(b, h, s, d, dtype, layout, device)
+    before = FA.LAUNCHES_FLASH
+    got = FA.flash_attention_fwd(q, k, v, causal)
+    assert FA.LAUNCHES_FLASH == before + 1
+    ref = FA.flash_attention_reference(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    # the output lies in memory as q does: a view transposes back for free
+    assert got.transpose(1, 2).is_contiguous() == (layout == "views" or h == 1
+                                                   or s == 1)
+    rtol, atol = TOL[dtype]
+    torch.testing.assert_close(got.float(), ref.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("keep_dtype", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["contiguous", "views"])
+@pytest.mark.parametrize("b,h,s,d,causal", FLASH_SHAPES)
+def test_flash_bwd_kernel_matches_plain_twin(device, keep_dtype, dtype, layout,
+                                             b, h, s, d, causal):
+    q, k, v, do = _heads_first(b, h, s, d, dtype, layout, device, n=4)
+    before = FA.LAUNCHES_FLASH_BWD
+    got = FA.flash_attention_bwd(q, k, v, do, causal, keep_dtype)
+    assert FA.LAUNCHES_FLASH_BWD == before + 1
+    ref = FA.flash_attention_bwd_reference(q, k, v, do, causal, keep_dtype)
+    torch.cuda.synchronize()
+    rtol, atol = TOL_BWD[dtype]
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        assert g.dtype == dtype and g.shape == q.shape, name
+        torch.testing.assert_close(g.float(), r.float(), rtol=rtol,
+                                   atol=atol, msg=name)
+        if dtype == torch.bfloat16:
+            share = float((g == r).float().mean())
+            assert share >= BWD_MIN_EQUAL_SHARE, (name, share)
+
+
+def test_flash_rounding_differs_from_the_packed_kernels_in_bf16(device):
+    """The heads-first forward multiplies the fp32 p by v, the packed-head
+    one rounds p to bf16 first: on the same bf16 inputs the two kernels
+    differ, and each is closer to its own plain twin than to the other's;
+    in fp32 they agree."""
+    b, h, s, d = 8, 12, 50, 64
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = _heads_first(b, h, s, d, dtype, "views", device, seed=5)
+        packed = [t.transpose(1, 2).reshape(b, s, h * d) for t in (q, k, v)]
+        hf = FA.flash_attention_fwd(q, k, v).transpose(1, 2).reshape(
+            b, s, h * d)
+        pk = FA.mha_packed_fwd(*packed, h)
+        if dtype == torch.float32:
+            torch.testing.assert_close(hf, pk, rtol=2e-4, atol=2e-5)
+            continue
+        hf_ref = FA.flash_attention_reference(q, k, v).transpose(
+            1, 2).reshape(b, s, h * d)
+        pk_ref = FA.mha_packed_reference(*packed, h)
+        own = float((hf == hf_ref).float().mean())
+        other = float((hf == pk_ref).float().mean())
+        assert not torch.equal(hf, pk)
+        assert own >= BWD_MIN_EQUAL_SHARE > other, (own, other)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_bwd_agrees_with_the_packed_bwd_kernel(device, dtype):
+    """bwd='fused' is the packed-head backward's math at other strides: the
+    two kernels share their templates, so the gradients are bit-equal."""
+    g = torch.Generator(device=device).manual_seed(4)
+    qkv = torch.randn(8, 50, 3 * 768, generator=g, device=device).to(dtype)
+    do = _do(8, 50, 768, dtype, device)
+    grads = {}
+    for bwd in ("pallas", "fused", "xla"):
+        x = qkv.clone().requires_grad_(True)
+        c0 = (FA.LAUNCHES, FA.LAUNCHES_BWD, FA.LAUNCHES_FLASH_BWD)
+        (grads[bwd],) = torch.autograd.grad(FA.mha_qkv(x, 12, False, bwd),
+                                            x, do)
+        c1 = (FA.LAUNCHES, FA.LAUNCHES_BWD, FA.LAUNCHES_FLASH_BWD)
+        want = {"pallas": (1, 1, 0), "fused": (1, 0, 1), "xla": (1, 0, 0)}
+        assert tuple(a - b for a, b in zip(c1, c0)) == want[bwd], bwd
+    assert torch.equal(grads["fused"], grads["pallas"])
+    rtol, atol = TOL_BWD[dtype]
+    torch.testing.assert_close(grads["xla"].float(), grads["pallas"].float(),
+                               rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_autograd_function_runs_both_kernels(device, dtype):
+    q, k, v, do = _heads_first(4, 12, 50, 64, dtype, "views", device, seed=6,
+                               n=4)
+    q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+    c0 = (FA.LAUNCHES_FLASH, FA.LAUNCHES_FLASH_BWD)
+    out = FA.flash_attention(q, k, v, True)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    assert (FA.LAUNCHES_FLASH, FA.LAUNCHES_FLASH_BWD) == (c0[0] + 1, c0[1] + 1)
+    ref = FA.flash_attention_bwd_reference(q.detach(), k.detach(), v.detach(),
+                                           do, True, False)
+    rtol, atol = TOL_BWD[dtype]
+    for g, r in zip(grads, ref):
+        torch.testing.assert_close(g.float(), r.float(), rtol=rtol, atol=atol)
+
+
+def test_flash_kernels_are_deterministic(device):
+    q, k, v, do = _heads_first(8, 8, 77, 64, torch.bfloat16, "views", device,
+                               n=4)
+    assert torch.equal(FA.flash_attention_fwd(q, k, v, True),
+                       FA.flash_attention_fwd(q, k, v, True))
+    for a, b in zip(FA.flash_attention_bwd(q, k, v, do, True),
+                    FA.flash_attention_bwd(q, k, v, do, True)):
+        assert torch.equal(a, b)
+
+
+def test_flash_refusals_raise_and_do_not_count(device):
+    q, k, v, do = _heads_first(2, 2, 10, 128, torch.float32, "contiguous",
+                               device, n=4)
+    before = (FA.LAUNCHES_FLASH, FA.LAUNCHES_FLASH_BWD)
+    with pytest.raises(ValueError, match="head dim"):
+        FA.flash_attention_fwd(q, k, v)                  # head dim 128
+    with pytest.raises(ValueError, match="head dim"):
+        FA.flash_attention_bwd(q, k, v, do)
+    q, k, v, do = (t[..., :64] for t in (q, k, v, do))
+    with pytest.raises(TypeError):
+        FA.flash_attention_fwd(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="one device"):
+        FA.flash_attention_fwd(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="contiguous in its last dim"):
+        FA.flash_attention_fwd(q.transpose(2, 3).contiguous().transpose(2, 3),
+                               k, v)
+    with pytest.raises(ValueError, match="do must match"):
+        FA.flash_attention_bwd(q, k, v, do.bfloat16())
+    assert (FA.LAUNCHES_FLASH, FA.LAUNCHES_FLASH_BWD) == before

@@ -2,10 +2,11 @@
 mix_prob=1 and 3 finetune steps on test_tiny in fp32, from the same weights
 and uint8 canvas batches, the port fed the JAX steps' own draws (crop
 boxes, flips, cutmix gate / lambda / permutation / box; see
-torch_port_lib.jax_step_draws).  Held: the per-step losses, logit_scale,
-the head and every visual tensor by the gradient-conditioned delta rule,
-for both the port's streaming step and its resident epoch; the text tower
-stays bit-unchanged."""
+torch_port_lib.jax_step_draws).  ``check_steps_match`` takes any ported
+method; tests/test_torch_mixing.py runs it for the other mixes.  Held: the
+per-step losses, logit_scale, the head and every visual tensor by the
+gradient-conditioned delta rule, for both the port's streaming step and its
+resident epoch; the text tower stays bit-unchanged."""
 
 import numpy as np
 import pytest
@@ -15,12 +16,14 @@ from torch_port_lib import (TORCH_THREADS, delta_check,
                             random_state_dict)
 
 from swat_tpu.core.precision import FP32_PRECISION as JAX_FP32
+from swat_tpu.eval.heatmap import clip_attention_heatmap as jax_heatmap
 from swat_tpu.models.clip import CLIPModel as JaxCLIPModel
 from swat_tpu.models.configs import get_model_config as jax_model_config
 from swat_tpu.models.loader import params_to_torch_state_dict
 from swat_tpu.train import steps as JS
 from swat_tpu.train.state import create_train_state as jax_create_state
 from swat_tpu_torch.core.precision import FP32_PRECISION
+from swat_tpu_torch.eval.heatmap import clip_attention_heatmap
 from swat_tpu_torch.models.clip import CLIPModel
 from swat_tpu_torch.models.configs import get_model_config
 from swat_tpu_torch.train.optim import default_warmup_lr, make_lr_schedule
@@ -70,11 +73,19 @@ def _jax_run(method, params, head, batches, keys):
     state, tx = jax_create_state(params, head, method,
                                  lr_classifier=LR_HEAD, lr_backbone=LR_BB,
                                  total_iter=TOTAL_ITER)
-    if method == "cutmix":
-        step = JS.make_mixing_step(model, tx, "cutmix", mix_prob=1.0,
-                                   image_size=32)
-    else:
+    if method == "finetune":
         step = JS.make_ce_step(model, tx, image_size=32)
+    else:
+        kw = {}
+        if method == "attentivemix":
+            # the heatmap tower as --use_pallas builds it: the Flax tower
+            # through the heads-first Pallas kernel (interpret mode here)
+            hm_model = JaxCLIPModel(jax_model_config(MODEL),
+                                    precision=JAX_FP32, use_pallas=True)
+            kw["heatmap_fn"] = lambda p, images, labels: jax_heatmap(
+                hm_model, p, images)
+        step = JS.make_mixing_step(model, tx, method, mix_prob=1.0,
+                                   image_size=32, **kw)
     losses = []
     for batch, key in zip(batches, keys):
         state, loss = step(state, {k: jnp.asarray(v)
@@ -104,9 +115,13 @@ def _grads(state):
 
 def _port_run(method, sd, head, batches, all_draws, runner):
     state = _port_state(method, sd, head)
-    make = (make_ce_step if method == "finetune" else
-            lambda **kw: make_mixing_step("cutmix", **kw))
-    step = make(image_size=32)
+    if method == "finetune":
+        step = make_ce_step(image_size=32)
+    else:
+        step = make_mixing_step(
+            method, image_size=32,
+            heatmap_fn=lambda model, images, labels: clip_attention_heatmap(
+                model, images))
     g0 = {}
 
     def first_grads(state, batch, draws):
@@ -147,12 +162,18 @@ def _lr_sum(base):
 @pytest.mark.parametrize("runner", ["streaming", "resident"])
 @pytest.mark.parametrize("method", ["cutmix", "finetune"])
 def test_steps_match_swat_tpu(setup, method, runner):
-    cfg, sd, params, head, batches, keys, data = setup
-    draws = [jax_step_draws(k, b["valid_hw"], 32, 1.0, 1.0)
-             for k, b in zip(keys, batches)]
+    draws = check_steps_match(setup, method, runner)
     if method == "cutmix":
         assert all(d.mix.gate for d in draws)
         assert any(d.mix.box[1] > d.mix.box[0] for d in draws)
+
+
+def check_steps_match(setup, method, runner):
+    """N_STEPS steps of ``method`` at mix_prob=1 through both packages ->
+    the draws they shared."""
+    cfg, sd, params, head, batches, keys, data = setup
+    draws = [jax_step_draws(k, b["valid_hw"], 32, 1.0, 1.0, method=method)
+             for k, b in zip(keys, batches)]
     j_losses, j_model, j_head, j_ls = _jax_run(method, params, head,
                                                batches, keys)
     p_losses, state, g0 = _port_run(
@@ -184,3 +205,4 @@ def test_steps_match_swat_tpu(setup, method, runner):
                              lr_sum_bb, N_STEPS * LR_BB * 1.5)
     n_visual = sum(k.startswith("visual.") for k in j_model)
     assert moved == n_visual + 1       # every visual tensor and the head
+    return draws

@@ -59,17 +59,22 @@ def make_dataset(base, n_test_per_class: int = 50, seed: int = 0,
 
 
 def register_dataset():
-    """Register DATASET in the shared registries (both packages read
-    swat_tpu.data.registry / swat_tpu.data.prompts); returns an undo."""
-    from swat_tpu.data.prompts import TEMPLATES
-    from swat_tpu.data.registry import NUM_CLASSES_DICT
+    """Register DATASET in both packages' registries (each has its own
+    data.registry and data.prompts); returns an undo."""
+    from swat_tpu.data import prompts as jax_prompts
+    from swat_tpu.data import registry as jax_registry
+    from swat_tpu_torch.data import prompts, registry
 
-    NUM_CLASSES_DICT[DATASET] = NUM_CLASSES
-    TEMPLATES[DATASET] = ["a photo of a {}.", "a blurry photo of a {}."]
+    tables = [(m.NUM_CLASSES_DICT, n.TEMPLATES)
+              for m, n in ((jax_registry, jax_prompts), (registry, prompts))]
+    for num_classes, templates in tables:
+        num_classes[DATASET] = NUM_CLASSES
+        templates[DATASET] = ["a photo of a {}.", "a blurry photo of a {}."]
 
     def undo():
-        NUM_CLASSES_DICT.pop(DATASET, None)
-        TEMPLATES.pop(DATASET, None)
+        for num_classes, templates in tables:
+            num_classes.pop(DATASET, None)
+            templates.pop(DATASET, None)
 
     return undo
 
@@ -115,13 +120,14 @@ def cosine(a, b) -> np.ndarray:
 
 
 def jax_step_draws(key, valid_hw, image_size: int, beta: float = 1.0,
-                   mix_prob: float = 0.5, crops: bool = True):
+                   mix_prob: float = 0.5, crops: bool = True,
+                   method: str = "cutmix"):
     """The random inputs the JAX package's step draws from ``key``, as the
     port's StepDraws, mirroring make_mix_fn's key splits: key -> (k_aug,
     _, k_mix); train_augment's (k_crop, k_flip); random_resized_crop's
-    per-sample keys into aug._sample_crop; cutmix's (k_gate, k_lam, k_perm,
-    k_box) into uniform < mix_prob, aug._safe_beta,
-    jax.random.permutation and aug._rand_bbox."""
+    per-sample keys into aug._sample_crop; then the method's own splits of
+    k_mix (``jax_mix_draws``).  ``beta`` is the method's Beta parameter
+    (cutmix_beta, or mixup_alpha for mixup)."""
     import jax
     import jax.numpy as jnp
 
@@ -142,13 +148,60 @@ def jax_step_draws(key, valid_hw, image_size: int, beta: float = 1.0,
         flips = np.array(jax.random.bernoulli(k_flip, 0.5, (b, 1, 1, 1))
                          ).reshape(b)
         crop_draws = aug.CropDraws(boxes, flips)
-    k_gate, k_lam, k_perm, k_box = jax.random.split(k_mix, 4)
-    gate = bool(jax.random.uniform(k_gate) < mix_prob)
-    lam0 = float(jaug._safe_beta(k_lam, beta))
-    perm = np.array(jax.random.permutation(k_perm, b))
-    box = tuple(int(x) for x in jaug._rand_bbox(
-        k_box, image_size, image_size, jnp.float32(lam0)))
-    return StepDraws(crop_draws, aug.CutmixDraws(gate, lam0, perm, box))
+    return StepDraws(crop_draws, jax_mix_draws(method, k_mix, b, image_size,
+                                               beta, mix_prob))
+
+
+def jax_mix_draws(method, k_mix, b, image_size, beta=1.0, mix_prob=0.5,
+                  tau_range=(0.1, 0.8)):
+    """The draws swat_tpu.kernels.augment.<method> makes from ``k_mix``, as
+    the port's draws dataclass, each made with the same jax.random call on
+    the same sub-key."""
+    import jax
+    import jax.numpy as jnp
+
+    from swat_tpu.kernels import augment as jaug
+    from swat_tpu_torch.kernels import augment as aug
+
+    if method == "finetune":
+        return None
+    if method == "cutmix":
+        k_gate, k_lam, k_perm, k_box = jax.random.split(k_mix, 4)
+        gate = bool(jax.random.uniform(k_gate) < mix_prob)
+        lam0 = float(jaug._safe_beta(k_lam, beta))
+        perm = np.array(jax.random.permutation(k_perm, b))
+        box = tuple(int(x) for x in jaug._rand_bbox(
+            k_box, image_size, image_size, jnp.float32(lam0)))
+        return aug.CutmixDraws(gate, lam0, perm, box)
+    if method == "mixup":
+        k_gate, k_lam, k_perm = jax.random.split(k_mix, 3)
+        lam = jnp.where(jax.random.uniform(k_gate) <= mix_prob,
+                        jaug._safe_beta(k_lam, beta), 1.0)
+        return aug.MixupDraws(float(lam),
+                              np.array(jax.random.permutation(k_perm, b)))
+    if method == "resizemix":
+        k_gate, k_tau, k_perm, k_py, k_px = jax.random.split(k_mix, 5)
+        gate = bool(jax.random.uniform(k_gate) < mix_prob)
+        tau = jax.random.uniform(k_tau, minval=tau_range[0],
+                                 maxval=tau_range[1])
+        rh = int((image_size * tau).astype(jnp.int32))
+        rw = rh
+        pos_y = int(jax.random.randint(k_py, (), 0,
+                                       max(image_size - rh, 1)))
+        pos_x = int(jax.random.randint(k_px, (), 0,
+                                       max(image_size - rw, 1)))
+        assert (rh, rw) == aug.resized_patch(image_size, image_size,
+                                             float(tau))
+        return aug.ResizemixDraws(
+            gate, rh, rw, pos_y, pos_x,
+            np.array(jax.random.permutation(k_perm, b)))
+    if method in ("saliencymix", "attentivemix"):
+        k_gate, k_lam, k_perm = jax.random.split(k_mix, 3)
+        return aug.PeakMixDraws(
+            bool(jax.random.uniform(k_gate) < mix_prob),
+            float(jaug._safe_beta(k_lam, beta)),
+            np.array(jax.random.permutation(k_perm, b)))
+    raise NotImplementedError(method)
 
 
 def delta_check(k, init, ref, got, g0, lr_sum, k_bias_bound):
