@@ -14,7 +14,11 @@ cutmix train step, kernel against plain attention, timed and profiled; one
 attentivemix train step (heatmaps through the heads-first forward); one
 cutmix train step with the heads-first backward (``bwd="fused"``); and
 stage-1 finetuning through ``swat_tpu_torch.cli.main`` with cutmix,
-attentivemix and mixup.  The data are a synthetic
+attentivemix and mixup; then the three block-fused layer kernels (block
+forward, MLP backward, attention backward) against their plain versions and
+timed beside their bounds and a library-built block, both full-width towers
+through ``use_mega``, and a full-width cutmix train step whose image tower
+runs through them.  The data are a synthetic
 JPEG dataset (few-shot, retrieved and test splits) and a seeded
 OpenCLIP-format checkpoint.  Any failure raises and exits non-zero.  The
 last line is a JSON object naming the device.  Without a GPU, or without
@@ -871,7 +875,7 @@ def phase_attentive_step(ckpt, smi):
         loss = step(state, batch, draws)
         torch.cuda.synchronize()
         counts = _counts(FA)
-        ms = _time_ms(lambda: step(state, batch, draws), iters=3, warmup=0)
+        ms = _time_ms(lambda: step(state, batch, draws), iters=3, warmup=1)
         log(f"[attentive-step] {dname}: loss {float(loss):.6f} (summed over "
             f"the batch), launches fwd {counts[0]} bwd {counts[1]} "
             f"heads-first fwd {counts[2]} heads-first bwd {counts[3]} (need "
@@ -947,7 +951,7 @@ def phase_fused_step(ckpt, smi):
         loss = step(state, batch, draws)
         torch.cuda.synchronize()
         counts = _counts(FA)
-        ms = _time_ms(lambda: step(state, batch, draws), iters=3, warmup=0)
+        ms = _time_ms(lambda: step(state, batch, draws), iters=3, warmup=1)
         log(f"[fused-step] {dname}: loss {float(loss):.6f}, launches fwd "
             f"{counts[0]} bwd {counts[1]} heads-first fwd {counts[2]} "
             f"heads-first bwd {counts[3]} (need {layers}, 0, 0, {layers}); "
@@ -1097,6 +1101,471 @@ def phase_train_cli(workdir, ckpt, dataset, smi):
     return total
 
 
+# ---------------------------------------------------------------------------
+# the block-fused layer kernels (kernels/megablock.py) and the use_mega route
+
+# (name, batch, seq, width, heads, mlp, causal, quick_gelu): the B/32 image
+# tower's block at the train batch, the text tower's (a quarter of the 1024
+# prompts of a zero-shot run), one exact-gelu case and B/16's sequence
+MEGA_SHAPES = [
+    ("vitb32_image", 256, 50, 768, 12, 3072, False, True),
+    ("text", 256, 77, 512, 8, 2048, True, True),
+    ("vitb32_image_gelu", 16, 50, 768, 12, 3072, False, False),
+    ("vitb16_image", 8, 197, 768, 12, 3072, False, True),
+]
+MEGA_OUTPUTS = {
+    "mega_fwd": ("y", "x2"),
+    "mega_mlp_bwd": ("dx2", "d_fc_w", "d_fc_b", "d_proj_w", "d_proj_b",
+                     "d_ln2_w", "d_ln2_b"),
+    "mega_attn_bwd": ("dx", "d_in_w", "d_in_b", "d_out_w", "d_out_b",
+                      "d_ln1_w", "d_ln1_b")}
+# kernel vs plain, each output against its own largest value.  fp32: the two
+# differ in summation order only (a weight gradient sums over all B*S rows).
+MEGA_FP32_TOL = 5e-5
+# bf16, an output in bf16: a rounding flip of it or of what feeds it, two
+# ulps of the element plus one of the largest; an fp32 gradient: a few
+# flipped bf16 roundings among the B*S terms of each sum
+MEGA_BF16_TOL = (1.6e-2, 4e-3)
+MEGA_BF16_GRAD_TOL = 2e-3
+# the share of a bf16 output that is bit-equal to the plain version's.  With
+# the same rounding points a last fp32 bit flips one value in 10^3-10^4, but
+# one flipped hidden value moves the 768- to 3072-term sum it feeds, so at
+# full width the flips multiply down the chain of roundings (y: 0.87-0.98
+# bit-equal on an H100).  The yardstick is therefore measured in the same
+# run: the plain version against itself with every weight product summed in
+# another order (two halves of the depth; its attention and LayerNorm sums
+# stay as they are, so it understates the noise where S is long).  The
+# kernel may differ from the plain version in at most MEGA_FLIP_FACTOR times
+# as many elements as that reordering does, plus MEGA_FLIP_FLOOR of them.
+# At width 64-96 every output keeps >= 0.99 (tests/test_torch_cuda.py), and
+# the plain versions are bit-equal to the TPU kernels in interpret mode
+# (tests/test_torch_megablock.py, where a moved rounding point falls below
+# 0.99 even at width 64)
+MEGA_FLIP_FACTOR = 3.0
+MEGA_FLIP_FLOOR = 0.01
+
+
+def _split_depth_dot(a, b):
+    """kernels.megablock._dot with the depth summed in two halves."""
+    import torch
+
+    a, b = a.float(), b.float()
+    k = a.shape[-1] // 2
+    return (torch.matmul(a[..., :k], b[..., :k, :])
+            + torch.matmul(a[..., k:], b[..., k:, :]))
+
+
+def _mega_inputs(b, s, d, f, dtype, gen):
+    """x, x2, dy, dx2 [B, S, D] and one block's weights (LayerNorm scale and
+    bias random, so that their rounding shows) on the card in ``dtype``."""
+    import torch
+
+    from swat_tpu_torch.kernels.megablock import BlockWeights
+
+    def normal(shape, std=1.0, mean=0.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * std
+                + mean).to(dtype)
+
+    acts = [normal((b, s, d)) for _ in range(4)]
+    w = BlockWeights(
+        normal((3 * d, d), d ** -0.5), normal((3 * d,), 0.1),
+        normal((d, d), d ** -0.5), normal((d,), 0.1),
+        normal((d,), 0.1, 1.0), normal((d,), 0.1), normal((d,), 0.1, 1.0),
+        normal((d,), 0.1), normal((f, d), d ** -0.5), normal((f,), 0.1),
+        normal((d, f), f ** -0.5), normal((d,), 0.1))
+    return acts, w
+
+
+def _mega_calls(MB, acts, w, heads, causal, quick):
+    """{kernel: (kernel call, plain call)} on one set of inputs."""
+    x, x2, dy, dx2 = acts
+    return {
+        "mega_fwd": (
+            lambda: MB.megablock_fwd(x, w, heads, causal, quick),
+            lambda: MB.block_fwd_reference(x, w, heads, causal, quick)),
+        "mega_mlp_bwd": (
+            lambda: MB.megablock_mlp_bwd(x2, dy, w, quick),
+            lambda: MB.mlp_bwd_reference(x2, dy, w, quick)),
+        "mega_attn_bwd": (
+            lambda: MB.megablock_attn_bwd(x, dx2, w, heads, causal),
+            lambda: MB.attn_bwd_reference(x, dx2, w, heads, causal))}
+
+
+def phase_mega_kernels():
+    """Each block kernel against its plain version at every MEGA_SHAPES
+    shape, fp32 and bf16 -> the largest absolute error by (kernel, shape,
+    dtype)."""
+    import torch
+
+    from swat_tpu_torch.kernels import megablock as MB
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    worst = {}
+    for name, b, s, d, heads, f, causal, quick in MEGA_SHAPES:
+        for dname, dtype in (("float32", torch.float32),
+                             ("bfloat16", torch.bfloat16)):
+            acts, w = _mega_inputs(b, s, d, f, dtype, gen)
+            for kernel, (run, plain) in _mega_calls(MB, acts, w, heads,
+                                                    causal, quick).items():
+                got, ref = run(), plain()
+                reordered = ref
+                if dtype == torch.bfloat16:
+                    dot, MB._dot = MB._dot, _split_depth_dot
+                    try:
+                        reordered = plain()
+                    finally:
+                        MB._dot = dot
+                torch.cuda.synchronize()
+                ok, parts, max_err = True, [], 0.0
+                for out, g, r, r2 in zip(MEGA_OUTPUTS[kernel], got, ref,
+                                         reordered):
+                    g32, r32 = g.float(), r.float()
+                    err = (g32 - r32).abs()
+                    scale = float(r32.abs().max())
+                    ok &= g.shape == r.shape and g.dtype == r.dtype
+                    ok &= bool(torch.isfinite(g).all())
+                    note = f"{out} {float(err.max()):.2e}/{scale:.2e}"
+                    if dtype == torch.float32:
+                        ok &= float(err.max()) <= MEGA_FP32_TOL * scale
+                    elif g.dtype == torch.bfloat16:
+                        rtol, atol = MEGA_BF16_TOL
+                        ok &= bool((err <= rtol * r32.abs()
+                                    + atol * scale).all())
+                        share = float((g == r).float().mean())
+                        noise = float((r2 == r).float().mean())
+                        least = 1 - (MEGA_FLIP_FACTOR * (1 - noise)
+                                     + MEGA_FLIP_FLOOR)
+                        ok &= share >= least
+                        note += (f" bit-equal {share:.4f} (plain reordered "
+                                 f"{noise:.4f}, so at least {least:.4f})")
+                    else:
+                        ok &= float(err.max()) <= MEGA_BF16_GRAD_TOL * scale
+                    parts.append(note)
+                    max_err = max(max_err, float(err.max()))
+                worst[(kernel, name, dname)] = max_err
+                log(f"[mega-kernels] {kernel} {name} B={b} S={s} D={d} "
+                    f"H={heads} F={f} causal={causal} "
+                    f"{'quick-gelu' if quick else 'gelu'} {dname}: max abs "
+                    f"err / largest value: {'; '.join(parts)} "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"{kernel} disagrees with its plain "
+                                         f"version at {name} {dname}")
+    return worst
+
+
+def _mega_bound_ms(kernel, b, s, d, heads, f, dname, causal):
+    """The least time the card could take for one call of a block kernel:
+    the larger of its bytes (activations and weights read once, outputs
+    written once; parameter gradients are fp32) over the memory rate and
+    its operations over the peak rate of the type -> (ms, 'bytes' |
+    'operations').  Operations per token row, 2 a multiply-add: forward
+    8 D^2 + 4 D F; MLP backward 10 D F (the fc recompute, dWp, dg, dWfc,
+    dh2); attention backward 22 D^2 (the qkv recompute, dWo, do, dWqkv,
+    dh1); and per image and head 2 (forward) or 6 (attention backward: s and
+    p.v again, dv, dp, dq, dk) products of 2 * hd over the query-key pairs
+    that are not masked (per image, not over the TPU kernel's batch
+    block)."""
+    itemsize = 4 if dname == "float32" else 2
+    n = b * s
+    pairs = s * (s + 1) // 2 if causal else s * s
+    attn = b * heads * pairs * 2 * (d // heads)
+    if kernel == "mega_fwd":
+        ops = n * (8 * d * d + 4 * d * f) + 2 * attn
+        nbytes = (3 * n * d + 4 * d * d + 2 * d * f + 9 * d + f) * itemsize
+    elif kernel == "mega_mlp_bwd":
+        ops = n * 10 * d * f
+        nbytes = ((3 * n * d + 2 * d * f + f + 2 * d) * itemsize
+                  + (2 * d * f + f + 3 * d) * 4)
+    else:
+        ops = n * 22 * d * d + 6 * attn
+        nbytes = ((3 * n * d + 4 * d * d + 5 * d) * itemsize
+                  + (4 * d * d + 6 * d) * 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS_PER_S[dname]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _library_halves(w, heads, causal, quick):
+    """The block built from library calls (layer_norm, linear = cuBLAS,
+    scaled_dot_product_attention), as its two halves: x -> x2 and x2 -> y.
+    Timed as the yardstick; the port calls none of it."""
+    import torch
+    import torch.nn.functional as F
+
+    def attn_half(x):
+        b, s, d = x.shape
+        h = F.layer_norm(x, (d,), w.ln1_w, w.ln1_b)
+        q, k, v = (t.reshape(b, s, heads, -1).transpose(1, 2)
+                   for t in F.linear(h, w.in_w, w.in_b).chunk(3, dim=-1))
+        o = F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+        o = o.transpose(1, 2).reshape(b, s, d)
+        return x + F.linear(o, w.out_w, w.out_b)
+
+    def mlp_half(x2):
+        h = F.layer_norm(x2, (x2.shape[-1],), w.ln2_w, w.ln2_b)
+        m = F.linear(h, w.fc_w, w.fc_b)
+        g = m * torch.sigmoid(1.702 * m) if quick else F.gelu(m)
+        return x2 + F.linear(g, w.proj_w, w.proj_b)
+
+    return attn_half, mlp_half
+
+
+def phase_mega_timing(smi):
+    """The three block kernels at the B/32 image shape, fp32 and bf16, in
+    turns plain, kernel, kernel, plain; beside them the bound, and the
+    library-built block: its forward for the forward kernel, and for each
+    backward kernel the forward and backward of its half through autograd
+    (the backward kernels recompute their half's forward too).  Launches
+    made here are not counted."""
+    import torch
+
+    from swat_tpu_torch.kernels import megablock as MB
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    name, b, s, d, heads, f, causal, quick = MEGA_SHAPES[0]
+    times = {}
+    for dname, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        acts, w = _mega_inputs(b, s, d, f, dtype, gen)
+        x, x2, dy, dx2 = acts
+        attn_half, mlp_half = _library_halves(w, heads, causal, quick)
+        with torch.no_grad():
+            lib_fwd = _time_ms(lambda: mlp_half(attn_half(x)), iters=5,
+                               warmup=2)
+
+        leaves = MB.BlockWeights(*(t.detach().requires_grad_(True)
+                                   for t in w))
+        attn_leaf, mlp_leaf = _library_halves(leaves, heads, causal, quick)
+
+        def fwd_bwd(half, inp, grad, params):
+            leaf = inp.detach().requires_grad_(True)
+            return lambda: torch.autograd.grad(half(leaf), (leaf, *params),
+                                               grad)
+
+        lib = {
+            "mega_fwd": lib_fwd,
+            "mega_mlp_bwd": _time_ms(fwd_bwd(
+                mlp_leaf, x2, dy,
+                (leaves.ln2_w, leaves.ln2_b, leaves.fc_w, leaves.fc_b,
+                 leaves.proj_w, leaves.proj_b)), iters=5, warmup=2),
+            "mega_attn_bwd": _time_ms(fwd_bwd(
+                attn_leaf, x, dx2,
+                (leaves.in_w, leaves.in_b, leaves.out_w, leaves.out_b,
+                 leaves.ln1_w, leaves.ln1_b)), iters=5, warmup=2)}
+        for kernel, (run, plain) in _mega_calls(MB, acts, w, heads, causal,
+                                                quick).items():
+            p1, k1, k2, p2 = (_time_ms(fn, iters=5, warmup=2)
+                              for fn in (plain, run, run, plain))
+            ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+            bound, by = _mega_bound_ms(kernel, b, s, d, heads, f, dname,
+                                       causal)
+            kind = kernel[len("mega_"):]
+            scratch = MB.scratch_bytes(kind, b, s, d, f, heads, dtype)
+            times[(kernel, dname)] = (ms, plain_ms, lib[kernel], bound, by)
+            log(f"[mega-timing] {kernel} {name} B={b} S={s} D={d} H={heads} "
+                f"F={f} {dname}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
+                f"(runs {k1:.3f}/{k2:.3f} vs {p1:.3f}/{p2:.3f}), bound "
+                f"{bound:.3f} ms ({by}), library "
+                f"{'forward' if kind == 'fwd' else 'forward + backward of its half'} "
+                f"{lib[kernel]:.3f} ms, scratch {scratch / 1e6:.1f} MB a "
+                f"call on {smi}")
+        # where one call of each kernel spends its device time
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for run, _ in _mega_calls(MB, acts, w, heads, causal,
+                                      quick).values():
+                run()
+            torch.cuda.synchronize()
+        split = _mega_device_split(prof)
+        log(f"[mega-timing] {dname} profile, device ms of one call of each "
+            f"of the three kernels: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+            + f" (sum {sum(split.values()):.3f}) on {smi}")
+    return times
+
+
+def _mega_device_split(prof):
+    """Device ms by launch family from a torch.profiler run of the block
+    kernels: the weight-gradient products (both operands read down their
+    columns), the other products, the attention templates, and the
+    LayerNorm and column-sum launches."""
+    from torch.autograd import DeviceType
+
+    split = {"weight-gradient products": 0.0, "other products": 0.0,
+             "attention": 0.0, "layernorm and column sums": 0.0}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        name, ms = evt.key, evt.self_device_time_total / 1e3
+        if "gemm_kernel" in name:
+            wgrad = "false, false" in name.replace("(bool)0", "false")
+            split["weight-gradient products" if wgrad
+                  else "other products"] += ms
+        elif "attention_" in name:
+            split["attention"] += ms
+        elif "ln_" in name or "colsum" in name:
+            split["layernorm and column sums"] += ms
+    return split
+
+
+def _reset_mega(MB):
+    MB.LAUNCHES_MEGA = MB.LAUNCHES_MEGA_MLP_BWD = 0
+    MB.LAUNCHES_MEGA_ATTN_BWD = 0
+
+
+def _mega_counts(MB):
+    return (MB.LAUNCHES_MEGA, MB.LAUNCHES_MEGA_MLP_BWD,
+            MB.LAUNCHES_MEGA_ATTN_BWD)
+
+
+def phase_mega_towers(ckpt, smi):
+    """Both full-width ViT-B/32 towers through use_mega (image B=256, 64
+    prompts) against the ordinary route (the packed-head attention kernels
+    between torch's products), fp32 and bf16.  The counts are set to 0 just
+    before each use_mega encode and read just after: one launch of the
+    block-forward kernel a layer -> its launches."""
+    import torch
+
+    from swat_tpu_torch.core.precision import DEFAULT_PRECISION, FP32_PRECISION
+    from swat_tpu_torch.kernels import megablock as MB
+    from swat_tpu_torch.models.clip import CLIPModel
+    from swat_tpu_torch.models.configs import get_model_config
+
+    cfg = get_model_config(MODEL_CFG)
+    model = CLIPModel(cfg)
+    model.load_state_dict(torch.load(ckpt))
+    model.cuda().eval()
+    gen = torch.Generator().manual_seed(2)
+    n_px = cfg.vision.image_size
+    images = torch.randn(TRAIN_BSZ, n_px, n_px, 3, generator=gen).cuda()
+    ctx, vocab = cfg.text.context_length, cfg.text.vocab_size
+    tokens = torch.randint(1, vocab - 3, (64, ctx), generator=gen)
+    tokens[:, 0] = vocab - 2
+    for i in range(64):
+        tokens[i, 2 + i % (ctx - 3):] = 0
+        tokens[i, 2 + i % (ctx - 3)] = vocab - 1     # EOT, the max id
+    tokens = tokens.cuda()
+    total = 0
+    for dname, precision in (("float32", FP32_PRECISION),
+                             ("bfloat16", DEFAULT_PRECISION)):
+        precision.apply_backend_flags()
+        model.precision = precision
+        for tower, encode, inp, layers in (
+                ("image", model.encode_image, images, cfg.vision.layers),
+                ("text", model.encode_text, tokens, cfg.text.layers)):
+            with torch.inference_mode():
+                ref = encode(inp, normalize=True)
+                _reset_mega(MB)
+                got = encode(inp, normalize=True, use_mega=True)
+                torch.cuda.synchronize()
+                counts = _mega_counts(MB)
+            if not (got.shape == (len(inp), cfg.embed_dim)
+                    and bool(torch.isfinite(got).all())):
+                raise AssertionError(f"{tower} tower output malformed")
+            cos = float((got * ref).sum(-1).min())
+            ok = cos >= TOWER_MIN_COS[dname] and counts == (layers, 0, 0)
+            log(f"[mega-towers] {MODEL_CFG} {tower} tower ({layers} layers, "
+                f"B={len(inp)}) {dname}: min cosine use_mega vs the ordinary "
+                f"route = {cos:.8f} (bound {TOWER_MIN_COS[dname]}), launches "
+                f"{counts} (need ({layers}, 0, 0)) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{tower} tower through use_mega "
+                                     f"disagrees ({dname})")
+            total += counts[0]
+        with torch.inference_mode():
+            t = [_time_ms(lambda m=mega: model.encode_image(images,
+                                                            use_mega=m),
+                          iters=3, warmup=1)
+                 for mega in (False, True, True, False)]
+        log(f"[mega-towers] {MODEL_CFG} image tower forward B={TRAIN_BSZ} "
+            f"{dname}: use_mega {(t[1] + t[2]) / 2:.3f} ms "
+            f"({TRAIN_BSZ * 2e3 / (t[1] + t[2]):.1f} images/s), ordinary "
+            f"route {(t[0] + t[3]) / 2:.3f} ms on {smi}")
+    del model
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_mega_step(ckpt, smi):
+    """The full-width ViT-B/32 cutmix step at bsz 256 from uint8 canvases
+    with the image tower through use_mega, fp32 and bf16: all visual
+    gradients against the ordinary route, then one step with AdamW with
+    every count set to 0 just before it and read just after (12 launches
+    each of the three block kernels, none of the packed-head attention
+    kernels), then timed steps -> the three kernels' launches."""
+    import numpy as np
+    import torch
+
+    from swat_tpu_torch.core.precision import DEFAULT_PRECISION, FP32_PRECISION
+    from swat_tpu_torch.kernels import flash_attention as FA
+    from swat_tpu_torch.kernels import megablock as MB
+    from swat_tpu_torch.train.losses import cross_entropy
+    from swat_tpu_torch.train.state import create_train_state
+    from swat_tpu_torch.train.steps import (make_encode_loss, make_mix_fn,
+                                            make_mixing_step, make_sampler)
+
+    cfg, model, batch, head, rng = _train_setup(ckpt)
+    n_px, layers = cfg.vision.image_size, cfg.vision.layers
+    sample = make_sampler("cutmix", mix_prob=1.0, image_size=n_px)
+    mix = make_mix_fn("cutmix", image_size=n_px)
+    total = [0, 0, 0]
+    for dname, precision in (("float32", FP32_PRECISION),
+                             ("bfloat16", DEFAULT_PRECISION)):
+        precision.apply_backend_flags()
+        model.precision = precision
+        state = create_train_state(model, head, "cutmix", total_iter=100)
+        draws = sample(rng, batch)
+        grads = {}
+        for route, mega in (("use_mega", True), ("ordinary", False)):
+            state.optimizer.zero_grad(set_to_none=True)
+            loss = make_encode_loss(cross_entropy, use_mega=mega)(
+                state, mix(state, batch, draws))
+            loss.backward()
+            grads[route] = (loss.item(), {
+                n: p.grad.detach().float().flatten().clone()
+                for n, p in model.named_parameters() if p.grad is not None})
+        (lm, gm), (lo, go) = grads["use_mega"], grads["ordinary"]
+        if not (np.isfinite(lm) and len(gm) == len(go) > 0):
+            raise AssertionError(f"use_mega train step malformed ({dname})")
+        cos = {n: float(torch.nn.functional.cosine_similarity(
+            gm[n], go[n], dim=0)) for n in gm if go[n].abs().max() > 0}
+        worst = min(cos, key=cos.get)
+        ok = cos[worst] >= GRAD_MIN_COS[dname]
+        log(f"[mega-step] {MODEL_CFG} cutmix bsz {TRAIN_BSZ} {dname}: loss "
+            f"use_mega {lm:.6f} / ordinary {lo:.6f}; min cosine of "
+            f"{len(cos)} visual grads use_mega vs the ordinary route = "
+            f"{cos[worst]:.8f} ({worst}; bound {GRAD_MIN_COS[dname]}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"use_mega gradients disagree ({dname})")
+        del grads, gm, go
+        state.optimizer.zero_grad(set_to_none=True)
+        step = make_mixing_step("cutmix", image_size=n_px, use_mega=True)
+        _reset_counts(FA)
+        _reset_mega(MB)
+        loss = step(state, batch, draws)
+        torch.cuda.synchronize()
+        counts, attn_counts = _mega_counts(MB), _counts(FA)
+        ms = _time_ms(lambda: step(state, batch, draws), iters=3, warmup=1)
+        log(f"[mega-step] {dname}: loss {float(loss):.6f}, launches block "
+            f"fwd {counts[0]} mlp bwd {counts[1]} attn bwd {counts[2]} (need "
+            f"{layers} each), attention kernels {attn_counts} (need all 0); "
+            f"{ms:.2f} ms/step ({TRAIN_BSZ * 1e3 / ms:.1f} images/s) on "
+            f"{smi}")
+        if (not np.isfinite(float(loss)) or counts != (layers,) * 3
+                or attn_counts != (0, 0, 0, 0)):
+            raise AssertionError(f"the use_mega step did not go through the "
+                                 f"block kernels ({dname}): {counts}, "
+                                 f"{attn_counts}")
+        total = [t + c for t, c in zip(total, counts)]
+        del state, step
+    del model
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     try:
         import torch
@@ -1131,6 +1600,10 @@ def main() -> int:
         step_flash = phase_attentive_step(ckpt, smi)
         step_flash_bwd = phase_fused_step(ckpt, smi)
         cli_counts = phase_train_cli(workdir, ckpt, "smoke10", smi)
+        worst_mega = phase_mega_kernels()
+        times_mega = phase_mega_timing(smi)
+        tower_mega = phase_mega_towers(ckpt, smi)
+        step_mega = phase_mega_step(ckpt, smi)
     # each kernel at the CLI default (fp32) and the B/32 image shape
     # (B=256, H=12, S=50, D=64).  launches: the zero-shot runs, the stage-1
     # runs and the train-step phases that drive a kernel's path, each
@@ -1161,6 +1634,24 @@ def main() -> int:
         entry("flash_bwd", "flash_bwd.cu", 61, "bwd", step_flash_bwd,
               worst_flash[("flash_bwd", *shape)],
               times_flash[("flash_bwd", False, *shape)], lib_bwd)]
+    # the block kernels at the same dtype and the B/32 image block (B=256,
+    # S=50, D=768, H=12, F=3072); launches: the use_mega towers and train
+    # steps, each counted from 0.  No flag of the CLI selects use_mega, as in
+    # the JAX package.
+    mega_launches = {"mega_fwd": tower_mega + step_mega[0],
+                     "mega_mlp_bwd": step_mega[1],
+                     "mega_attn_bwd": step_mega[2]}
+    for kernel, line in (("mega_fwd", 138), ("mega_mlp_bwd", 184),
+                         ("mega_attn_bwd", 228)):
+        ms, plain_ms, lib_ms, bound, by = times_mega[(kernel, "float32")]
+        kernels.append({
+            "name": kernel, "route": "cuda",
+            "source": f"swat_tpu_torch/csrc/megablock_{kernel[5:]}.cu",
+            "replaces": f"swat_tpu/kernels/megablock.py:{line}",
+            "launches": mega_launches[kernel],
+            "max_abs_err": worst_mega[(kernel, "vitb32_image", "float32")],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": lib_ms})
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} was launched no time on its "

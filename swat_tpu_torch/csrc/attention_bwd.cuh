@@ -49,7 +49,9 @@
 
 #include <math_constants.h>
 
+// `abwd` is inline: see attention_fwd.cuh
 namespace {
+inline namespace abwd {
 
 constexpr int kRows = 32;               // rows (query or key) per block
 constexpr int kParts = 2;               // threads per row
@@ -174,12 +176,14 @@ __device__ __forceinline__ unsigned pair_mask() {
 
 // ---- kernel A: dq, and the row statistics m, l, delta.  kRound: round ds
 // (and, in kernel B, pb) to T, the rounding points of the TPU kernels that
-// feed the matrix unit the input dtype; false keeps both in fp32
-template <typename T, int D, bool kRound>
+// feed the matrix unit the input dtype; false keeps both in fp32.  TOut: the
+// type dq (and, in kernel B, dk and dv) is written in: T, or float for a
+// caller that sums the fp32 gradients before it rounds them
+template <typename T, int D, bool kRound, typename TOut = T>
 __global__ void __launch_bounds__(kThreads)
     attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dout,
-                      T* __restrict__ dq, float* __restrict__ stats,
+                      TOut* __restrict__ dq, float* __restrict__ stats,
                       int heads, int seq, Strides qs, Strides ks, Strides vs,
                       Strides dos, Strides dqs, float scale, int causal) {
   constexpr int P = D / kParts;
@@ -283,7 +287,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
   }
 
-  store_row_part<T, D>(acc, stage, dq, dqs, b, head, row0, seq);
+  store_row_part<TOut, D>(acc, stage, dq, dqs, b, head, row0, seq);
   if (active && part == 0) {
     const long long bhs = static_cast<long long>(gridDim.z) * heads * seq;
     const long long at = (static_cast<long long>(b) * heads + head) * seq + row;
@@ -294,11 +298,11 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---- kernel B: dk and dv, from the statistics kernel A stored
-template <typename T, int D, bool kRound>
+template <typename T, int D, bool kRound, typename TOut = T>
 __global__ void __launch_bounds__(kThreads)
     attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const T* __restrict__ dout,
-                       T* __restrict__ dk, T* __restrict__ dv,
+                       TOut* __restrict__ dk, TOut* __restrict__ dv,
                        const float* __restrict__ stats, int heads, int seq,
                        Strides qs, Strides ks, Strides vs, Strides dos,
                        Strides dks, Strides dvs, float scale, int causal) {
@@ -370,8 +374,8 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
   }
 
-  store_row_part<T, D>(dk_acc, stage, dk, dks, b, head, row0, seq);
-  store_row_part<T, D>(dv_acc, stage, dv, dvs, b, head, row0, seq);
+  store_row_part<TOut, D>(dk_acc, stage, dk, dks, b, head, row0, seq);
+  store_row_part<TOut, D>(dv_acc, stage, dv, dvs, b, head, row0, seq);
 }
 
 struct Args {
@@ -384,39 +388,40 @@ struct Args {
   int causal;
 };
 
-template <typename T, int D, bool kRound>
+template <typename T, int D, bool kRound, typename TOut>
 cudaError_t launch_d(const Args& a, cudaStream_t stream) {
   const dim3 grid((a.seq + kRows - 1) / kRows, a.heads, a.batch);
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
   const T* dout = static_cast<const T*>(a.dout);
-  attention_bwd_dq_kernel<T, D, kRound><<<grid, kThreads, 0, stream>>>(
-      q, k, v, dout, static_cast<T*>(a.dq), a.stats, a.heads, a.seq, a.qs,
+  attention_bwd_dq_kernel<T, D, kRound, TOut><<<grid, kThreads, 0, stream>>>(
+      q, k, v, dout, static_cast<TOut*>(a.dq), a.stats, a.heads, a.seq, a.qs,
       a.ks, a.vs, a.dos, a.dqs, a.scale, a.causal);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attention_bwd_dkv_kernel<T, D, kRound><<<grid, kThreads, 0, stream>>>(
-      q, k, v, dout, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.stats,
+  attention_bwd_dkv_kernel<T, D, kRound, TOut><<<grid, kThreads, 0, stream>>>(
+      q, k, v, dout, static_cast<TOut*>(a.dk), static_cast<TOut*>(a.dv), a.stats,
       a.heads, a.seq, a.qs, a.ks, a.vs, a.dos, a.dks, a.dvs, a.scale,
       a.causal);
   return cudaGetLastError();
 }
 
-template <typename T, bool kRound>
+template <typename T, bool kRound, typename TOut = T>
 cudaError_t launch(const Args& a, int head_dim, cudaStream_t stream) {
   switch (head_dim) {
     case 8:
-      return launch_d<T, 8, kRound>(a, stream);
+      return launch_d<T, 8, kRound, TOut>(a, stream);
     case 16:
-      return launch_d<T, 16, kRound>(a, stream);
+      return launch_d<T, 16, kRound, TOut>(a, stream);
     case 32:
-      return launch_d<T, 32, kRound>(a, stream);
+      return launch_d<T, 32, kRound, TOut>(a, stream);
     case 64:
-      return launch_d<T, 64, kRound>(a, stream);
+      return launch_d<T, 64, kRound, TOut>(a, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
+}  // namespace abwd
 }  // namespace

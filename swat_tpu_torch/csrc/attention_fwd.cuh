@@ -46,7 +46,11 @@
 
 #include <math_constants.h>
 
+// `afwd` is inline: a source that includes this header alone names its
+// members unqualified; one that also includes attention_bwd.cuh (which
+// defines the same helper names) qualifies them
 namespace {
+inline namespace afwd {
 
 constexpr int kRows = 32;  // query rows per block, one per thread
 constexpr int kKeys = 32;  // keys per shared-memory tile
@@ -249,4 +253,5 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+}  // namespace afwd
 }  // namespace

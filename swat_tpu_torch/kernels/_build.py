@@ -26,9 +26,12 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build",
                           "swat_tpu_torch")
 # one translation unit per kernel; the packed-head and the heads-first
-# kernels instantiate the templates of the two headers
-SOURCES = ("mha_fwd.cu", "mha_bwd.cu", "flash_fwd.cu", "flash_bwd.cu")
-HEADERS = ("attention_fwd.cuh", "attention_bwd.cuh")
+# kernels instantiate the templates of the two attention headers, the three
+# block-fused layer kernels those and megablock.cuh
+SOURCES = ("mha_fwd.cu", "mha_bwd.cu", "flash_fwd.cu", "flash_bwd.cu",
+           "megablock_fwd.cu", "megablock_mlp_bwd.cu",
+           "megablock_attn_bwd.cu")
+HEADERS = ("attention_fwd.cuh", "attention_bwd.cuh", "megablock.cuh")
 # sm_90a: the Hopper target with wgmma / setmaxnreg (plain sm_90 lacks them);
 # -Xptxas -v writes each kernel's registers and spills into build.log
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -117,6 +120,13 @@ def load() -> ctypes.CDLL:
     lib.swat_flash_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i,
                                    ctypes.POINTER(ll), ctypes.c_float, i, i,
                                    p]
+    lib.swat_mega_fwd.restype = i
+    lib.swat_mega_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+    lib.swat_mega_mlp_bwd.restype = i
+    lib.swat_mega_mlp_bwd.argtypes = [p, p, p, p, p, p, ll, i, i, i, i, i, p]
+    lib.swat_mega_attn_bwd.restype = i
+    lib.swat_mega_attn_bwd.argtypes = [p, p, p, p, p, p, ll, i, i, i, i, i,
+                                       i, p]
     lib.swat_cuda_error_string.restype = ctypes.c_char_p
     lib.swat_cuda_error_string.argtypes = [i]
     return lib

@@ -27,6 +27,13 @@ heatmaps' forward, takes the heads-first route
 towers' ``use_pallas=True`` attention: the heads-first forward kernel on
 the card, in both precision policies too.  Training differentiates the image
 tower only: the train state turns ``requires_grad`` off for the text tower.
+
+``use_mega=True`` on ``encode_image`` / ``encode_text`` runs the block stack
+through the block-fused layer kernels instead
+(``kernels.megablock.fused_transformer``: one forward kernel a layer, two
+backward kernels as its gradient, only x and x2 saved), as
+``functional._transformer(use_mega=True)`` does; ``attention`` is then not
+used.  ``encode_image_tokens`` has no such route, as there.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ from torch import nn
 from swat_tpu_torch.core.precision import DEFAULT_PRECISION, Precision
 from swat_tpu_torch.kernels.attention import heads_first_attention
 from swat_tpu_torch.kernels.flash_attention import mha_qkv
+from swat_tpu_torch.kernels.megablock import fused_transformer
 from swat_tpu_torch.models.configs import (CLIPConfig, ResNetConfig,
                                            TextConfig, VisionConfig)
 
@@ -130,12 +138,18 @@ class ResidualAttentionBlock(nn.Module):
 class Transformer(nn.Module):
     def __init__(self, width: int, layers: int, heads: int, quick: bool):
         super().__init__()
+        self.heads = heads
+        self.quick = quick
         self.resblocks = nn.ModuleList(
             ResidualAttentionBlock(width, heads, quick)
             for _ in range(layers))
 
     def forward(self, x, causal: bool, precision: Precision,
-                attention: Attention):
+                attention: Attention, use_mega: bool = False):
+        if use_mega:
+            return fused_transformer(
+                self.resblocks, x, heads=self.heads, quick_gelu=self.quick,
+                causal=causal, compute_dtype=precision.compute_dtype)
         for block in self.resblocks:
             x = block(x, causal, precision, attention)
         return x
@@ -162,7 +176,8 @@ class VisionTower(nn.Module):
         self.proj = nn.Parameter(torch.empty(w, cfg.embed_dim))
 
     def forward(self, images: torch.Tensor, precision: Precision,
-                attention: Attention, pool: bool = True) -> torch.Tensor:
+                attention: Attention, pool: bool = True,
+                use_mega: bool = False) -> torch.Tensor:
         """images [B, H, W, 3] -> [B, embed]; ``pool=False`` applies
         ln_post and the projection to every token -> [B, S, embed], class
         token first (the heatmaps' input)."""
@@ -179,7 +194,7 @@ class VisionTower(nn.Module):
         cls = self.class_embedding.to(cd).expand(b, 1, -1)
         x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(cd)
         x = layer_norm(self.ln_pre, x, precision)
-        x = self.transformer(x, False, precision, attention)
+        x = self.transformer(x, False, precision, attention, use_mega)
         x = layer_norm(self.ln_post, x[:, 0] if pool else x, precision)
         return project(x, self.proj, precision)
 
@@ -201,12 +216,12 @@ class TextTower(nn.Module):
             torch.empty(cfg.width, cfg.embed_dim))
 
     def encode_text_features(self, token_ids: torch.Tensor,
-                             precision: Precision,
-                             attention: Attention) -> torch.Tensor:
+                             precision: Precision, attention: Attention,
+                             use_mega: bool = False) -> torch.Tensor:
         cd = precision.compute_dtype
         x = self.token_embedding.weight[token_ids].to(cd)
         x = x + self.positional_embedding.to(cd)
-        x = self.transformer(x, True, precision, attention)
+        x = self.transformer(x, True, precision, attention, use_mega)
         x = layer_norm(self.ln_final, x, precision)
         eot = token_ids.argmax(dim=-1)
         x = x[torch.arange(x.shape[0], device=x.device), eot]
@@ -235,9 +250,11 @@ class CLIPModel(TextTower):
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
 
     def encode_image(self, images: torch.Tensor, normalize: bool = False,
-                     attention: Attention = mha_qkv) -> torch.Tensor:
+                     attention: Attention = mha_qkv,
+                     use_mega: bool = False) -> torch.Tensor:
         """images [B, H, W, 3] (CLIP-normalized) -> [B, embed] fp32."""
-        feats = self.visual(images, self.precision, attention)
+        feats = self.visual(images, self.precision, attention,
+                            use_mega=use_mega)
         return _normalize(feats) if normalize else feats
 
     def encode_image_tokens(
@@ -251,10 +268,11 @@ class CLIPModel(TextTower):
         return self.visual(images, self.precision, attention, pool=False)
 
     def encode_text(self, token_ids: torch.Tensor, normalize: bool = False,
-                    attention: Attention = mha_qkv) -> torch.Tensor:
+                    attention: Attention = mha_qkv,
+                    use_mega: bool = False) -> torch.Tensor:
         """token ids [B, context] -> [B, embed] fp32."""
         feats = self.encode_text_features(token_ids, self.precision,
-                                          attention)
+                                          attention, use_mega)
         return _normalize(feats) if normalize else feats
 
     @torch.no_grad()

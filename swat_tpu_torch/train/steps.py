@@ -153,15 +153,18 @@ def mix_criterion(loss: LossFn, logits, y_a, y_b, lam, lam_vec, source):
     return mixup_criterion(loss, logits, y_a, y_b, lam, source)
 
 
-def make_encode_loss(loss: LossFn, attention: Attention = mha_qkv):
+def make_encode_loss(loss: LossFn, attention: Attention = mha_qkv,
+                     use_mega: bool = False):
     """encode_loss(state, mixed) -> scalar loss: the normalized image
     features, head logits scaled by exp(logit_scale), the mixed
-    criterion.  ``attention`` is the towers' (the kernels by default)."""
+    criterion.  ``attention`` is the towers' (the kernels by default);
+    ``use_mega`` encodes through the block-fused layer kernels instead."""
 
     def encode_loss(state: TrainState, mixed):
         images, y_a, y_b, lam, lam_vec, source = mixed
         feats = state.model.encode_image(images, normalize=True,
-                                         attention=attention)
+                                         attention=attention,
+                                         use_mega=use_mega)
         logits = head_logits(state.head, feats) * torch.exp(state.logit_scale)
         return mix_criterion(loss, logits, y_a, y_b, lam, lam_vec, source)
 
@@ -180,8 +183,9 @@ def batch_to_device(batch: Mapping, device: torch.device) -> dict:
     return out
 
 
-def _make_step(loss: LossFn, mix, attention: Attention) -> Callable:
-    encode_loss = make_encode_loss(loss, attention)
+def _make_step(loss: LossFn, mix, attention: Attention,
+               use_mega: bool) -> Callable:
+    encode_loss = make_encode_loss(loss, attention, use_mega)
 
     def step(state: TrainState, batch, draws: StepDraws) -> torch.Tensor:
         """One update of ``state`` in place -> the step's loss (a 0-d
@@ -198,18 +202,20 @@ def _make_step(loss: LossFn, mix, attention: Attention) -> Callable:
 
 def make_ce_step(loss: LossFn = cross_entropy, image_size: int = 224,
                  aug_dtype: torch.dtype = torch.float32,
-                 attention: Attention = mha_qkv):
+                 attention: Attention = mha_qkv, use_mega: bool = False):
     """Standard finetune CE (reference train_ce, utils/training.py:296-412)."""
     return _make_step(loss, make_mix_fn("finetune", image_size=image_size,
-                                        aug_dtype=aug_dtype), attention)
+                                        aug_dtype=aug_dtype), attention,
+                      use_mega)
 
 
 def make_mixing_step(method: str, loss: LossFn = cross_entropy, *,
                      heatmap_fn: Optional[HeatmapFn] = None,
                      image_size: int = 224,
                      aug_dtype: torch.dtype = torch.float32,
-                     attention: Attention = mha_qkv):
-    """One factory for the single-loader mixing family:
+                     attention: Attention = mha_qkv, use_mega: bool = False):
+    """One factory for the single-loader mixing family (``use_mega``: the
+    image tower through the block-fused layer kernels):
 
     cutmix       reference train_cutmix        utils/training.py:1422-1556
     mixup        reference train_mixup         :1164-1278
@@ -222,4 +228,5 @@ def make_mixing_step(method: str, loss: LossFn = cross_entropy, *,
         raise ValueError("finetune is make_ce_step")
     return _make_step(loss, make_mix_fn(method, heatmap_fn=heatmap_fn,
                                         image_size=image_size,
-                                        aug_dtype=aug_dtype), attention)
+                                        aug_dtype=aug_dtype), attention,
+                      use_mega)

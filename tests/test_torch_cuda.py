@@ -1,14 +1,16 @@
-"""The port's CUDA attention kernels on the card (marked ``cuda``; skipped
-without a GPU and nvcc): the packed-head and the heads-first forward and
+"""The port's CUDA kernels on the card (marked ``cuda``; skipped without a
+GPU and nvcc): the packed-head and the heads-first attention forward and
 backward against their plain twins at ragged and main-path shapes, fp32 and
 bf16, strided and contiguous; the launch counts; determinism; the autograd
-Functions and the three backward modes; and the wrappers' refusals.  Run
+Functions and the three backward modes; the wrappers' refusals; and the same
+for the three block-fused layer kernels (kernels/megablock.py).  Run
 them on a GPU machine with ``python -m pytest tests/test_torch_cuda.py``."""
 
 import pytest
 import torch
 
 from swat_tpu_torch.kernels import flash_attention as FA
+from swat_tpu_torch.kernels import megablock as MB
 
 pytestmark = pytest.mark.cuda
 
@@ -327,3 +329,170 @@ def test_flash_refusals_raise_and_do_not_count(device):
     with pytest.raises(ValueError, match="do must match"):
         FA.flash_attention_bwd(q, k, v, do.bfloat16())
     assert (FA.LAUNCHES_FLASH, FA.LAUNCHES_FLASH_BWD) == before
+
+
+# ---------------------------------------------------------------------------
+# the block-fused layer kernels
+
+# b, s, width, heads, mlp, causal, quick_gelu: ragged tiles (rows, widths
+# and depths that are no multiple of a tile), every head dim, both
+# activations, and the towers' shapes (B/32 image, text, B/16 image)
+MEGA_SHAPES = [
+    (3, 5, 64, 4, 256, False, True), (2, 12, 64, 4, 256, True, False),
+    (2, 33, 96, 3, 200, True, True), (5, 7, 24, 3, 40, False, False),
+    (4, 50, 768, 12, 3072, False, True), (4, 77, 512, 8, 2048, True, True),
+    (2, 197, 768, 12, 3072, False, False)]
+MEGA_OUT = {"fwd": ("y", "x2"),
+            "mlp_bwd": ("dx2", "d_fc_w", "d_fc_b", "d_proj_w", "d_proj_b",
+                        "d_ln2_w", "d_ln2_b"),
+            "attn_bwd": ("dx", "d_in_w", "d_in_b", "d_out_w", "d_out_b",
+                         "d_ln1_w", "d_ln1_b")}
+
+
+def _mega_inputs(b, s, d, f, dtype, device, seed=0):
+    """x, x2, two gradients and one block's weights (random LayerNorm scale
+    and bias) on the card in ``dtype``."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def normal(shape, std=1.0, mean=0.0):
+        return (torch.randn(shape, generator=g, device=device) * std
+                + mean).to(dtype)
+
+    acts = [normal((b, s, d)) for _ in range(4)]
+    w = MB.BlockWeights(
+        normal((3 * d, d), d ** -0.5), normal((3 * d,), 0.1),
+        normal((d, d), d ** -0.5), normal((d,), 0.1),
+        normal((d,), 0.1, 1.0), normal((d,), 0.1), normal((d,), 0.1, 1.0),
+        normal((d,), 0.1), normal((f, d), d ** -0.5), normal((f,), 0.1),
+        normal((d, f), f ** -0.5), normal((d,), 0.1))
+    return acts, w
+
+
+# the share of a bf16 output that must be bit-equal to the plain twin's.  At
+# widths up to 96 every output keeps BWD_MIN_EQUAL_SHARE.  At the towers'
+# widths one flipped hidden value moves the 512- to 3072-term sum it feeds,
+# so the flips multiply down the chain of roundings: measured on an H100
+# 0.986-0.999 (x2, dx2), 0.957-0.995 (dx), 0.872-0.992 (y; lowest at
+# S=197).  The rounding points themselves are held by the
+# plain twins against the Pallas kernels (tests/test_torch_megablock.py).
+MEGA_MIN_SHARE_WIDE = {"x2": 0.97, "dx2": 0.98, "dx": 0.92, "y": 0.80}
+
+
+def mega_close(name, got, ref, dtype, wide=False):
+    """A block kernel's output against its plain twin's.  fp32: the two
+    differ in summation order only (a weight gradient sums over all B*S
+    rows), so 5e-5 of the output's largest value.  bf16, an output in bf16:
+    a rounding flip of it or of what feeds it, two bf16 ulps of the element
+    plus one of the largest, and a share of the elements bit-equal (a wrong
+    rounding point leaves far fewer): BWD_MIN_EQUAL_SHARE, or
+    MEGA_MIN_SHARE_WIDE at the towers' widths (``wide``); an fp32 gradient
+    in bf16: a few flipped bf16 roundings among the B*S terms of a sum, 2e-3
+    of its largest value."""
+    assert got.shape == ref.shape and got.dtype == ref.dtype, name
+    assert bool(torch.isfinite(got).all()), name
+    got32, ref32 = got.float(), ref.float()
+    scale = float(ref32.abs().max())
+    err = (got32 - ref32).abs()
+    if dtype == torch.float32:
+        assert float(err.max()) <= 5e-5 * scale, (name, float(err.max()),
+                                                  scale)
+    elif got.dtype == torch.bfloat16:
+        bound = 1.6e-2 * ref32.abs() + 4e-3 * scale
+        assert bool((err <= bound).all()), (name, float(err.max()), scale)
+        share = float((got == ref).float().mean())
+        need = (MEGA_MIN_SHARE_WIDE[name.split(".")[-1]] if wide
+                else BWD_MIN_EQUAL_SHARE)
+        assert share >= need, (name, share)
+    else:
+        assert float(err.max()) <= 2e-3 * scale, (name, float(err.max()),
+                                                  scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,d,heads,f,causal,quick", MEGA_SHAPES)
+def test_mega_kernels_match_plain_twins(device, dtype, b, s, d, heads, f,
+                                        causal, quick):
+    (x, x2, dy, dx2), w = _mega_inputs(b, s, d, f, dtype, device)
+    before = (MB.LAUNCHES_MEGA, MB.LAUNCHES_MEGA_MLP_BWD,
+              MB.LAUNCHES_MEGA_ATTN_BWD)
+    got = {"fwd": MB.megablock_fwd(x, w, heads, causal, quick),
+           "mlp_bwd": MB.megablock_mlp_bwd(x2, dy, w, quick),
+           "attn_bwd": MB.megablock_attn_bwd(x, dx2, w, heads, causal)}
+    torch.cuda.synchronize()
+    assert (MB.LAUNCHES_MEGA, MB.LAUNCHES_MEGA_MLP_BWD,
+            MB.LAUNCHES_MEGA_ATTN_BWD) == tuple(n + 1 for n in before)
+    ref = {"fwd": MB.block_fwd_reference(x, w, heads, causal, quick),
+           "mlp_bwd": MB.mlp_bwd_reference(x2, dy, w, quick),
+           "attn_bwd": MB.attn_bwd_reference(x, dx2, w, heads, causal)}
+    for kind, names in MEGA_OUT.items():
+        for name, g, r in zip(names, got[kind], ref[kind]):
+            mega_close(f"{kind}.{name}", g, r, dtype, wide=d >= 512)
+
+
+def test_mega_kernels_are_deterministic(device):
+    (x, x2, dy, dx2), w = _mega_inputs(8, 50, 768, 3072, torch.bfloat16,
+                                       device)
+    for call in (lambda: MB.megablock_fwd(x, w, 12, False, True),
+                 lambda: MB.megablock_mlp_bwd(x2, dy, w, True),
+                 lambda: MB.megablock_attn_bwd(x, dx2, w, 12, False)):
+        for a, b in zip(call(), call()):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_block_function_runs_the_three_kernels(device, dtype):
+    """fused_block on the card: one launch of each kernel, the gradients of
+    x and of all 12 weights those of the plain twins chained the same way,
+    cast to the compute dtype."""
+    (x, _, dy, _), w = _mega_inputs(4, 50, 768, 3072, dtype, device, seed=1)
+    x.requires_grad_(True)
+    w = MB.BlockWeights(*(t.requires_grad_(True) for t in w))
+    before = (MB.LAUNCHES_MEGA, MB.LAUNCHES_MEGA_MLP_BWD,
+              MB.LAUNCHES_MEGA_ATTN_BWD)
+    y = MB.fused_block(x, w, 12, False, True)
+    grads = torch.autograd.grad(y, (x, *w), dy)
+    assert (MB.LAUNCHES_MEGA, MB.LAUNCHES_MEGA_MLP_BWD,
+            MB.LAUNCHES_MEGA_ATTN_BWD) == tuple(n + 1 for n in before)
+    xd, wd = x.detach(), MB.BlockWeights(*(t.detach() for t in w))
+    y_ref, x2 = MB.block_fwd_reference(xd, wd, 12, False, True)
+    dx2, d_fc_w, d_fc_b, d_proj_w, d_proj_b, d_ln2_w, d_ln2_b = \
+        MB.mlp_bwd_reference(x2, dy, wd, True)
+    dx, d_in_w, d_in_b, d_out_w, d_out_b, d_ln1_w, d_ln1_b = \
+        MB.attn_bwd_reference(xd, dx2, wd, 12, False)
+    ref = (dx, d_in_w, d_in_b, d_out_w, d_out_b, d_ln1_w, d_ln1_b, d_ln2_w,
+           d_ln2_b, d_fc_w, d_fc_b, d_proj_w, d_proj_b)
+    mega_close("y", y.detach(), y_ref, dtype, wide=True)
+    for name, g, r in zip(("x",) + MB.BlockWeights._fields, grads, ref):
+        assert g.dtype == dtype, name
+        if dtype == torch.float32:
+            mega_close(name, g, r, dtype)
+            continue
+        # bf16: the backward kernels start from the forward kernel's x2 and
+        # the MLP backward's dx2, the twins from their own, so flipped
+        # roundings compound down three kernels and a bit-equal share says
+        # little (each kernel alone is held above); every gradient stays
+        # within two bf16 ulps of the element plus two of the largest
+        torch.testing.assert_close(
+            g.float(), r.to(dtype).float(), rtol=1.6e-2,
+            atol=8e-3 * float(r.abs().max()), msg=name)
+
+
+def test_mega_refusals_raise_and_do_not_count(device):
+    (x, x2, dy, dx2), w = _mega_inputs(2, 5, 64, 256, torch.float32, device)
+    before = (MB.LAUNCHES_MEGA, MB.LAUNCHES_MEGA_MLP_BWD,
+              MB.LAUNCHES_MEGA_ATTN_BWD)
+    with pytest.raises(ValueError, match="head dim"):
+        MB.megablock_fwd(x, w, 16, False, True)            # head dim 4
+    with pytest.raises(ValueError, match="divisible"):
+        MB.megablock_attn_bwd(x, dx2, w, 3, False)
+    with pytest.raises(TypeError):
+        MB.megablock_fwd(x.half(), w, 4, False, True)
+    with pytest.raises(ValueError, match="in_w must be"):
+        MB.megablock_fwd(x, w._replace(in_w=w.in_w.t()), 4, False, True)
+    with pytest.raises(ValueError, match="fc_b must be"):
+        MB.megablock_mlp_bwd(x2, dy, w._replace(fc_b=w.fc_b.bfloat16()),
+                             True)
+    with pytest.raises(ValueError, match="gradient must match"):
+        MB.megablock_mlp_bwd(x2, dy[:, :3], w, True)
+    assert (MB.LAUNCHES_MEGA, MB.LAUNCHES_MEGA_MLP_BWD,
+            MB.LAUNCHES_MEGA_ATTN_BWD) == before

@@ -246,3 +246,175 @@ def delta_check(k, init, ref, got, g0, lr_sum, k_bias_bound):
             f"{k}: noise-g0 element diverged {diff[bad].max():.3e} beyond "
             f"the Adam walk bound {walk:.3e}")
     return 1
+
+
+def mega_layer_numpy(width: int, mlp: int, seed: int = 0) -> dict:
+    """One transformer block's parameters as float32 numpy arrays in torch's
+    layouts, under the field names of the port's
+    ``kernels.megablock.BlockWeights``; LayerNorm scale and bias are random
+    (not 1 and 0), so that their rounding to the compute dtype shows."""
+    rng = np.random.default_rng(seed)
+    d, f = width, mlp
+
+    def normal(shape, std):
+        return (rng.standard_normal(shape) * std).astype(np.float32)
+
+    return {
+        "in_w": normal((3 * d, d), d ** -0.5), "in_b": normal((3 * d,), 0.1),
+        "out_w": normal((d, d), d ** -0.5), "out_b": normal((d,), 0.1),
+        "ln1_w": 1 + normal((d,), 0.1), "ln1_b": normal((d,), 0.1),
+        "ln2_w": 1 + normal((d,), 0.1), "ln2_b": normal((d,), 0.1),
+        "fc_w": normal((f, d), d ** -0.5), "fc_b": normal((f,), 0.1),
+        "proj_w": normal((d, f), f ** -0.5), "proj_b": normal((d,), 0.1),
+    }
+
+
+def mega_jax_weights(layer: dict, heads: int, dtype):
+    """``mega_layer_numpy``'s block in the layout of
+    ``swat_tpu.kernels.megablock._prep_weights`` (per-head [H, D, hd] /
+    [H, hd, D] stacks, 2-D vectors), cast to ``dtype`` (a jnp dtype)."""
+    import jax.numpy as jnp
+
+    d = layer["out_w"].shape[0]
+    hd = d // heads
+
+    def heads_cols(w):          # [D, D] -> [H, D, hd]
+        return w.reshape(d, heads, hd).transpose(1, 0, 2)
+
+    wq, wk, wv = np.split(layer["in_w"].T, 3, axis=1)
+    bq, bk, bv = np.split(layer["in_b"], 3)
+    out = (heads_cols(wq), heads_cols(wk), heads_cols(wv),
+           bq.reshape(heads, 1, hd), bk.reshape(heads, 1, hd),
+           bv.reshape(heads, 1, hd), layer["out_w"].T.reshape(heads, hd, d),
+           layer["out_b"].reshape(1, d), layer["ln1_w"].reshape(1, d),
+           layer["ln1_b"].reshape(1, d), layer["ln2_w"].reshape(1, d),
+           layer["ln2_b"].reshape(1, d), layer["fc_w"].T,
+           layer["fc_b"].reshape(1, -1), layer["proj_w"].T,
+           layer["proj_b"].reshape(1, d))
+    return tuple(jnp.asarray(t, dtype) for t in out)
+
+
+def mega_grads_to_torch_layout(grads) -> dict:
+    """The 16 weight gradients of the JAX fused block (the order of
+    ``mega_jax_weights``) as float32 numpy arrays in torch's layouts under
+    ``BlockWeights``' field names."""
+    (dwq, dwk, dwv, dbq, dbk, dbv, dwo, dbo, dl1s, dl1b, dl2s, dl2b, dwfc,
+     dbfc, dwp, dbp) = (np.asarray(g, np.float32) for g in grads)
+    d = dwo.shape[-1]
+
+    def cols(w):                # [H, D, hd] -> [D, H*hd]
+        return w.transpose(1, 0, 2).reshape(d, d)
+
+    return {
+        "in_w": np.concatenate([cols(dwq), cols(dwk), cols(dwv)], axis=1).T,
+        "in_b": np.concatenate([dbq.reshape(d), dbk.reshape(d),
+                                dbv.reshape(d)]),
+        "out_w": dwo.reshape(d, d).T, "out_b": dbo.reshape(d),
+        "ln1_w": dl1s.reshape(d), "ln1_b": dl1b.reshape(d),
+        "ln2_w": dl2s.reshape(d), "ln2_b": dl2b.reshape(d),
+        "fc_w": dwfc.T, "fc_b": dbfc.reshape(-1), "proj_w": dwp.T,
+        "proj_b": dbp.reshape(d),
+    }
+
+
+# name: (batch, seq, width, heads, mlp, causal, quick_gelu); S = 5 pads to 8
+# and S = 12 to 16 in the JAX package, the port runs them unpadded
+MEGA_CASES = {
+    "image_quick": (4, 5, 64, 4, 256, False, True),
+    "image_gelu": (3, 5, 64, 4, 256, False, False),
+    "text_quick": (3, 12, 64, 4, 256, True, True),
+    "text_gelu": (2, 12, 64, 4, 256, True, False),
+}
+
+
+def mega_case_inputs(name: str):
+    """x and dy [B, S, D] float32 and the layer of ``mega_layer_numpy`` for
+    one of MEGA_CASES, from a seed that depends on the case alone."""
+    b, s, d, heads, f, causal, quick = MEGA_CASES[name]
+    seed = sorted(MEGA_CASES).index(name)
+    rng = np.random.default_rng(100 + seed)
+    x = rng.standard_normal((b, s, d)).astype(np.float32)
+    dy = rng.standard_normal((b, s, d)).astype(np.float32)
+    return x, dy, mega_layer_numpy(d, f, seed=seed)
+
+
+def mega_pallas_reference(out_path: str) -> None:
+    """Every MEGA_CASES case, fp32 and bf16, through the JAX package's three
+    Pallas kernels in interpret mode: y and x2 from ``_fwd_kernel`` (a direct
+    ``pallas_call``, as ``_make_block_fn`` builds it), dx and the 16 weight
+    gradients from ``jax.vjp`` of the custom-VJP block.  Saved as float32
+    arrays ``<case>/<dtype>/<name>`` in an npz, the weight gradients in
+    torch's layouts.  Run it in a process whose XLA_FLAGS hold
+    ``--xla_allow_excess_precision=false`` (``mega_reference_subprocess``):
+    by default XLA on the CPU drops a cast to bf16 that a cast back to fp32
+    follows, which moves the kernels' rounding points."""
+    import functools
+
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+
+    from swat_tpu.kernels import megablock as JM
+
+    out = {}
+    for name, (b, s, d, heads, f, causal, quick) in MEGA_CASES.items():
+        x, dy, layer = mega_case_inputs(name)
+        sp = max(-(-s // 8) * 8, 8)
+        assert sp != s                      # the JAX run is a padded one
+        for dname, dtype in (("float32", jnp.float32),
+                             ("bfloat16", jnp.bfloat16)):
+            w = mega_jax_weights(layer, heads, dtype)
+
+            def padded(t):
+                full = np.zeros((b, sp, d), np.float32)
+                full[:, :s] = t
+                return jnp.asarray(full, dtype).reshape(b * sp, d)
+
+            def cut(t):
+                return np.asarray(t.astype(jnp.float32)).reshape(
+                    b, sp, d)[:, :s]
+
+            xj = padded(x)
+            kern = functools.partial(
+                JM._fwd_kernel, bi=b, sp=sp, seq_len=s, heads=heads,
+                head_dim=d // heads, causal=causal, quick_gelu=quick)
+            y, x2 = pl.pallas_call(
+                kern, grid=(1,),
+                in_specs=[JM._x_spec(b, sp, d)] + [JM._w_spec(t.shape)
+                                                   for t in w],
+                out_specs=(JM._x_spec(b, sp, d),) * 2,
+                out_shape=(jax.ShapeDtypeStruct(xj.shape, xj.dtype),) * 2,
+                interpret=True)(xj, *w)
+            block = JM._make_block_fn(b, sp, s, heads, d // heads, d, f,
+                                      causal, quick, True)
+            y_vjp, vjp = jax.vjp(block, xj, *w)
+            grads = vjp(padded(dy))
+            np.testing.assert_array_equal(np.asarray(y_vjp, np.float32),
+                                          np.asarray(y, np.float32))
+            key = f"{name}/{dname}/"
+            out[key + "y"], out[key + "x2"] = cut(y), cut(x2)
+            out[key + "dx"] = cut(grads[0])
+            for k, g in mega_grads_to_torch_layout(grads[1:]).items():
+                out[key + k] = g
+    np.savez(out_path, **out)
+
+
+def mega_reference_subprocess(out_path: str) -> dict:
+    """``mega_pallas_reference`` in a fresh interpreter with
+    ``--xla_allow_excess_precision=false`` -> the arrays it saved."""
+    import subprocess
+    import sys
+
+    env = dict(os.environ)
+    env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "")
+                        + " --xla_allow_excess_precision=false").strip()
+    env["JAX_PLATFORMS"] = "cpu"
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ("import sys; sys.path[:0] = [%r, %r]; import torch_port_lib; "
+            "torch_port_lib.mega_pallas_reference(%r)"
+            % (here, os.path.dirname(here), str(out_path)))
+    done = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=900)
+    assert done.returncode == 0, done.stderr[-4000:]
+    with np.load(out_path) as data:
+        return {k: data[k] for k in data.files}
