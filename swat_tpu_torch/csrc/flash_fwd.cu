@@ -10,8 +10,9 @@
 // kernel rounds it to the input dtype first), accumulated in fp32 and
 // rounded to the input dtype once.
 //
-// The TPU kernel pads S to 8 and zero-pads D to 128 lanes, both tile needs
-// of that machine; here S and D are taken as they are, and the heads-first
+// The TPU kernel pads S to 8 and zero-pads D to 128 lanes in device memory,
+// both tile needs of that machine; here nothing is padded there (the
+// template pads to its own tile shapes in shared memory), and the heads-first
 // layout is a matter of strides: each tensor takes a batch, a head and a
 // row stride, so a [B, H, S, D] tensor of any dimension order (a transposed
 // view of the qkv projection included) is read in place.

@@ -26,12 +26,12 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build",
                           "swat_tpu_torch")
 # one translation unit per kernel; the packed-head and the heads-first
-# kernels instantiate the templates of the two attention headers, the three
-# block-fused layer kernels those and megablock.cuh
+# kernels instantiate the templates of attention_fwd.cuh and
+# attention_bwd.cuh, the three block-fused layer kernels those and
+# megablock.cuh
 SOURCES = ("mha_fwd.cu", "mha_bwd.cu", "flash_fwd.cu", "flash_bwd.cu",
            "megablock_fwd.cu", "megablock_mlp_bwd.cu",
            "megablock_attn_bwd.cu")
-HEADERS = ("attention_fwd.cuh", "attention_bwd.cuh", "megablock.cuh")
 # sm_90a: the Hopper target with wgmma / setmaxnreg (plain sm_90 lacks them);
 # -Xptxas -v writes each kernel's registers and spills into build.log
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -55,8 +55,11 @@ def find_nvcc() -> str:
 
 
 def source_digest() -> str:
+    """Hash of the flags and of every source and header under csrc/: an
+    edited header rebuilds all that include it."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES + HEADERS:
+    for name in sorted(n for n in os.listdir(CSRC_DIR)
+                       if n.endswith((".cu", ".cuh"))):
         h.update(name.encode())
         with open(os.path.join(CSRC_DIR, name), "rb") as f:
             h.update(f.read())

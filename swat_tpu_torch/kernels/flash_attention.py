@@ -34,6 +34,7 @@ against on the card.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Optional
 
@@ -51,6 +52,9 @@ LAUNCHES_FLASH_BWD = 0  # heads-first backward
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (8, 16, 32, 64)
+# the forward kernels keep a row block's scores and the head's k or v in
+# shared memory: the longest sequence whose fp32 form still fits a block
+MAX_FWD_SEQ = 480
 BWD_MODES = ("pallas", "fused", "xla")
 
 
@@ -196,6 +200,12 @@ def _check_head_dim(d: int) -> None:
                          f"(supported: {_HEAD_DIMS})")
 
 
+def _check_fwd_seq(s: int) -> None:
+    if s > MAX_FWD_SEQ:
+        raise ValueError(f"sequence length {s} is beyond what the forward "
+                         f"kernel holds in shared memory ({MAX_FWD_SEQ})")
+
+
 def _check_inputs(q, k, v, heads):
     _check_dtype_device(q, k, v)
     if q.dim() != 3 or not (q.shape == k.shape == v.shape):
@@ -249,11 +259,20 @@ def _on_cuda(q: torch.Tensor, what: str) -> bool:
 def _empty_in_order_of(t: torch.Tensor) -> torch.Tensor:
     """A dense uninitialised tensor of t's shape and dtype whose dimensions
     lie in memory in t's order (so a transposed view of [B, S, H, D] gets an
-    output that transposes back without a copy)."""
-    order = sorted(range(t.dim()), key=lambda i: (-t.stride(i), i))
-    out = torch.empty([t.shape[i] for i in order], dtype=t.dtype,
-                      device=t.device)
-    return out.permute([order.index(i) for i in range(t.dim())])
+    output that transposes back without a copy): what ``empty_like`` gives
+    for a view that is not dense."""
+    return torch.empty_like(t)
+
+
+def _launch_stream(device: torch.device):
+    """-> (a context in which ``device`` is the current one, its current
+    stream's handle).  A launch costs the host more than these kernels cost
+    the card at the towers' shapes, so the usual case (the device is
+    current already) does no more than look the stream up."""
+    ctx = (contextlib.nullcontext()
+           if device.index == torch.cuda.current_device()
+           else torch.cuda.device(device))
+    return ctx, torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def mha_packed_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -265,14 +284,15 @@ def mha_packed_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not _on_cuda(q, "mha_packed"):
         return mha_packed_reference(q, k, v, heads, causal)
     _check_inputs(q, k, v, heads)
+    _check_fwd_seq(q.shape[1])
     from swat_tpu_torch.kernels import _build
 
     lib = _build.load()
     b, s, hd = q.shape
     d = hd // heads
     out = torch.empty((b, s, hd), dtype=q.dtype, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    ctx, stream = _launch_stream(q.device)
+    with ctx:
         err = lib.swat_mha_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, s, heads, d, _DTYPE_CODE[q.dtype],
@@ -309,8 +329,8 @@ def mha_packed_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     d = hd // heads
     stats = torch.empty(3 * b * heads * s, dtype=torch.float32,
                         device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    ctx, stream = _launch_stream(q.device)
+    with ctx:
         err = lib.swat_mha_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
@@ -335,13 +355,14 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not _on_cuda(q, "flash_attention"):
         return flash_attention_reference(q, k, v, causal)
     _check_heads_first(q, k, v)
+    _check_fwd_seq(q.shape[2])
     from swat_tpu_torch.kernels import _build
 
     lib = _build.load()
     b, h, s, d = q.shape
     out = _empty_in_order_of(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    ctx, stream = _launch_stream(q.device)
+    with ctx:
         err = lib.swat_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, s, h, d, _DTYPE_CODE[q.dtype],
@@ -382,8 +403,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stats = torch.empty(3 * b * h * s, dtype=torch.float32, device=q.device)
     strides = [x for t in (q, k, v, do, *out) for x in t.stride()[:3]]
     c_strides = (ctypes.c_longlong * len(strides))(*strides)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    ctx, stream = _launch_stream(q.device)
+    with ctx:
         err = lib.swat_flash_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),

@@ -27,6 +27,13 @@ TOL_BWD = {torch.float32: (2e-4, 5e-5), torch.bfloat16: (1.6e-2, 1e-2)}
 # output, and one point done wrong leaves 58-78 % of an output bit-equal
 # (test_torch_attention_bwd.py)
 BWD_MIN_EQUAL_SHARE = 0.99
+# the forwards' one rounding point below fp32 is p (rounded to bf16 before
+# p.v by the packed-head forward, left in fp32 by the heads-first one): a
+# forward is bit-equal to its own plain twin in FWD_MIN_EQUAL_SHARE of a bf16
+# output, and to the other's in far less (0.58-0.61 measured on an H100 at
+# the towers' shapes)
+FWD_MIN_EQUAL_SHARE = 0.99
+FWD_MAX_OTHER_SHARE = 0.9
 
 
 @pytest.fixture(scope="module")
@@ -68,6 +75,22 @@ def test_kernel_matches_plain_twin(device, dtype, strided, s, heads, hd,
     assert got.dtype == dtype and got.shape == q.shape and got.is_contiguous()
     rtol, atol = TOL[dtype]
     torch.testing.assert_close(got.float(), ref.float(), rtol=rtol, atol=atol)
+    if dtype == torch.bfloat16:
+        assert _share(got, ref) >= FWD_MIN_EQUAL_SHARE
+        if s >= 50:   # p is 1 at S = 1: short rows round little
+            other = _packed(FA.flash_attention_reference(
+                *(FA._heads_view(t, heads) for t in (q, k, v)), causal))
+            assert _share(got, other) <= FWD_MAX_OTHER_SHARE
+
+
+def _share(a, b):
+    return float((a == b).float().mean())
+
+
+def _packed(t):
+    """[B, H, S, D] -> [B, S, H*D]."""
+    b, h, s, d = t.shape
+    return t.transpose(1, 2).reshape(b, s, h * d)
 
 
 def test_kernel_is_deterministic(device):
@@ -214,6 +237,98 @@ def test_flash_fwd_kernel_matches_plain_twin(device, dtype, layout, b, h, s,
                                                    or s == 1)
     rtol, atol = TOL[dtype]
     torch.testing.assert_close(got.float(), ref.float(), rtol=rtol, atol=atol)
+    if dtype == torch.bfloat16:
+        assert _share(got, ref) >= FWD_MIN_EQUAL_SHARE
+        if s >= 50:
+            other = FA._heads_view(FA.mha_packed_reference(
+                *(_packed(t) for t in (q, k, v)), h, causal), h)
+            assert _share(got, other) <= FWD_MAX_OTHER_SHARE
+
+
+# ---------------------------------------------------------------------------
+# the forward template's tiling: 16 query rows a warp, 16 keys a step, the
+# scores of a row in one warp's registers up to S = 128 and in those of 2-4
+# warps above, head dims 8 padded to 16
+
+EDGE_S = [1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 197, 257]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 16, 32, 64])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s", EDGE_S)
+def test_forward_kernels_at_tile_edges(device, dtype, d, causal, s):
+    """Both forwards on the strided thirds of one qkv tensor (packed-head)
+    and on their transposed views (heads-first)."""
+    heads = 3
+    batch = max(2, -(-4096 // (heads * s * d)))
+    q, k, v = _qkv(batch, s, heads * d, dtype, True, device, seed=s + d)
+    views = [FA._heads_view(t, heads) for t in (q, k, v)]
+    rtol, atol = TOL[dtype]
+    for got, ref in (
+            (FA.mha_packed_fwd(q, k, v, heads, causal),
+             FA.mha_packed_reference(q, k, v, heads, causal)),
+            (FA.flash_attention_fwd(*views, causal),
+             FA.flash_attention_reference(*views, causal))):
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got.float(), ref.float(), rtol=rtol,
+                                   atol=atol)
+        if dtype == torch.bfloat16:
+            assert _share(got, ref) >= FWD_MIN_EQUAL_SHARE
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,causal", [(50, False), (77, True), (197, False)])
+def test_forward_kernels_take_views_that_are_not_16_byte_aligned(
+        device, dtype, s, causal):
+    """A view whose base lies one element off a 16-byte boundary (rows
+    3*H*D + 1 apart): the kernels read and write it element by element,
+    same arithmetic, same result as on an aligned copy."""
+    heads, d = 4, 64
+    g = torch.Generator(device=device).manual_seed(9)
+    x = torch.randn(3, s, 3 * heads * d + 1, generator=g,
+                    device=device).to(dtype)
+    q, k, v = x[..., 1:].split(heads * d, dim=-1)
+    assert q.data_ptr() % 16 != 0
+    got = FA.mha_packed_fwd(q, k, v, heads, causal)
+    assert torch.equal(got, FA.mha_packed_fwd(
+        q.contiguous(), k.contiguous(), v.contiguous(), heads, causal))
+    views = [FA._heads_view(t, heads) for t in (q, k, v)]
+    got = FA.flash_attention_fwd(*views, causal)
+    assert torch.equal(got, FA.flash_attention_fwd(
+        *(t.contiguous() for t in views), causal))
+    ref = FA.flash_attention_reference(*views, causal)
+    rtol, atol = TOL[dtype]
+    torch.testing.assert_close(got.float(), ref.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,causal", [(50, False), (77, True), (257, False)])
+def test_forward_kernels_are_deterministic(device, dtype, s, causal):
+    q, k, v = _qkv(8, s, 512, dtype, True, device, seed=3)
+    assert torch.equal(FA.mha_packed_fwd(q, k, v, 8, causal),
+                       FA.mha_packed_fwd(q, k, v, 8, causal))
+    views = [FA._heads_view(t, 8) for t in (q, k, v)]
+    assert torch.equal(FA.flash_attention_fwd(*views, causal),
+                       FA.flash_attention_fwd(*views, causal))
+
+
+def test_forward_kernels_refuse_a_sequence_beyond_shared_memory(device):
+    q, k, v = _qkv(1, FA.MAX_FWD_SEQ + 1, 64, torch.float32, False, device)
+    before = (FA.LAUNCHES, FA.LAUNCHES_FLASH)
+    with pytest.raises(ValueError, match="sequence"):
+        FA.mha_packed_fwd(q, k, v, 1)
+    with pytest.raises(ValueError, match="sequence"):
+        FA.flash_attention_fwd(*(FA._heads_view(t, 1) for t in (q, k, v)))
+    assert (FA.LAUNCHES, FA.LAUNCHES_FLASH) == before
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = _qkv(1, FA.MAX_FWD_SEQ, 64, dtype, False, device)
+        got = FA.mha_packed_fwd(q, k, v, 1, True)
+        ref = FA.mha_packed_reference(q, k, v, 1, True)
+        rtol, atol = TOL[dtype]
+        torch.testing.assert_close(got.float(), ref.float(), rtol=rtol,
+                                   atol=atol)
 
 
 @pytest.mark.parametrize("keep_dtype", [False, True])

@@ -28,7 +28,8 @@ PORT_MODULES = [
     "swat_tpu_torch.data.splits", "swat_tpu_torch.data.transforms",
     "swat_tpu_torch.eval.heatmap", "swat_tpu_torch.eval.metrics",
     "swat_tpu_torch.eval.resident", "swat_tpu_torch.eval.validate",
-    "swat_tpu_torch.kernels._build", "swat_tpu_torch.kernels.attention",
+    "swat_tpu_torch.kernels._ablate", "swat_tpu_torch.kernels._build",
+    "swat_tpu_torch.kernels.attention",
     "swat_tpu_torch.kernels.augment", "swat_tpu_torch.kernels.flash_attention",
     "swat_tpu_torch.kernels.megablock",
     "swat_tpu_torch.models.clip", "swat_tpu_torch.models.configs",
@@ -179,6 +180,44 @@ def test_source_digest_tracks_sources_and_flags(monkeypatch):
     assert digest == _build.source_digest()
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-G",))
     assert _build.source_digest() != digest
+
+
+def test_source_digest_tracks_every_header(monkeypatch, tmp_path):
+    """An edit to any .cu or .cuh under csrc/ names a new build directory,
+    so a changed kernel template is never loaded from an old build."""
+    import shutil
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, csrc)
+    monkeypatch.setattr(_build, "CSRC_DIR", str(csrc))
+    digest = _build.source_digest()
+    headers = sorted(csrc.glob("*.cuh"))
+    assert len(headers) >= 3
+    for path in headers + [csrc / _build.SOURCES[0]]:
+        with open(path, "a") as f:
+            f.write("// edited\n")
+        edited = _build.source_digest()
+        assert edited != digest, path.name
+        digest = edited
+
+
+def _ablation_names():
+    from swat_tpu_torch.kernels import _ablate
+
+    return [*_ablate.ABLATIONS, _ablate.BOTH]
+
+
+@pytest.mark.parametrize("name", _ablation_names())
+def test_ablation_patches_apply_to_the_committed_header(name):
+    """kernels/_ablate.py takes one design decision of the forward attention
+    template back by a textual patch: every patch must still find its text
+    in the header, and change it."""
+    from swat_tpu_torch.kernels import _ablate
+
+    with open(os.path.join(_build.CSRC_DIR, "attention_fwd.cuh")) as f:
+        header = f.read()
+    patched = _ablate._patched(header, name)
+    assert (patched == header) == (name == "committed")
 
 
 def test_device_cuda_without_gpu_raises(monkeypatch, tmp_path):
