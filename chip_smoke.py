@@ -84,11 +84,13 @@ def phase_card():
 def _ptxas_report(log_path):
     """ptxas' registers and spill bytes by kernel from the build's log ->
     (the forward attention template's instantiations of mha_fwd.cu and
-    flash_fwd.cu as 'kernel type/DP/NT=registers+spill bytes', the most registers of
+    flash_fwd.cu as 'kernel type/DP/NT=registers+spill bytes', every
+    instantiation of the backward attention template as 'source
+    type/DP/rounding/kernel=registers+spill bytes', the most registers of
     the other kernels by source, the spill bytes of all kernels)."""
     import re
 
-    fwd, other, spills, spilled = [], {}, 0, 0
+    fwd, bwd, other, spills, spilled = [], [], {}, 0, 0
     source = entry = None
     with open(log_path) as f:
         for ln in f:
@@ -106,18 +108,24 @@ def _ptxas_report(log_path):
             m = re.search(r"Used (\d+) registers", ln)
             if not (m and entry):
                 continue
-            regs = int(m.group(1))
+            regs = f"{m.group(1)}{f'+{spilled}B' if spilled else ''}"
             t = re.search(r"attention_fwd_kernelI(13__nv_bfloat16|f)Li(\d+)E"
                           r"Lb[01]ELi(\d+)ELb([01])E", entry)
+            u = re.search(r"attention_bwd_(head|dq|dkv)_kernelI"
+                          r"(13__nv_bfloat16|f)Li(\d+)ELb([01])E(S\d*_|f)"
+                          r"(?:Li(\d+)E)?E", entry)
             if t and source in ("mha_fwd", "flash_fwd"):
                 fwd.append(f"{source} {'bf16' if t.group(1) != 'f' else 'fp32'}"
                            f"/{t.group(2)}/{t.group(3)}"
-                           f"{'s' if t.group(4) == '1' else ''}={regs}"
-                           f"{f'+{spilled}B' if spilled else ''}")
+                           f"{'s' if t.group(4) == '1' else ''}={regs}")
+            elif u:
+                bwd.append(f"{source} {'bf16' if u.group(2) != 'f' else 'fp32'}"
+                           f"/{u.group(3)}/{'round' if u.group(4) == '1' else 'keep'}"
+                           f"/{u.group(1)}{u.group(6) or ''}={regs}")
             elif not t:
-                other[source] = max(other.get(source, 0), regs)
+                other[source] = max(other.get(source, 0), int(m.group(1)))
             entry = None
-    return fwd, other, spills
+    return fwd, bwd, other, spills
 
 
 def phase_build():
@@ -127,17 +135,23 @@ def phase_build():
     lib_path = _build.build_library()
     _build.load()
     secs = time.perf_counter() - t0
-    fwd, other, spills = _ptxas_report(
+    fwd, bwd, other, spills = _ptxas_report(
         lib_path.replace(_build.LIB_NAME, "build.log"))
     log(f"[build] {lib_path} ({len(_build.SOURCES)} sources) in {secs:.2f} s; "
         f"ptxas registers of the forward attention template "
         f"(type/DP/NT; s: rows shared by several warps; +nB: bytes spilled, "
         f"stores and loads): {', '.join(fwd)}; "
+        f"of the backward attention template (type/DP/pb and ds rounded or "
+        f"kept/kernel: head4, head5, head8 = one block a head with that many "
+        f"row tiles, dq and dkv = the pair for longer rows): "
+        f"{', '.join(bwd)}; "
         f"most registers of the other kernels by source: "
         f"{', '.join(f'{k} {v}' for k, v in sorted(other.items()))}; "
         f"spill bytes over all kernels: {spills}")
     if not fwd:
         raise AssertionError("no forward attention kernel in the build log")
+    if not any(b.startswith(("mha_bwd", "flash_bwd")) for b in bwd):
+        raise AssertionError("no backward attention kernel in the build log")
     return secs
 
 
@@ -314,16 +328,44 @@ def phase_bwd_kernel_vs_plain():
     return worst
 
 
+def _library_gradient(q, k, v, do, causal):
+    """The gradient of one scaled_dot_product_attention call on heads-first
+    views -> (ms, the name of the library's backward kernel by
+    torch.profiler): the yardstick of the backward kernels, used nowhere in
+    the port."""
+    import torch
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+
+    lq, lk, lv = (t.detach().requires_grad_(True) for t in (q, k, v))
+    out = F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal)
+
+    def grad():
+        torch.autograd.grad(out, (lq, lk, lv), do, retain_graph=True)
+
+    ms = _time_ms(grad)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        grad()
+        torch.cuda.synchronize()
+    kernels = sorted(((e.self_device_time_total, e.key)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA), reverse=True)
+    return ms, kernels[0][1][:120] if kernels else "not traced"
+
+
 def phase_bwd_timing(smi):
     """The backward kernel and mha_bwd_reference on the same strided
-    inputs, in turns plain, kernel, kernel, plain."""
+    inputs, in turns plain, kernel, kernel, plain, at every shape, beside
+    the call's bound and the gradient of one scaled_dot_product_attention
+    call on the heads-first views of the same inputs."""
     import torch
 
     from swat_tpu_torch.kernels import flash_attention as FA
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     times = {}
-    for name, b, s, h, w, causal in KERNEL_SHAPES[:2]:
+    for name, b, s, h, w, causal in KERNEL_SHAPES:
         for dname, dtype in (("float32", torch.float32),
                              ("bfloat16", torch.bfloat16)):
             q, k, v = _qkv(b, s, w, dtype, gen, strided=True)
@@ -339,9 +381,14 @@ def phase_bwd_timing(smi):
                               _time_ms(kernel), _time_ms(plain))
             ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
             times[(name, dname)] = (ms, plain_ms)
+            lib_ms, lib_name = _library_gradient(
+                *(FA._heads_view(t, h) for t in (q, k, v, do)), causal)
+            bound = _bound_ms("bwd", b, s, h, w // h, dname, causal)
             log(f"[bwd-timing] {name} B={b} S={s} H={h} HD={w} {dname}: "
                 f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-                f"(runs {k1:.4f}/{k2:.4f} vs {p1:.4f}/{p2:.4f}) on {smi}")
+                f"(runs {k1:.4f}/{k2:.4f} vs {p1:.4f}/{p2:.4f}), "
+                f"{_against(ms, bound, lib_ms)}; the library's backward "
+                f"kernel: {lib_name} on {smi}")
     return times
 
 
@@ -476,7 +523,7 @@ def phase_flash_timing(smi):
 
     gen = torch.Generator(device="cuda").manual_seed(5)
     times = {}
-    for name, b, s, h, w, causal in KERNEL_SHAPES[:2]:
+    for name, b, s, h, w, causal in KERNEL_SHAPES:
         for dname, dtype in (("float32", torch.float32),
                              ("bfloat16", torch.bfloat16)):
             q, k, v, do = _heads_first(b, s, h, w, dtype, gen, True, 4)
@@ -493,6 +540,9 @@ def phase_flash_timing(smi):
                 lambda: FA.flash_attention_reference(q, k, v, causal))
             times[("flash_fwd", name, dname)] = (ms, plain_ms)
             fwd_ms, fwd_runs = ms, runs
+            lib_bwd, lib_bwd_name = _library_gradient(q, k, v, do, causal)
+            bounds = [_bound_ms(kind, b, s, h, w // h, dname, causal)
+                      for kind in ("fwd", "bwd")]
             for keep in (False, True):
                 ms, plain_ms, runs = quad(
                     lambda: FA.flash_attention_bwd(q, k, v, do, causal, keep),
@@ -500,7 +550,8 @@ def phase_flash_timing(smi):
                                                              causal, keep))
                 times[("flash_bwd", keep, name, dname)] = (ms, plain_ms)
                 log(f"[flash-timing] bwd keep_dtype={keep} {head}: kernel "
-                    f"{ms:.4f} ms, plain {plain_ms:.4f} ms ({runs}) on {smi}")
+                    f"{ms:.4f} ms, plain {plain_ms:.4f} ms ({runs}), "
+                    f"{_against(ms, bounds[1], lib_bwd)} on {smi}")
             # bwd='fused' against bwd='pallas': two kernels, one math
             pq, pk, pv, pdo = (t.transpose(1, 2).reshape(b, s, w)
                                for t in (q, k, v, do))
@@ -516,14 +567,11 @@ def phase_flash_timing(smi):
                 raise AssertionError(f"bwd='fused' and bwd='pallas' differ "
                                      f"at {head}")
             # the library's attention on the same views
-            lq, lk, lv = (t.detach().requires_grad_(True) for t in (q, k, v))
             lib_fwd = _time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=causal))
-            out = F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal)
-            lib_bwd = _time_ms(lambda: torch.autograd.grad(
-                out, (lq, lk, lv), do, retain_graph=True))
+            out = F.scaled_dot_product_attention(q, k, v, is_causal=causal)
             ref = FA.flash_attention_reference(q, k, v, causal)
-            lib_err = float((out.detach().float() - ref.float()).abs().max())
+            lib_err = float((out.float() - ref.float()).abs().max())
             times[("library", name, dname)] = (lib_fwd, lib_bwd)
             # what the library runs for this type (the name says whether an
             # fp32 call goes through the tensor cores)
@@ -540,10 +588,8 @@ def phase_flash_timing(smi):
                 f"scaled_dot_product_attention forward {lib_fwd:.4f} ms, "
                 f"its gradient {lib_bwd:.4f} ms (forward + backward "
                 f"{lib_fwd + lib_bwd:.4f} ms), max abs difference from the "
-                f"plain forward {lib_err:.3e}; its forward kernel: {lib_name} "
-                f"on {smi}")
-            bounds = [_bound_ms(kind, b, s, h, w // h, dname, causal)
-                      for kind in ("fwd", "bwd")]
+                f"plain forward {lib_err:.3e}; its forward kernel: {lib_name}"
+                f"; its backward kernel: {lib_bwd_name} on {smi}")
             log(f"[flash-timing] fwd {head}: kernel {fwd_ms:.4f} ms, plain "
                 f"{times[('flash_fwd', name, dname)][1]:.4f} ms "
                 f"({fwd_runs}), {_against(fwd_ms, bounds[0], lib_fwd)} on "

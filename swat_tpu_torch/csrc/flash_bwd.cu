@@ -15,17 +15,19 @@
 // so any dimension order (the thirds of a packed qkv gradient included) is
 // read and written in place.
 //
-// The kernels are the templates of attention_bwd.cuh (what bounds them and
-// their design are described there), instantiated with kRound = keep_dtype.
+// The kernels are the tensor-core templates of attention_bwd.cuh (what
+// bounds them and their design are described there), instantiated with
+// kRound = keep_dtype: without it the fp32 p and ds of bf16 inputs enter
+// their products as two bf16 terms hi + lo.
 
 #include "attention_bwd.cuh"
 
 // C entry point, bound through ctypes.  dtype: 0 = float32, 1 = bfloat16.
 // `strides` holds 21 element strides: (batch, head, row) for q, k, v, do,
 // dq, dk, dv in that order; the last dimension must be contiguous.  `stats`
-// is fp32 scratch of 3 * batch * heads * seq elements.  Launches kernel A,
-// then kernel B, on `stream`; returns the cudaError_t of the launches
-// (0 on success).
+// is fp32 scratch of 3 * batch * heads * seq elements, needed (and read)
+// only where the rows are too long for one block.  Launches on `stream`;
+// returns the cudaError_t of the launches (0 on success).
 extern "C" int swat_flash_bwd(
     const void* q, const void* k, const void* v, const void* dout, void* dq,
     void* dk, void* dv, float* stats, int batch, int seq, int heads,

@@ -22,14 +22,16 @@
 // N = B*S rows and each vector gradient a two-step column sum in a fixed
 // order.  The design and what bounds it are described in megablock.cuh.
 // Launches, in order: LN1, sum dx2, the qkv product, the attention forward
-// of attention_fwd.cuh (for o), dWo, the do product, the two attention
-// backward kernels of attention_bwd.cuh writing dq|dk|dv in fp32, their
+// of attention_fwd.cuh (for o), dWo, the do product, the attention backward
+// of attention_bwd.cuh (one kernel, or two for long rows) writing dq|dk|dv
+// in fp32, their
 // column sums (which also store them rounded to T), d in_proj_weight, dh1,
 // the LayerNorm backward, its two column sums.
 // Scratch (allocated by the caller): h1 [N, D], qkv [N, 3D], o [N, D] (do
 // takes its place once dWo is done), dqkv [N, 3D] of T (unused in fp32);
 // dqkv32 [N, 3D], dh1 [N, D], row stats [N, 2], softmax stats [3, B, H, S]
-// and `parts` column-sum partials in fp32.
+// (only where the rows are too long for one block of the attention
+// backward) and `parts` column-sum partials in fp32.
 
 #include <type_traits>
 

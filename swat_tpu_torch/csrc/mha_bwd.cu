@@ -8,17 +8,19 @@
 // input dtype before dq and dk.  dq, dk and dv can be the three thirds of
 // one [B, S, 3*H*D] gradient of the qkv projection.
 //
-// The kernels are the templates of attention_bwd.cuh (what bounds them and
-// their design are described there), instantiated with kRound = true and a
-// head stride of D.
+// The kernels are the tensor-core templates of attention_bwd.cuh (what
+// bounds them and their design are described there), instantiated with
+// kRound = true and a head stride of D: one block a (batch, head) up to 128
+// rows in bf16 and 80 in fp32 (the towers' S = 50 and 77), a pair of kernels
+// that own query rows and key rows beyond.
 
 #include "attention_bwd.cuh"
 
 // C entry point, bound through ctypes.  dtype: 0 = float32, 1 = bfloat16.
 // Strides are in elements; the last dimension must be contiguous.  `stats`
-// is fp32 scratch of 3 * batch * heads * seq elements.  Launches kernel A,
-// then kernel B, on `stream`; returns the cudaError_t of the launches
-// (0 on success).
+// is fp32 scratch of 3 * batch * heads * seq elements, needed (and read)
+// only where the rows are too long for one block.  Launches on `stream`;
+// returns the cudaError_t of the launches (0 on success).
 extern "C" int swat_mha_bwd(
     const void* q, const void* k, const void* v, const void* dout, void* dq,
     void* dk, void* dv, float* stats, int batch, int seq, int heads,

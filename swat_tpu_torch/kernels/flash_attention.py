@@ -55,6 +55,11 @@ _HEAD_DIMS = (8, 16, 32, 64)
 # the forward kernels keep a row block's scores and the head's k or v in
 # shared memory: the longest sequence whose fp32 form still fits a block
 MAX_FWD_SEQ = 480
+# the backward kernels take the same lengths.  Up to these one block owns a
+# whole (batch, head) and needs no scratch; longer rows go through a pair of
+# kernels that hand the softmax statistics over in fp32 scratch
+# (kHeadSeqFp32 / kHeadSeqBf16 of csrc/attention_bwd.cuh)
+_BWD_ONE_BLOCK_SEQ = {torch.float32: 80, torch.bfloat16: 128}
 BWD_MODES = ("pallas", "fused", "xla")
 
 
@@ -200,10 +205,18 @@ def _check_head_dim(d: int) -> None:
                          f"(supported: {_HEAD_DIMS})")
 
 
-def _check_fwd_seq(s: int) -> None:
+def _check_fwd_seq(s: int, what: str = "forward") -> None:
     if s > MAX_FWD_SEQ:
-        raise ValueError(f"sequence length {s} is beyond what the forward "
+        raise ValueError(f"sequence length {s} is beyond what the {what} "
                          f"kernel holds in shared memory ({MAX_FWD_SEQ})")
+
+
+def _bwd_stats_shape(batch: int, heads: int, seq: int, dtype: torch.dtype):
+    """Shape of the fp32 scratch one backward call needs for the softmax
+    statistics (m, 1 / l, delta of every row): empty where one block takes a
+    whole head."""
+    rows = 0 if seq <= _BWD_ONE_BLOCK_SEQ[dtype] else batch * heads * seq
+    return (3, rows)
 
 
 def _check_inputs(q, k, v, heads):
@@ -313,12 +326,16 @@ def mha_packed_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stands.
 
     A CUDA tensor launches the packed-head backward kernel (a build or
-    launch failure raises), which writes each third in place.  A CPU tensor
-    runs ``mha_bwd_reference`` and joins its three results."""
+    launch failure raises, and so does S > ``MAX_FWD_SEQ``), which writes
+    each third in place: one launch and no scratch for rows up to
+    ``_BWD_ONE_BLOCK_SEQ``, two launches and 3*B*H*S floats of statistics
+    beyond.  A CPU tensor runs ``mha_bwd_reference`` and joins its three
+    results."""
     global LAUNCHES_BWD
     if not _on_cuda(q, "mha_packed_bwd"):
         return torch.cat(mha_bwd_reference(q, k, v, do, heads, causal), -1)
     _check_inputs(q, k, v, heads)
+    _check_fwd_seq(q.shape[1], "backward")
     do = _check_do(do, q, 2)
     b, s, hd = q.shape
     dqkv = torch.empty((b, s, 3 * hd), dtype=q.dtype, device=q.device)
@@ -327,8 +344,8 @@ def mha_packed_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     lib = _build.load()
     d = hd // heads
-    stats = torch.empty(3 * b * heads * s, dtype=torch.float32,
-                        device=q.device)
+    stats = torch.empty(_bwd_stats_shape(b, heads, s, q.dtype),
+                        dtype=torch.float32, device=q.device)
     ctx, stream = _launch_stream(q.device)
     with ctx:
         err = lib.swat_mha_bwd(
@@ -379,8 +396,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """dq, dk, dv [B, H, S, D] of the heads-first attention for the output
     gradient ``do``, in the form ``keep_dtype`` names (see
     ``flash_attention_bwd_reference``).  A CUDA tensor launches the
-    heads-first backward kernel (a build or launch failure raises), a CPU
-    tensor runs the plain version.  ``out``: three [B, H, S, D] views to
+    heads-first backward kernel (a build or launch failure raises, and so
+    does S > ``MAX_FWD_SEQ``; scratch as ``mha_packed_bwd``), a CPU tensor
+    runs the plain version.  ``out``: three [B, H, S, D] views to
     write into (the thirds of a packed gradient); else each gradient is a
     dense tensor with its dimensions in its operand's order."""
     global LAUNCHES_FLASH_BWD
@@ -393,6 +411,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             return tuple(out)
         return grads
     _check_heads_first(q, k, v)
+    _check_fwd_seq(q.shape[2], "backward")
     do = _check_do(do, q, 3)
     if out is None:
         out = tuple(_empty_in_order_of(t) for t in (q, k, v))
@@ -400,7 +419,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     lib = _build.load()
     b, h, s, d = q.shape
-    stats = torch.empty(3 * b * h * s, dtype=torch.float32, device=q.device)
+    stats = torch.empty(_bwd_stats_shape(b, h, s, q.dtype),
+                        dtype=torch.float32, device=q.device)
     strides = [x for t in (q, k, v, do, *out) for x in t.stride()[:3]]
     c_strides = (ctypes.c_longlong * len(strides))(*strides)
     ctx, stream = _launch_stream(q.device)

@@ -289,11 +289,13 @@ def scratch_shapes(kind: str, batch: int, seq: int, width: int, mlp: int,
                 ((n, d), f32), ((n, 2), f32),
                 ((blocks, max(f, 2 * d)), f32)]
     if kind == "attn_bwd":  # h1, qkv, o (then do), dqkv, dqkv32, dh1, row
-        #                     stats, softmax stats, partials
+        #                     stats, softmax stats (none where one block of
+        #                     the attention backward takes a head), partials
         rounded = 0 if dtype == f32 else n
         return [((n, d), dtype), ((n, 3 * d), dtype), ((n, d), dtype),
                 ((rounded, 3 * d), dtype), ((n, 3 * d), f32), ((n, d), f32),
-                ((n, 2), f32), ((3, batch * heads * seq), f32),
+                ((n, 2), f32),
+                (FA._bwd_stats_shape(batch, heads, seq, dtype), f32),
                 ((blocks, 3 * d), f32)]
     raise ValueError(f"unknown kind {kind!r}")
 

@@ -16,7 +16,13 @@ policies, for inference and for training.  That departs from
 uses Pallas only for bf16 on a TPU, and in training only from S = 197 up
 (``_PALLAS_TRAIN_MIN_SEQ``; below it, XLA autodiff): the CLI's default
 ``--compute_dtype float32`` would otherwise run no kernel at all on the
-card, and the B/32 train step (S = 50) no backward kernel.  The kernels
+card, and the B/32 train step (S = 50) no backward kernel.  On an H100
+(NVIDIA H100 80GB HBM3, 700 W; ``chip_smoke.py``) the rule pays at S = 50
+too: a layer's backward (B = 256, H = 12, D = 64) takes 0.2811 ms fp32 /
+0.0817 ms bf16 in the kernel against 1.0126 / 1.2910 ms for the plain
+attention that autograd would differentiate, its forward 0.1099 / 0.0337
+against 0.4583 / 0.6284, and the cutmix step at bsz 256 200.28 / 61.44 ms
+against 212.44 / 77.32 with plain attention in both directions.  The kernels
 compute fp32 in full fp32 (the "highest" precision of the JAX fp32 policy).
 On the CPU the same Function runs the kernels' plain PyTorch twins.
 ``attention=`` swaps in another function of the same signature,

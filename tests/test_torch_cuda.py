@@ -3,7 +3,8 @@ GPU and nvcc): the packed-head and the heads-first attention forward and
 backward against their plain twins at ragged and main-path shapes, fp32 and
 bf16, strided and contiguous; the launch counts; determinism; the autograd
 Functions and the three backward modes; the wrappers' refusals; and the same
-for the three block-fused layer kernels (kernels/megablock.py).  Run
+for the three block-fused layer kernels (kernels/megablock.py); the
+tensor-core forward and backward templates at the edges of their tiling.  Run
 them on a GPU machine with ``python -m pytest tests/test_torch_cuda.py``."""
 
 import pytest
@@ -447,7 +448,123 @@ def test_flash_refusals_raise_and_do_not_count(device):
 
 
 # ---------------------------------------------------------------------------
-# the block-fused layer kernels
+# the tensor-core backward template at the edges of its tiling: 16-row
+# tiles, one block a head up to 128 rows in bf16 and 80 in fp32 (4, 5 or 8
+# row tiles), the pair of kernels with 64-row chunks above, head dims 8
+# padded to 16
+
+BWD_EDGE_S = [1, 15, 16, 17, 50, 63, 64, 65, 77, 80, 81, 127, 128, 129, 197,
+              257]
+
+
+def _assert_grads(got, ref, dtype, what=""):
+    rtol, atol = TOL_BWD[dtype]
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        assert bool(torch.isfinite(g).all()), (what, name)
+        torch.testing.assert_close(g.float(), r.float(), rtol=rtol,
+                                   atol=atol, msg=f"{what} {name}")
+        if dtype == torch.bfloat16:
+            assert _share(g, r) >= BWD_MIN_EQUAL_SHARE, (what, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 16, 32, 64])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s", BWD_EDGE_S)
+def test_backward_kernels_at_tile_edges(device, dtype, d, causal, s):
+    """The packed-head backward on the strided thirds of one qkv tensor and
+    both forms of the heads-first backward on their transposed views."""
+    heads = 3
+    batch = max(2, -(-4096 // (heads * s * d)))
+    q, k, v = _qkv(batch, s, heads * d, dtype, True, device, seed=s + d)
+    do = _do(batch, s, heads * d, dtype, device, seed=s)
+    got = FA.mha_packed_bwd(q, k, v, do, heads, causal).split(heads * d, -1)
+    torch.cuda.synchronize()
+    _assert_grads(got, FA.mha_bwd_reference(q, k, v, do, heads, causal),
+                  dtype, "mha_bwd")
+    views = [FA._heads_view(t, heads) for t in (q, k, v, do)]
+    for keep in (False, True):
+        got = FA.flash_attention_bwd(*views, causal, keep)
+        torch.cuda.synchronize()
+        _assert_grads(got, FA.flash_attention_bwd_reference(*views, causal,
+                                                            keep),
+                      dtype, f"flash_bwd keep_dtype={keep}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,causal", [(50, False), (77, True), (197, False)])
+def test_backward_kernels_take_views_that_are_not_16_byte_aligned(
+        device, dtype, s, causal):
+    """Inputs whose base lies one element off a 16-byte boundary and outputs
+    one element off a pair: the kernels read and write them element by
+    element, same arithmetic, same result as on aligned copies."""
+    heads, d = 4, 64
+    g = torch.Generator(device=device).manual_seed(9)
+    x = torch.randn(3, s, 4 * heads * d + 1, generator=g,
+                    device=device).to(dtype)
+    q, k, v, do = x[..., 1:].split(heads * d, dim=-1)
+    assert q.data_ptr() % 16 != 0
+    aligned = FA.mha_packed_bwd(q.contiguous(), k.contiguous(),
+                                v.contiguous(), do.contiguous(), heads,
+                                causal)
+    assert torch.equal(FA.mha_packed_bwd(q, k, v, do, heads, causal), aligned)
+    views = [FA._heads_view(t, heads) for t in (q, k, v, do)]
+    y = torch.empty(3, s, 3 * heads * d + 1, dtype=dtype, device=device)
+    out = tuple(FA._heads_view(t, heads)
+                for t in y[..., 1:].split(heads * d, dim=-1))
+    assert out[0].data_ptr() % (2 * y.element_size()) != 0
+    FA.flash_attention_bwd(*views, causal, keep_dtype=True, out=out)
+    assert torch.equal(y[..., 1:], aligned)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,causal", [(50, False), (77, True), (257, False)])
+def test_backward_kernels_are_deterministic(device, dtype, s, causal):
+    """No atomics, every sum in one order: two calls are bit-equal, and so
+    are bwd='fused' and bwd='pallas' (one template, other strides)."""
+    q, k, v = _qkv(8, s, 512, dtype, True, device, seed=3)
+    do = _do(8, s, 512, dtype, device)
+    first = FA.mha_packed_bwd(q, k, v, do, 8, causal)
+    assert torch.equal(first, FA.mha_packed_bwd(q, k, v, do, 8, causal))
+    assert torch.equal(first, FA._fused_bwd(q, k, v, do, 8, causal))
+    views = [FA._heads_view(t, 8) for t in (q, k, v, do)]
+    for a, b in zip(FA.flash_attention_bwd(*views, causal),
+                    FA.flash_attention_bwd(*views, causal)):
+        assert torch.equal(a, b)
+
+
+def test_backward_kernels_refuse_a_sequence_beyond_their_reach(device):
+    q, k, v = _qkv(1, FA.MAX_FWD_SEQ + 1, 64, torch.float32, False, device)
+    do = _do(1, FA.MAX_FWD_SEQ + 1, 64, torch.float32, device)
+    before = (FA.LAUNCHES_BWD, FA.LAUNCHES_FLASH_BWD)
+    with pytest.raises(ValueError, match="sequence"):
+        FA.mha_packed_bwd(q, k, v, do, 1)
+    with pytest.raises(ValueError, match="sequence"):
+        FA.flash_attention_bwd(*(FA._heads_view(t, 1)
+                                 for t in (q, k, v, do)))
+    assert (FA.LAUNCHES_BWD, FA.LAUNCHES_FLASH_BWD) == before
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = _qkv(1, FA.MAX_FWD_SEQ, 64, dtype, False, device)
+        do = _do(1, FA.MAX_FWD_SEQ, 64, dtype, device)
+        got = FA.mha_packed_bwd(q, k, v, do, 1, True).split(64, -1)
+        _assert_grads(got, FA.mha_bwd_reference(q, k, v, do, 1, True), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,causal", [(50, False), (77, True), (197, False)])
+def test_mega_attn_bwd_takes_fp32_gradients_from_the_template(device, dtype,
+                                                              s, causal):
+    """The block-fused attention backward instantiates the template with
+    fp32 outputs (it sums dq, dk, dv for the bias gradients before it rounds
+    them) at short and at long rows: d in_proj_bias, the column sum of the
+    fp32 dq|dk|dv, and dx agree with the plain version."""
+    d, heads = 96, 3
+    (x, _, _, dx2), w = _mega_inputs(4, s, d, 192, dtype, device, seed=s)
+    got = MB.megablock_attn_bwd(x, dx2, w, heads, causal)
+    ref = MB.attn_bwd_reference(x, dx2, w, heads, causal)
+    torch.cuda.synchronize()
+    for name, g, r in zip(MEGA_OUT["attn_bwd"], got, ref):
+        mega_close(f"attn_bwd.{name}", g, r, dtype)
 
 # b, s, width, heads, mlp, causal, quick_gelu: ragged tiles (rows, widths
 # and depths that are no multiple of a tile), every head dim, both

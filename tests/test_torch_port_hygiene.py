@@ -209,15 +209,27 @@ def _ablation_names():
 
 @pytest.mark.parametrize("name", _ablation_names())
 def test_ablation_patches_apply_to_the_committed_header(name):
-    """kernels/_ablate.py takes one design decision of the forward attention
-    template back by a textual patch: every patch must still find its text
-    in the header, and change it."""
+    """kernels/_ablate.py takes one design decision of the forward or the
+    backward attention template (or of the header they share) back by a
+    textual patch: every patch must still find its text in its header, and
+    change that header and no other."""
     from swat_tpu_torch.kernels import _ablate
 
-    with open(os.path.join(_build.CSRC_DIR, "attention_fwd.cuh")) as f:
-        header = f.read()
-    patched = _ablate._patched(header, name)
-    assert (patched == header) == (name == "committed")
+    headers = _ablate.read_headers()
+    assert set(headers) == {"attention_fwd.cuh", "attention_bwd.cuh",
+                            "attention_mma.cuh"}
+    patched = _ablate._patched(headers, name)
+    changed = {h for h in headers if patched[h] != headers[h]}
+    if name == "committed":
+        assert not changed
+    else:
+        subs = (_ablate.ABLATIONS["fp32_v_beside_k"]
+                + _ablate.ABLATIONS["fp32_registers_free"]
+                if name == _ablate.BOTH else _ablate.ABLATIONS[name])
+        assert changed == {h for h, _, _ in subs}
+        # a backward variant leaves the forward template alone, and back
+        assert ("attention_fwd.cuh" in changed) <= (not name.startswith("bwd_"))
+        assert ("attention_bwd.cuh" in changed) <= name.startswith("bwd_")
 
 
 def test_device_cuda_without_gpu_raises(monkeypatch, tmp_path):
