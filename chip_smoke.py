@@ -81,16 +81,35 @@ def phase_card():
     return smi, name
 
 
+def _product_blocks(regs, dtype, a_kcontig, b_kcontig):
+    """(shared-memory bytes, blocks an SM) of one instantiation of the block
+    kernels' tensor-core product: the fewer of what its registers allow
+    (65,536 a SM, allocated 256 a warp) and what its shared memory allows
+    (233,472 bytes a SM, 1,024 reserved a block)."""
+    from swat_tpu_torch.kernels import megablock as MB
+
+    smem = MB.product_smem_bytes(dtype, a_kcontig, b_kcontig)
+    warps = MB._WARPS[dtype][0] * MB._WARPS[dtype][1]
+    warp_regs = -(-regs * 32 // 256) * 256
+    return smem, min(65536 // (warp_regs * warps), 233472 // (smem + 1024))
+
+
 def _ptxas_report(log_path):
     """ptxas' registers and spill bytes by kernel from the build's log ->
     (the forward attention template's instantiations of mha_fwd.cu and
     flash_fwd.cu as 'kernel type/DP/NT=registers+spill bytes', every
     instantiation of the backward attention template as 'source
-    type/DP/rounding/kernel=registers+spill bytes', the most registers of
-    the other kernels by source, the spill bytes of all kernels)."""
+    type/DP/rounding/kernel=registers+spill bytes', every instantiation of
+    the block kernels' tensor-core product as 'source type/AB/epilogue=
+    registers+spill bytes (shared KB, blocks an SM)' (A, B: k- or
+    i-contiguous), the most registers of the other kernels by source, the
+    spill bytes of all kernels)."""
     import re
 
+    import torch
+
     fwd, bwd, other, spills, spilled = [], [], {}, 0, 0
+    products = []
     source = entry = None
     with open(log_path) as f:
         for ln in f:
@@ -114,7 +133,19 @@ def _ptxas_report(log_path):
             u = re.search(r"attention_bwd_(head|dq|dkv)_kernelI"
                           r"(13__nv_bfloat16|f)Li(\d+)ELb([01])E(S\d*_|f)"
                           r"(?:Li(\d+)E)?E", entry)
-            if t and source in ("mha_fwd", "flash_fwd"):
+            p = re.search(r"mma_gemm_kernelI(13__nv_bfloat16|f)Lb([01])E"
+                          r"Lb([01])E.*?\d+(Epi[A-Za-z0-9]*?)(?:I|E)", entry)
+            if p:
+                dtype = torch.float32 if p.group(1) == "f" else torch.bfloat16
+                smem, blocks = _product_blocks(int(m.group(1)), dtype,
+                                               p.group(2) == "1",
+                                               p.group(3) == "1")
+                products.append(
+                    f"{source} {'fp32' if p.group(1) == 'f' else 'bf16'}/"
+                    f"{'ik'[int(p.group(2))]}{'ik'[int(p.group(3))]}/"
+                    f"{p.group(4)}={regs} ({smem / 1024:.1f} KB, {blocks} "
+                    f"an SM)")
+            elif t and source in ("mha_fwd", "flash_fwd"):
                 fwd.append(f"{source} {'bf16' if t.group(1) != 'f' else 'fp32'}"
                            f"/{t.group(2)}/{t.group(3)}"
                            f"{'s' if t.group(4) == '1' else ''}={regs}")
@@ -125,7 +156,7 @@ def _ptxas_report(log_path):
             elif not t:
                 other[source] = max(other.get(source, 0), int(m.group(1)))
             entry = None
-    return fwd, bwd, other, spills
+    return fwd, bwd, products, other, spills
 
 
 def phase_build():
@@ -135,7 +166,7 @@ def phase_build():
     lib_path = _build.build_library()
     _build.load()
     secs = time.perf_counter() - t0
-    fwd, bwd, other, spills = _ptxas_report(
+    fwd, bwd, products, other, spills = _ptxas_report(
         lib_path.replace(_build.LIB_NAME, "build.log"))
     log(f"[build] {lib_path} ({len(_build.SOURCES)} sources) in {secs:.2f} s; "
         f"ptxas registers of the forward attention template "
@@ -145,6 +176,9 @@ def phase_build():
         f"kept/kernel: head4, head5, head8 = one block a head with that many "
         f"row tiles, dq and dkv = the pair for longer rows): "
         f"{', '.join(bwd)}; "
+        f"of the block kernels' tensor-core product (type/A B k- or "
+        f"i-contiguous/epilogue, shared memory, blocks an SM): "
+        f"{', '.join(products)}; "
         f"most registers of the other kernels by source: "
         f"{', '.join(f'{k} {v}' for k, v in sorted(other.items()))}; "
         f"spill bytes over all kernels: {spills}")
@@ -152,6 +186,8 @@ def phase_build():
         raise AssertionError("no forward attention kernel in the build log")
     if not any(b.startswith(("mha_bwd", "flash_bwd")) for b in bwd):
         raise AssertionError("no backward attention kernel in the build log")
+    if not products:
+        raise AssertionError("no tensor-core product in the build log")
     return secs
 
 
@@ -1448,18 +1484,15 @@ def phase_mega_kernels():
     return worst
 
 
-def _mega_bound_ms(kernel, b, s, d, heads, f, dname, causal):
-    """The least time the card could take for one call of a block kernel:
-    the larger of its bytes (activations and weights read once, outputs
-    written once; parameter gradients are fp32) over the memory rate and
-    its operations over the peak rate of the type -> (ms, 'bytes' |
-    'operations').  Operations per token row, 2 a multiply-add: forward
-    8 D^2 + 4 D F; MLP backward 10 D F (the fc recompute, dWp, dg, dWfc,
-    dh2); attention backward 22 D^2 (the qkv recompute, dWo, do, dWqkv,
-    dh1); and per image and head 2 (forward) or 6 (attention backward: s and
-    p.v again, dv, dp, dq, dk) products of 2 * hd over the query-key pairs
-    that are not masked (per image, not over the TPU kernel's batch
-    block)."""
+def _mega_work(kernel, b, s, d, heads, f, dname, causal):
+    """One call of a block kernel -> (operations, bytes): its activations and
+    weights read once, its outputs written once (parameter gradients are
+    fp32).  Operations per token row, 2 a multiply-add: forward 8 D^2 +
+    4 D F; MLP backward 10 D F (the fc recompute, dWp, dg, dWfc, dh2);
+    attention backward 22 D^2 (the qkv recompute, dWo, do, dWqkv, dh1); and
+    per image and head 2 (forward) or 6 (attention backward: s and p.v
+    again, dv, dp, dq, dk) products of 2 * hd over the query-key pairs that
+    are not masked (per image, not over the TPU kernel's batch block)."""
     itemsize = 4 if dname == "float32" else 2
     n = b * s
     pairs = s * (s + 1) // 2 if causal else s * s
@@ -1475,6 +1508,15 @@ def _mega_bound_ms(kernel, b, s, d, heads, f, dname, causal):
         ops = n * 22 * d * d + 6 * attn
         nbytes = ((3 * n * d + 4 * d * d + 5 * d) * itemsize
                   + (4 * d * d + 6 * d) * 4)
+    return ops, nbytes
+
+
+def _mega_bound_ms(kernel, b, s, d, heads, f, dname, causal):
+    """The least time the card could take for one call of a block kernel:
+    the larger of its bytes (``_mega_work``) over the memory rate and its
+    operations over the peak rate of the type -> (ms, 'bytes' |
+    'operations')."""
+    ops, nbytes = _mega_work(kernel, b, s, d, heads, f, dname, causal)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / PEAK_OPS_PER_S[dname]
     return (max(t_bytes, t_ops) * 1e3,
@@ -1557,21 +1599,31 @@ def phase_mega_timing(smi):
                                        causal)
             kind = kernel[len("mega_"):]
             scratch = MB.scratch_bytes(kind, b, s, d, f, heads, dtype)
+            ops, _ = _mega_work(kernel, b, s, d, heads, f, dname, causal)
             times[(kernel, dname)] = (ms, plain_ms, lib[kernel], bound, by)
             log(f"[mega-timing] {kernel} {name} B={b} S={s} D={d} H={heads} "
-                f"F={f} {dname}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
+                f"F={f} {dname}: kernel {ms:.3f} ms "
+                f"({ops / ms / 1e9:.1f} TFLOP/s of its operations), plain "
+                f"{plain_ms:.3f} ms "
                 f"(runs {k1:.3f}/{k2:.3f} vs {p1:.3f}/{p2:.3f}), bound "
                 f"{bound:.3f} ms ({by}), library "
                 f"{'forward' if kind == 'fwd' else 'forward + backward of its half'} "
                 f"{lib[kernel]:.3f} ms, scratch {scratch / 1e6:.1f} MB a "
                 f"call on {smi}")
-        # where one call of each kernel spends its device time
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for run, _ in _mega_calls(MB, acts, w, heads, causal,
-                                      quick).values():
-                run()
-            torch.cuda.synchronize()
+        # where one call of each kernel spends its device time: a profile
+        # drops the kernels launched while its tracing starts, so the calls
+        # run twice and only the second, active step is read
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA],
+                schedule=torch.profiler.schedule(wait=0, warmup=1,
+                                                 active=1)) as prof:
+            for step in range(2):
+                for run, _ in _mega_calls(MB, acts, w, heads, causal,
+                                          quick).values():
+                    run()
+                torch.cuda.synchronize()
+                if step == 0:
+                    prof.step()
         split = _mega_device_split(prof)
         log(f"[mega-timing] {dname} profile, device ms of one call of each "
             f"of the three kernels: "
@@ -1582,21 +1634,29 @@ def phase_mega_timing(smi):
 
 def _mega_device_split(prof):
     """Device ms by launch family from a torch.profiler run of the block
-    kernels: the weight-gradient products (both operands read down their
-    columns), the other products, the attention templates, and the
-    LayerNorm and column-sum launches."""
+    kernels: the tensor-core products of the forward and the MLP backward
+    (megablock_mma.cuh), split into the weight gradients (both operands read
+    down their columns), the join of their depth splits and the other
+    products; the CUDA-core products of the attention backward (mega::gemm
+    of megablock.cuh); the attention templates; and the LayerNorm and
+    column-sum launches."""
     from torch.autograd import DeviceType
 
-    split = {"weight-gradient products": 0.0, "other products": 0.0,
+    split = {"weight-gradient products": 0.0, "split-K join": 0.0,
+             "other products": 0.0, "mega::gemm (attention backward)": 0.0,
              "attention": 0.0, "layernorm and column sums": 0.0}
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CUDA:
             continue
         name, ms = evt.key, evt.self_device_time_total / 1e3
-        if "gemm_kernel" in name:
+        if "mma_gemm_kernel" in name:
             wgrad = "false, false" in name.replace("(bool)0", "false")
             split["weight-gradient products" if wgrad
                   else "other products"] += ms
+        elif "split_join_kernel" in name:
+            split["split-K join"] += ms
+        elif "gemm_kernel" in name:
+            split["mega::gemm (attention backward)"] += ms
         elif "attention_" in name:
             split["attention"] += ms
         elif "ln_" in name or "colsum" in name:

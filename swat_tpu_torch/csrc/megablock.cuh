@@ -19,13 +19,16 @@
 //
 // What bounds it on the card: operations.  A ViT-B/32 layer at batch 256
 // is 0.18 / 0.30 / 0.17 TFLOP (forward / MLP backward / attention backward)
-// against ~0.15 GB of inputs and outputs.  This first version multiplies on
-// the CUDA cores in fp32 for both dtypes (bf16 operands are widened on the
-// way into shared memory, so a bf16 product is exact and only the sum's
-// order differs from any other fp32-accumulating product): a 128 x 128
-// output tile a block, 8 x 8 outputs a thread, operands staged k-major in
-// shared memory and read as float4.  Tensor cores (mma.sync, then wgmma
-// with TMA) and the fusion that takes the scratch away come later.
+// against ~0.15 GB of inputs and outputs.  The product here, mega::gemm,
+// multiplies on the CUDA cores in fp32 for both dtypes (bf16 operands are
+// widened on the way into shared memory, so a bf16 product is exact and only
+// the sum's order differs from any other fp32-accumulating product): a
+// 128 x 128 output tile a block, 8 x 8 outputs a thread, operands staged
+// k-major in shared memory and read as float4.  The block forward and the
+// MLP backward take the tensor-core product of megablock_mma.cuh instead
+// (with these epilogues, whose `pair` stores two columns at once); the
+// attention backward still takes this one.  The fusion that takes the
+// scratch away comes later.
 
 #pragma once
 
@@ -59,22 +62,25 @@ __device__ __forceinline__ float round_to(float x) {
   return to_float(from_float<T>(x));
 }
 
-// ---- activations (megablock.py::_act, _act_grad32), in fp32
+// ---- activations (megablock.py::_act, _act_grad32), in fp32, by the
+// special-function unit (__expf, __fdividef: a few ulps of fp32, far below
+// the bf16 rounding that follows; an epilogue of the tensor-core product
+// takes one for every output, so its cost shows there)
 
 // Abramowitz-Stegun 7.1.26, the TPU kernels' erf
 __device__ __forceinline__ float erf_as(float x) {
   const float sign = (x > 0.f) ? 1.f : ((x < 0.f) ? -1.f : 0.f);
   const float ax = fabsf(x);
-  const float t = 1.f / (1.f + 0.3275911f * ax);
+  const float t = __fdividef(1.f, 1.f + 0.3275911f * ax);
   const float poly =
       t * (0.254829592f +
            t * (-0.284496736f +
                 t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
-  return sign * (1.f - poly * expf(-ax * ax));
+  return sign * (1.f - poly * __expf(-ax * ax));
 }
 
 __device__ __forceinline__ float sigmoid(float x) {
-  return 1.f / (1.f + expf(-x));
+  return __fdividef(1.f, 1.f + __expf(-x));
 }
 
 __device__ __forceinline__ float act(float m, bool quick_gelu) {
@@ -87,7 +93,7 @@ __device__ __forceinline__ float act_grad(float m, bool quick_gelu) {
     const float s = sigmoid(1.702f * m);
     return s * (1.f + 1.702f * m * (1.f - s));
   }
-  const float phi = expf(-0.5f * m * m) * 0.3989422804014327f;
+  const float phi = __expf(-0.5f * m * m) * 0.3989422804014327f;
   const float cdf = 0.5f * (1.f + erf_as(m * 0.7071067811865476f));
   return cdf + m * phi;
 }
@@ -120,6 +126,20 @@ __device__ __forceinline__ void load_tile(float (*tile)[kBM + kPad],
                             : p[static_cast<long long>(gk) * ld + gi]);
     tile[k][i] = v;
   }
+}
+
+// two adjacent elements of a row as one access (p aligned to it)
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
 // Epi: what happens to each fp32 sum.  operator()(row, col, sum) stores and
@@ -219,6 +239,13 @@ struct EpiBias {
     c[r * ldc + n] = from_float<T>(round_to<T>(s) + to_float(bias[n]));
     return 0.f;
   }
+  // columns n and n + 1 of row r, the same arithmetic (r * ldc + n even)
+  __device__ __forceinline__ float2 pair(int r, int n, float s0,
+                                         float s1) const {
+    store2(c + r * ldc + n, round_to<T>(s0) + to_float(bias[n]),
+           round_to<T>(s1) + to_float(bias[n + 1]));
+    return make_float2(0.f, 0.f);
+  }
 };
 
 // res + ((sum -> T) + bias), each step in T: x2 from the out-projection,
@@ -234,6 +261,14 @@ struct EpiBiasRes {
     const float t = round_to<T>(round_to<T>(s) + to_float(bias[n]));
     c[r * ldc + n] = from_float<T>(to_float(res[r * ldc + n]) + t);
     return 0.f;
+  }
+  __device__ __forceinline__ float2 pair(int r, int n, float s0,
+                                         float s1) const {
+    const float t0 = round_to<T>(round_to<T>(s0) + to_float(bias[n]));
+    const float t1 = round_to<T>(round_to<T>(s1) + to_float(bias[n + 1]));
+    const T* rr = res + r * ldc + n;
+    store2(c + r * ldc + n, to_float(rr[0]) + t0, to_float(rr[1]) + t1);
+    return make_float2(0.f, 0.f);
   }
 };
 
@@ -252,6 +287,14 @@ struct EpiBiasAct {
     g[r * ldc + n] = from_float<T>(act(m, quick_gelu));
     return 0.f;
   }
+  __device__ __forceinline__ float2 pair(int r, int n, float s0,
+                                         float s1) const {
+    const float a = round_to<T>(round_to<T>(s0) + to_float(bias[n]));
+    const float b = round_to<T>(round_to<T>(s1) + to_float(bias[n + 1]));
+    if (m1 != nullptr) store2(m1 + r * ldc + n, a, b);
+    store2(g + r * ldc + n, act(a, quick_gelu), act(b, quick_gelu));
+    return make_float2(0.f, 0.f);
+  }
 };
 
 // dm = sum * act'(fp32 m1), stored rounded to T over m1 itself; the fp32 dm
@@ -268,6 +311,14 @@ struct EpiDm {
     m1_dm[r * ldc + n] = from_float<T>(dm);
     return dm;
   }
+  __device__ __forceinline__ float2 pair(int r, int n, float s0,
+                                         float s1) const {
+    const float2 m = load2(m1_dm + r * ldc + n);
+    const float2 dm = make_float2(s0 * act_grad(m.x, quick_gelu),
+                                  s1 * act_grad(m.y, quick_gelu));
+    store2(m1_dm + r * ldc + n, dm.x, dm.y);
+    return dm;
+  }
 };
 
 // the fp32 sum as it stands: weight gradients, dh1, dh2
@@ -278,6 +329,11 @@ struct EpiF32 {
   __device__ __forceinline__ float operator()(int r, int n, float s) const {
     c[r * ldc + n] = s;
     return 0.f;
+  }
+  __device__ __forceinline__ float2 pair(int r, int n, float s0,
+                                         float s1) const {
+    store2(c + r * ldc + n, s0, s1);
+    return make_float2(0.f, 0.f);
   }
 };
 

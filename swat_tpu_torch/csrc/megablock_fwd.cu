@@ -14,7 +14,8 @@
 // images of a batch block under a same-image mask; a masked score adds
 // exactly 0, so attending per image gives the same p, and S is not padded.
 //
-// The design and what bounds it are described in megablock.cuh.  Seven
+// The design and what bounds it are described in megablock.cuh; the four
+// products are the tensor-core template of megablock_mma.cuh.  Seven
 // launches, in order: LN1, the qkv product, the attention of
 // attention_fwd.cuh (p rounded before p.v, reading q, k, v in place from
 // the qkv scratch), the out-projection with its residual, LN2, the fc
@@ -24,6 +25,7 @@
 
 #include "attention_fwd.cuh"
 #include "megablock.cuh"
+#include "megablock_mma.cuh"
 
 namespace {
 
@@ -54,8 +56,8 @@ cudaError_t mega_fwd(const void* x_, const void* const* w_, void* y_,
 
   err = ln_fwd<T>(x, w[kLn1W], w[kLn1B], h, n, d, stream);
   if (err != cudaSuccess) return err;
-  err = gemm<T, true, true>(h, d, w[kInW], d, n, 3 * d, d,
-                            EpiBias<T>{qkv, 3 * d, w[kInB]}, stream);
+  err = tc::gemm<T, true, true>(h, d, w[kInW], d, n, 3 * d, d,
+                                EpiBias<T>{qkv, 3 * d, w[kInB]}, stream);
   if (err != cudaSuccess) return err;
   const afwd::Strides in{static_cast<long long>(seq) * 3 * d, 3 * d, hd};
   const afwd::Strides out{static_cast<long long>(seq) * d, d, hd};
@@ -64,17 +66,17 @@ cudaError_t mega_fwd(const void* x_, const void* const* w_, void* y_,
                               1.f / sqrtf(static_cast<float>(hd)), causal,
                               stream);
   if (err != cudaSuccess) return err;
-  err = gemm<T, true, true>(o, d, w[kOutW], d, n, d, d,
-                            EpiBiasRes<T>{x2, d, w[kOutB], x}, stream);
+  err = tc::gemm<T, true, true>(o, d, w[kOutW], d, n, d, d,
+                                EpiBiasRes<T>{x2, d, w[kOutB], x}, stream);
   if (err != cudaSuccess) return err;
   err = ln_fwd<T>(x2, w[kLn2W], w[kLn2B], h, n, d, stream);
   if (err != cudaSuccess) return err;
-  err = gemm<T, true, true>(
+  err = tc::gemm<T, true, true>(
       h, d, w[kFcW], d, n, f, d,
       EpiBiasAct<T>{nullptr, g, f, w[kFcB], quick_gelu}, stream);
   if (err != cudaSuccess) return err;
-  return gemm<T, true, true>(g, f, w[kProjW], f, n, d, f,
-                             EpiBiasRes<T>{y, d, w[kProjB], x2}, stream);
+  return tc::gemm<T, true, true>(g, f, w[kProjW], f, n, d, f,
+                                 EpiBiasRes<T>{y, d, w[kProjB], x2}, stream);
 }
 
 }  // namespace

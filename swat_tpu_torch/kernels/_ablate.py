@@ -1,27 +1,40 @@
-"""Ablations of the attention templates on the card.
+"""Ablations of the attention templates and of the block kernels' product
+on the card.
 
     python -m swat_tpu_torch.kernels._ablate [name ...]
 
 Each ablation is the committed ``csrc/attention_fwd.cuh``,
-``csrc/attention_bwd.cuh`` or their shared ``csrc/attention_mma.cuh`` with
-one design decision taken back by a textual patch (``ABLATIONS``; a patch
-whose text is no longer in its header raises).  A name that starts with
-``bwd_`` is a variant of the backward template and is compiled over
-``mha_bwd.cu`` and ``flash_bwd.cu``, any other one of the forward template
-over ``mha_fwd.cu`` and ``flash_fwd.cu``; ``committed`` is both as they
-stand.  All variants are compiled together (one ``nvcc`` each, into a
-temporary directory), then timed in turns at the towers' four attention
-shapes in fp32 and bf16 on the strided thirds of one qkv tensor, each beside
-its largest difference from the plain version: the forward variants through
-``swat_mha_fwd``, the backward ones through ``swat_mha_bwd`` and, in bf16,
-``swat_flash_bwd`` without ``keep_dtype`` (p and ds in two terms).  It is a
+``csrc/attention_bwd.cuh``, their shared ``csrc/attention_mma.cuh`` or the
+block kernels' tensor-core product ``csrc/megablock_mma.cuh`` (with the
+activations of its epilogues in ``csrc/megablock.cuh``) with one design
+decision taken back by a textual patch (``ABLATIONS``; a patch whose
+text is no longer in its header raises).  A name that starts with ``bwd_``
+is a variant of the backward template and is compiled over ``mha_bwd.cu``
+and ``flash_bwd.cu``, one that starts with ``mega_`` a variant of the
+product and is compiled over ``megablock_fwd.cu`` and
+``megablock_mlp_bwd.cu``, any other one of the forward template over
+``mha_fwd.cu`` and ``flash_fwd.cu``; ``committed`` is the attention
+templates as they stand, ``mega_committed`` the product.  All variants are
+compiled together (one ``nvcc`` each, into a temporary directory), then
+timed in turns.  The attention variants at the towers' four attention
+shapes in fp32 and bf16 on the strided thirds of one qkv tensor, each
+beside its largest difference from the plain version: the forward variants
+through ``swat_mha_fwd``, the backward ones through ``swat_mha_bwd`` and,
+in bf16, ``swat_flash_bwd`` without ``keep_dtype`` (p and ds in two terms).
+The product variants at the ViT-B/32 image block (B=256, S=50, D=768,
+H=12, F=3072) in fp32 and bf16 through ``swat_mega_fwd`` and
+``swat_mega_mlp_bwd``, each beside its largest difference from the plain
+version relative to that output's largest value and the share of its bf16
+outputs bit-equal to the plain version's, and beside a block built
+from library calls (timed as a yardstick); for the committed product also
+the device time of each of its launches by ``torch.profiler``.  It is a
 developer's tool: the port never imports it, and the numbers that
 ``PERF.md`` quotes for the designs' choices come from it.  ``staging_only``
 and ``compute_only`` compute nothing meaningful: they split a kernel's time.
 Before the times it lists, from ``cuobjdump -sass`` of the committed
-variant, the tensor-core, ``ldmatrix``, ``cp.async`` and CUDA-core
+variants, the tensor-core, ``ldmatrix``, ``cp.async`` and CUDA-core
 multiply-add instructions of each head-dim-64 instantiation of both
-templates.
+attention templates and of each instantiation of the product.
 """
 
 from __future__ import annotations
@@ -35,7 +48,17 @@ import tempfile
 from swat_tpu_torch.kernels import _build
 
 FWD, BWD, MMA = "attention_fwd.cuh", "attention_bwd.cuh", "attention_mma.cuh"
-HEADERS = (FWD, BWD, MMA)
+MEGA, PRODUCT = "megablock.cuh", "megablock_mma.cuh"
+HEADERS = (FWD, BWD, MMA, MEGA, PRODUCT)
+MEGA_WIDE = [
+    (PRODUCT, "BM = 128, BN = 128, WM = 2, WN = 4;\n"
+              "  static constexpr int kStages = kStages16, kMinBlocks = 2;",
+     "BM = 128, BN = 256, WM = 2, WN = 4;\n"
+     "  static constexpr int kStages = kStages16, kMinBlocks = 1;"),
+    (PRODUCT, "constexpr int kSplitBlocks = 528;",
+     "constexpr int kSplitBlocks = 264;")]
+MEGA_DEPTH_64 = (PRODUCT, "constexpr int kDepth = 32;",
+                 "constexpr int kDepth = 64;")
 BOUNDS = ("kShared ? kMaxWarps * 32 : NT * 32,\n"
           "    Planes<T>::n == 3 ? (kShared ? 1 : kMaxWarps / NT) : 0)")
 ONE_ACCUMULATOR = [
@@ -89,6 +112,63 @@ ABLATIONS = {
         (BWD, "for (int i = first; i < steps; ++i) {",
          "for (int i = steps; i < steps; ++i) {")],
     "bwd_compute_only": [NO_LOADS],
+    # ---- the block kernels' product (megablock_mma.cuh)
+    "mega_committed": [],
+    # the weight gradients in one split each
+    "mega_no_split_k": [(PRODUCT, "constexpr int kMaxSplits = 16;",
+                         "constexpr int kMaxSplits = 1;")],
+    # bf16 without the ring: load a step, then multiply it (fp32 does so
+    # as committed)
+    "mega_one_stage": [(PRODUCT, "kStages16 = 3, kStages32 = 1;",
+                        "kStages16 = 1, kStages32 = 1;")],
+    # fp32 with register prefetch: step k + 1 loaded into registers before
+    # step k's mma, split and stored into a second buffer after them
+    "mega_fp32_prefetch": [(PRODUCT, "kStages16 = 3, kStages32 = 1;",
+                            "kStages16 = 3, kStages32 = 2;")],
+    # #5 and #6 back on mega::gemm, the CUDA-core product of megablock.cuh
+    "mega_cuda_cores": [(PRODUCT, "constexpr bool kTensorCores = true;",
+                         "constexpr bool kTensorCores = false;")],
+    # the leading term chained through the tensor cores' accumulator, not
+    # summed afresh each step (bf16) or k16 (fp32) and added by the CUDA
+    # cores
+    "mega_chained_sums": [
+        (PRODUCT, """          float t[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int h = 0; h < H; ++h)
+            mma_bf16(t, af[h], bf[h][j][0], bf[h][j][1]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[0][i][j][e] += t[e];""",
+         """#pragma unroll
+          for (int h = 0; h < H; ++h)
+            mma_bf16(acc[0][i][j], af[h], bf[h][j][0], bf[h][j][1]);"""),
+        (PRODUCT, """            float t[4] = {0.f, 0.f, 0.f, 0.f};
+            mma_bf16(t, af[0][i], bf[0][j][0], bf[0][j][1]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[0][i][j][e] += t[e];""",
+         """            mma_bf16(acc[0][i][j], af[0][i], bf[0][j][0], bf[0][j][1]);""")],
+    # the activations by expf and an IEEE division, not the special-function
+    # unit
+    "mega_exact_act": [
+        (MEGA, "__fdividef(1.f, 1.f + 0.3275911f * ax)",
+         "1.f / (1.f + 0.3275911f * ax)"),
+        (MEGA, "poly * __expf(-ax * ax)", "poly * expf(-ax * ax)"),
+        (MEGA, "__fdividef(1.f, 1.f + __expf(-x))", "1.f / (1.f + expf(-x))"),
+        (MEGA, "__expf(-0.5f * m * m)", "expf(-0.5f * m * m)")],
+    # bf16 with 4 warps of 64 x 64 (up to 255 registers), not 8 of 64 x 32
+    "mega_bf16_four_warps": [(PRODUCT, "BN = 128, WM = 2, WN = 4;",
+                              "BN = 128, WM = 2, WN = 2;")],
+    # fp32 free of the 128-register cap, one block an SM
+    "mega_fp32_one_block": [(PRODUCT, "kStages = kStages32, kMinBlocks = 2;",
+                             "kStages = kStages32, kMinBlocks = 1;")],
+    # bf16 with a 4-stage ring, not 3
+    "mega_bf16_four_stages": [(PRODUCT, "kStages16 = 3, kStages32 = 1;",
+                               "kStages16 = 4, kStages32 = 1;")],
+    # bf16 128 x 256 tiles, warps of 64 x 64, one block an SM (the weight
+    # gradients keep their number of splits)
+    "mega_bf16_wide_warps": MEGA_WIDE,
+    # steps 64 deep, not 32 (both dtypes)
+    "mega_depth_64": [MEGA_DEPTH_64],
+    "mega_bf16_wide_depth_64": MEGA_WIDE + [MEGA_DEPTH_64],
 }
 BOTH = "fp32_first_design"
 SHAPES = [("vitb32_image", 256, 50, 12, 768, False),
@@ -99,6 +179,10 @@ SHAPES = [("vitb32_image", 256, 50, 12, 768, False),
 
 def _is_bwd(name: str) -> bool:
     return name.startswith("bwd_")
+
+
+def _is_mega(name: str) -> bool:
+    return name.startswith("mega_")
 
 
 def _patched(headers: dict, name: str) -> dict:
@@ -124,6 +208,8 @@ def read_headers() -> dict:
 
 def _sources(name: str):
     fwd, bwd = ["mha_fwd.cu", "flash_fwd.cu"], ["mha_bwd.cu", "flash_bwd.cu"]
+    if _is_mega(name):
+        return ["megablock_fwd.cu", "megablock_mlp_bwd.cu"]
     return fwd + bwd if name == "committed" else (bwd if _is_bwd(name)
                                                   else fwd)
 
@@ -154,6 +240,14 @@ def _build_variants(names, workdir):
             raise RuntimeError(f"nvcc failed on {name}:\n{out[-3000:]}")
         lib = ctypes.CDLL(os.path.join(workdir, name, "lib.so"))
         ptr, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        if _is_mega(name):
+            lib.swat_mega_fwd.restype = i
+            lib.swat_mega_fwd.argtypes = [ptr] * 5 + [i] * 8 + [ptr]
+            lib.swat_mega_mlp_bwd.restype = i
+            lib.swat_mega_mlp_bwd.argtypes = [ptr] * 6 + [ll] * 2 + [i] * 5 + [
+                ptr]
+            libs[name] = lib
+            continue
         if not _is_bwd(name):
             lib.swat_mha_fwd.restype = i
             lib.swat_mha_fwd.argtypes = [ptr] * 4 + [i] * 5 + [ll] * 8 + [
@@ -169,8 +263,35 @@ def _build_variants(names, workdir):
     return libs
 
 
+def _product_label(name):
+    """'source dtype/AB/epilogue' of an instantiation of the block kernels'
+    product (A, B: k = k-contiguous, i = i-contiguous; 'cores': mega::gemm
+    on the CUDA cores), from its mangled or demangled name, else None."""
+    import re
+
+    t = re.search(r"(megablock_\w+?)_cu.*?(2tc15mma_gemm_kernel|11gemm_kernel)"
+                  r"I(13__nv_bfloat16|f)Lb([01])ELb([01])E.*?(\d+)(Epi\w*)",
+                  name)
+    if t:
+        dtype, a, b = t.group(3), t.group(4), t.group(5)
+        epi = t.group(7)[:int(t.group(6))]     # a mangled name: length, name
+        cores = t.group(2) == "11gemm_kernel"
+        return (f"{t.group(1)} {'fp32' if dtype == 'f' else 'bf16'}/"
+                f"{'ik'[int(a)]}{'ik'[int(b)]}/{epi}"
+                f"{' cores' if cores else ''}")
+    t = re.search(r"(tc::mma_gemm_kernel|mega::gemm_kernel)<(float|__nv_bfloat16), "
+                  r"(true|false), (true|false), .*?(Epi\w+)", name)
+    if t:
+        return (f"{'fp32' if t.group(2) == 'float' else 'bf16'}/"
+                f"{'k' if t.group(3) == 'true' else 'i'}"
+                f"{'k' if t.group(4) == 'true' else 'i'}/{t.group(5)}"
+                f"{' cores' if t.group(1).startswith('mega') else ''}")
+    return None
+
+
 def _sass_report(lib_path):
-    """Instruction counts of the head-dim-64 kernels of both templates in a
+    """Instruction counts of the head-dim-64 kernels of both attention
+    templates and of every instantiation of the block kernels' product in a
     library: HMMA (mma.sync), LDSM (ldmatrix), LDGSTS (cp.async), FFMA."""
     import re
 
@@ -197,6 +318,9 @@ def _sass_report(lib_path):
                           f"{'fp32' if t.group(3) == 'f' else 'bf16'}/64/"
                           f"{'round' if t.group(4) == '1' else 'keep'}/"
                           f"{t.group(2)}{t.group(5) or ''}")
+            product = _product_label(m.group(1))
+            if product:
+                kernel = f"product {product}"
             continue
         m = re.search(r"\b(HMMA|LDSM|LDGSTS|FFMA)\b[.\w]*", ln)
         if kernel and m:
@@ -222,6 +346,165 @@ def _time_ms(fn, iters=50, warmup=5):
     return start.elapsed_time(end) / iters
 
 
+# the ViT-B/32 image block at the train batch: batch, seq, width, heads, mlp
+MEGA_SHAPE = (256, 50, 768, 12, 3072)
+
+
+def _library_block(w, heads):
+    """The block's two halves from library calls (layer_norm, linear,
+    scaled_dot_product_attention; quick-gelu), the yardstick of
+    chip_smoke.py."""
+    import torch
+    import torch.nn.functional as F
+
+    def attn_half(x):
+        b, s, d = x.shape
+        h = F.layer_norm(x, (d,), w.ln1_w, w.ln1_b)
+        q, k, v = (t.reshape(b, s, heads, -1).transpose(1, 2)
+                   for t in F.linear(h, w.in_w, w.in_b).chunk(3, dim=-1))
+        o = F.scaled_dot_product_attention(q, k, v)
+        return x + F.linear(o.transpose(1, 2).reshape(b, s, d), w.out_w,
+                            w.out_b)
+
+    def mlp_half(x2):
+        h = F.layer_norm(x2, (x2.shape[-1],), w.ln2_w, w.ln2_b)
+        m = F.linear(h, w.fc_w, w.fc_b)
+        return x2 + F.linear(m * torch.sigmoid(1.702 * m), w.proj_w,
+                             w.proj_b)
+
+    return attn_half, mlp_half
+
+
+def _mega_times(libs, smi, gen):
+    """The product variants through the block forward and the MLP backward
+    at MEGA_SHAPE, fp32 and bf16: each variant's ms in turns, its largest
+    difference from the plain version (relative to each output's largest
+    value), the library-built block's ms, and for the committed variant
+    each launch's device ms and each product's TFLOP/s."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from swat_tpu_torch.kernels import flash_attention as FA
+    from swat_tpu_torch.kernels import megablock as MB
+
+    b, s, d, heads, f = MEGA_SHAPE
+    n = b * s
+    stream = torch.cuda.current_stream().cuda_stream
+    # multiply-adds of each product launch, in launch order
+    flops = {"fwd": [2 * n * 3 * d * d, 2 * n * d * d, 2 * n * f * d,
+                     2 * n * d * f],
+             "mlp_bwd": [2 * n * f * d] * 5}
+    for dtype in (torch.float32, torch.bfloat16):
+        def normal(shape, std=1.0, mean=0.0):
+            return (torch.randn(shape, generator=gen, device="cuda") * std
+                    + mean).to(dtype)
+
+        x, x2, dy = (normal((b, s, d)) for _ in range(3))
+        w = MB.BlockWeights(
+            normal((3 * d, d), d ** -0.5), normal((3 * d,), 0.1),
+            normal((d, d), d ** -0.5), normal((d,), 0.1),
+            normal((d,), 0.1, 1.0), normal((d,), 0.1),
+            normal((d,), 0.1, 1.0), normal((d,), 0.1),
+            normal((f, d), d ** -0.5), normal((f,), 0.1),
+            normal((d, f), f ** -0.5), normal((d,), 0.1))
+        ref = {"fwd": MB.block_fwd_reference(x, w, heads, False, True),
+               "mlp_bwd": MB.mlp_bwd_reference(x2, dy, w, True)}
+        y, x2_out, dx2 = (torch.empty_like(x) for _ in range(3))
+        grads = [torch.empty(shape, device="cuda")
+                 for shape in ((f, d), (f,), (d, f), (d,), (d,), (d,))]
+        scratch = {kind: [torch.empty(shape, dtype=dt, device="cuda")
+                          for shape, dt in MB.scratch_shapes(
+                              kind, b, s, d, f, heads, dtype)]
+                   for kind in ("fwd", "mlp_bwd")}
+        out = {"fwd": (y, x2_out), "mlp_bwd": (dx2, *grads)}
+        ptr = {"w": MB._pointers(w), "fwd": MB._pointers(scratch["fwd"]),
+               "mlp_w": MB._pointers((w.fc_w, w.fc_b, w.proj_w, w.ln2_w,
+                                      w.ln2_b)),
+               "grads": MB._pointers(grads),
+               "mlp_bwd": MB._pointers(scratch["mlp_bwd"])}
+        code, dname = FA._DTYPE_CODE[dtype], str(dtype)[6:]
+
+        def calls(name, lib):
+            def fwd():
+                err = lib.swat_mega_fwd(
+                    x.data_ptr(), ptr["w"], y.data_ptr(), x2_out.data_ptr(),
+                    ptr["fwd"], b, s, d, heads, f, code, 0, 1, stream)
+                if err:
+                    raise RuntimeError(f"mega_fwd ({name}): CUDA error {err}")
+
+            def mlp_bwd():
+                err = lib.swat_mega_mlp_bwd(
+                    x2.data_ptr(), dy.data_ptr(), ptr["mlp_w"],
+                    dx2.data_ptr(), ptr["grads"], ptr["mlp_bwd"],
+                    scratch["mlp_bwd"][-2].numel(),
+                    scratch["mlp_bwd"][-1].numel(), n, d, f, code, 1, stream)
+                if err:
+                    raise RuntimeError(f"mega_mlp_bwd ({name}): CUDA error "
+                                       f"{err}")
+            return {"fwd": fwd, "mlp_bwd": mlp_bwd}
+
+        attn_half, mlp_half = _library_block(w, heads)
+        with torch.no_grad():
+            lib_ms = {"fwd": _time_ms(lambda: mlp_half(attn_half(x)),
+                                      iters=10, warmup=3)}
+        leaves = MB.BlockWeights(*(t.detach().requires_grad_(True)
+                                   for t in w))
+        leaf = x2.detach().requires_grad_(True)
+        _, mlp_leaf = _library_block(leaves, heads)
+        params = (leaf, leaves.ln2_w, leaves.ln2_b, leaves.fc_w,
+                  leaves.fc_b, leaves.proj_w, leaves.proj_b)
+        lib_ms["mlp_bwd"] = _time_ms(
+            lambda: torch.autograd.grad(mlp_leaf(leaf), params, dy),
+            iters=10, warmup=3)
+        for kind in ("fwd", "mlp_bwd"):
+            runs = {name: calls(name, lib)[kind] for name, lib in libs.items()}
+            order = list(runs) + list(reversed(runs))
+            times = {name: [] for name in runs}
+            for name in order:
+                times[name].append(_time_ms(runs[name], iters=10, warmup=2))
+            for name in runs:
+                for t in out[kind]:
+                    t.zero_()
+                runs[name]()
+                torch.cuda.synchronize()
+                diff = max(float((g.float() - r.float()).abs().max())
+                           / max(float(r.float().abs().max()), 1e-30)
+                           for g, r in zip(out[kind], ref[kind]))
+                shares = [f"{float((g == r).float().mean()):.4f}"
+                          for g, r in zip(out[kind], ref[kind])
+                          if g.dtype == torch.bfloat16]
+                ms = sum(times[name]) / len(times[name])
+                print(f"[ablate] mega_{kind} B={b} S={s} D={d} H={heads} "
+                      f"F={f} {dname} {name}: {ms:.3f} ms (runs "
+                      f"{'/'.join(f'{t:.3f}' for t in times[name])}), "
+                      f"library {lib_ms[kind]:.3f} ms, largest difference "
+                      f"from the plain version / its output's largest value "
+                      f"{diff:.2e}"
+                      f"{', bf16 outputs bit-equal to it ' if shares else ''}"
+                      f"{'/'.join(shares)} on {smi}", flush=True)
+            if "mega_committed" not in runs:
+                continue
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                runs["mega_committed"]()
+                torch.cuda.synchronize()
+            parts, products = [], iter(flops[kind])
+            for evt in prof.events():
+                if evt.device_type != DeviceType.CUDA:
+                    continue
+                us = evt.time_range.elapsed_us()
+                label = _product_label(evt.name)
+                if label and "join" not in evt.name:
+                    rate = next(products, 0) / us / 1e6
+                    parts.append(f"{label} {us / 1e3:.3f} ({rate:.0f} "
+                                 f"TFLOP/s)")
+                else:
+                    short = evt.name.split("(")[0].split("<")[0].split("::")
+                    parts.append(f"{short[-1]} {us / 1e3:.3f}")
+            print(f"[ablate] mega_{kind} {dname} mega_committed launches, "
+                  f"device ms: {'; '.join(parts)} on {smi}", flush=True)
+
+
 def main(argv) -> int:
     import torch
 
@@ -235,10 +518,15 @@ def main(argv) -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     with tempfile.TemporaryDirectory(prefix="swat_ablate_") as workdir:
         libs = _build_variants(names, workdir)
-        if "committed" in libs:
-            _sass_report(os.path.join(workdir, "committed", "lib.so"))
+        for name in ("committed", "mega_committed", "mega_cuda_cores"):
+            if name in libs:
+                _sass_report(os.path.join(workdir, name, "lib.so"))
+        mega = {k: v for k, v in libs.items() if _is_mega(k)}
+        libs = {k: v for k, v in libs.items() if not _is_mega(k)}
+        if mega:
+            _mega_times(mega, smi, gen)
         stream = torch.cuda.current_stream().cuda_stream
-        for shape, b, s, h, w, causal in SHAPES:
+        for shape, b, s, h, w, causal in (SHAPES if libs else []):
             for dtype in (torch.float32, torch.bfloat16):
                 qkv = torch.randn(b, s, 3 * w, generator=gen,
                                   device="cuda").to(dtype)

@@ -27,8 +27,8 @@ BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build",
                           "swat_tpu_torch")
 # one translation unit per kernel; the packed-head and the heads-first
 # kernels instantiate the templates of attention_fwd.cuh and
-# attention_bwd.cuh, the three block-fused layer kernels those and
-# megablock.cuh
+# attention_bwd.cuh, the three block-fused layer kernels those,
+# megablock.cuh and (forward and MLP backward) megablock_mma.cuh
 SOURCES = ("mha_fwd.cu", "mha_bwd.cu", "flash_fwd.cu", "flash_bwd.cu",
            "megablock_fwd.cu", "megablock_mlp_bwd.cu",
            "megablock_attn_bwd.cu")
@@ -126,7 +126,8 @@ def load() -> ctypes.CDLL:
     lib.swat_mega_fwd.restype = i
     lib.swat_mega_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.swat_mega_mlp_bwd.restype = i
-    lib.swat_mega_mlp_bwd.argtypes = [p, p, p, p, p, p, ll, i, i, i, i, i, p]
+    lib.swat_mega_mlp_bwd.argtypes = [p, p, p, p, p, p, ll, ll, i, i, i, i,
+                                      i, p]
     lib.swat_mega_attn_bwd.restype = i
     lib.swat_mega_attn_bwd.argtypes = [p, p, p, p, p, p, ll, i, i, i, i, i,
                                        i, p]

@@ -36,7 +36,8 @@ attention per image gives the same p; ``block_imgs`` is accepted and
 changes nothing), S padded to 8, the ``[H, D, hd]`` weight stacks (a head is
 a stride of torch's ``in_proj_weight`` here), and the grid that carries
 weight-gradient sums from batch block to batch block (here each weight
-gradient is one product over all B*S rows).
+gradient is one product over all B*S rows; in the MLP backward its depth is
+cut into ``split_count`` splits whose fp32 partials are added in order).
 """
 
 from __future__ import annotations
@@ -57,6 +58,16 @@ LN_EPS = 1e-5
 # rows of one column-sum partial (kBM of csrc/megablock.cuh; the entry
 # points refuse a partials buffer that is too small for theirs)
 _ROW_BLOCK = 128
+# the tensor-core product of csrc/megablock_mma.cuh: its block tile (rows,
+# columns), warps (along rows, along columns) and shared-memory stages by
+# compute dtype, the depth of a step, and the constants of its rule for
+# cutting the depth of a weight gradient into splits (kSplitBlocks,
+# kMinSplitSteps, kMaxSplits there)
+_TILE = {torch.bfloat16: (128, 128), torch.float32: (128, 64)}
+_WARPS = {torch.bfloat16: (2, 4), torch.float32: (4, 2)}
+_STAGES = {torch.bfloat16: 3, torch.float32: 1}
+_DEPTH = 32
+_SPLIT_BLOCKS, _MIN_SPLIT_STEPS, _MAX_SPLITS = 528, 8, 16
 
 
 class BlockWeights(NamedTuple):
@@ -274,6 +285,45 @@ def _check(x: torch.Tensor, w: BlockWeights, heads: Optional[int],
                 f"{x.device}; got {tuple(t.shape)} {t.dtype} on {t.device}")
 
 
+def split_count(m: int, n: int, k: int, dtype: torch.dtype):
+    """(splits, steps of ``_DEPTH`` a split) of a weight-gradient product
+    [m, n] summed over k token rows: ``split_count`` of
+    csrc/megablock_mma.cuh, a function of (m, n, k) and the tile alone.
+    Enough splits for ``_SPLIT_BLOCKS`` blocks, each at least
+    ``_MIN_SPLIT_STEPS`` steps deep, at most ``_MAX_SPLITS``; the last split
+    takes what is left."""
+    bm, bn = _TILE[dtype]
+    tiles = -(-m // bm) * -(-n // bn)
+    steps = -(-k // _DEPTH)
+    want = max(1, min(-(-_SPLIT_BLOCKS // tiles), _MAX_SPLITS,
+                      steps // _MIN_SPLIT_STEPS))
+    per = -(-steps // want)
+    if per <= 0:
+        return 1, 1
+    return -(-steps // per), per
+
+
+def product_smem_bytes(dtype: torch.dtype, a_kcontig: bool,
+                       b_kcontig: bool) -> int:
+    """Dynamic shared memory of one block of the tensor-core product
+    (``smem_bytes`` of csrc/megablock_mma.cuh): its stages of bf16 tiles, an
+    fp32 operand in three planes, a k-contiguous tile of R rows as
+    [R][depth + 8], an i-contiguous one as [depth][R + 8]."""
+    planes = 3 if dtype == torch.float32 else 1
+
+    def tile(rows, kcontig):
+        return rows * (_DEPTH + 8) if kcontig else _DEPTH * (rows + 8)
+
+    bm, bn = _TILE[dtype]
+    return (_STAGES[dtype] * planes
+            * (tile(bm, a_kcontig) + tile(bn, b_kcontig)) * 2)
+
+
+def _split_floats(m, n, k, dtype):
+    splits, _ = split_count(m, n, k, dtype)
+    return splits * m * n if splits > 1 else 0
+
+
 def scratch_shapes(kind: str, batch: int, seq: int, width: int, mlp: int,
                    heads: int, dtype: torch.dtype):
     """What one call of an entry point keeps in device memory between its
@@ -284,10 +334,13 @@ def scratch_shapes(kind: str, batch: int, seq: int, width: int, mlp: int,
     if kind == "fwd":       # h, qkv, o, g
         return [((n, d), dtype), ((n, 3 * d), dtype), ((n, d), dtype),
                 ((n, f), dtype)]
-    if kind == "mlp_bwd":   # h2, m1 (then dm), g, dh2, row stats, partials
+    if kind == "mlp_bwd":   # h2, m1 (then dm), g, dh2, row stats, column-
+        #                     sum partials, split partials of dWp and dWfc
+        split = max(_split_floats(d, f, n, dtype),
+                    _split_floats(f, d, n, dtype))
         return [((n, d), dtype), ((n, f), dtype), ((n, f), dtype),
                 ((n, d), f32), ((n, 2), f32),
-                ((blocks, max(f, 2 * d)), f32)]
+                ((blocks, max(f, 2 * d)), f32), ((split,), f32)]
     if kind == "attn_bwd":  # h1, qkv, o (then do), dqkv, dqkv32, dh1, row
         #                     stats, softmax stats (none where one block of
         #                     the attention backward takes a head), partials
@@ -371,8 +424,8 @@ def megablock_mlp_bwd(x2: torch.Tensor, dy: torch.Tensor, w: BlockWeights,
             x2.data_ptr(), dy.data_ptr(),
             _pointers((w.fc_w, w.fc_b, w.proj_w, w.ln2_w, w.ln2_b)),
             dx2.data_ptr(), _pointers(grads), _pointers(scratch),
-            scratch[-1].numel(), b * s, d, f, FA._DTYPE_CODE[x2.dtype],
-            int(quick_gelu), stream)
+            scratch[-2].numel(), scratch[-1].numel(), b * s, d, f,
+            FA._DTYPE_CODE[x2.dtype], int(quick_gelu), stream)
     _build.check(lib, err, "megablock_mlp_bwd kernel")
     LAUNCHES_MEGA_MLP_BWD += 1
     return (dx2, *grads)

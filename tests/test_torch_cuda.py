@@ -568,10 +568,16 @@ def test_mega_attn_bwd_takes_fp32_gradients_from_the_template(device, dtype,
 
 # b, s, width, heads, mlp, causal, quick_gelu: ragged tiles (rows, widths
 # and depths that are no multiple of a tile), every head dim, both
-# activations, and the towers' shapes (B/32 image, text, B/16 image)
+# activations, and the towers' shapes (B/32 image, text, B/16 image); the
+# edges of the tensor-core product's 128-row tiles and 32-deep steps: B*S
+# = 1, 127, 129 and 1576 token rows, widths and depths below one tile
+# (D = 24, 64, 96; F = 40, 192), the weight gradients' depth cut into
+# splits at 1576 rows
 MEGA_SHAPES = [
     (3, 5, 64, 4, 256, False, True), (2, 12, 64, 4, 256, True, False),
     (2, 33, 96, 3, 200, True, True), (5, 7, 24, 3, 40, False, False),
+    (1, 1, 64, 4, 192, False, True), (1, 127, 64, 4, 256, True, False),
+    (3, 43, 96, 3, 192, False, True), (8, 197, 64, 4, 192, False, False),
     (4, 50, 768, 12, 3072, False, True), (4, 77, 512, 8, 2048, True, True),
     (2, 197, 768, 12, 3072, False, False)]
 MEGA_OUT = {"fwd": ("y", "x2"),
@@ -604,8 +610,11 @@ def _mega_inputs(b, s, d, f, dtype, device, seed=0):
 # widths up to 96 every output keeps BWD_MIN_EQUAL_SHARE.  At the towers'
 # widths one flipped hidden value moves the 512- to 3072-term sum it feeds,
 # so the flips multiply down the chain of roundings: measured on an H100
-# 0.986-0.999 (x2, dx2), 0.957-0.995 (dx), 0.872-0.992 (y; lowest at
-# S=197).  The rounding points themselves are held by the
+# with the CUDA-core products 0.986-0.999 (x2, dx2), 0.957-0.995 (dx),
+# 0.872-0.992 (y; lowest at S=197).  The tensor-core product of the
+# forward and the MLP backward sums in another order and keeps these
+# bounds only because it never chains its running sum through the tensor
+# cores (csrc/megablock_mma.cuh).  The rounding points themselves are held by the
 # plain twins against the Pallas kernels (tests/test_torch_megablock.py).
 MEGA_MIN_SHARE_WIDE = {"x2": 0.97, "dx2": 0.98, "dx": 0.92, "y": 0.80}
 
@@ -662,13 +671,41 @@ def test_mega_kernels_match_plain_twins(device, dtype, b, s, d, heads, f,
 
 
 def test_mega_kernels_are_deterministic(device):
-    (x, x2, dy, dx2), w = _mega_inputs(8, 50, 768, 3072, torch.bfloat16,
+    """Two calls give bit-equal outputs at the B/32 block's widths, with
+    rows enough (64 images) that the weight gradients' depth is cut into
+    splits: the column sums and the split joins add in a fixed order."""
+    (x, x2, dy, dx2), w = _mega_inputs(64, 50, 768, 3072, torch.bfloat16,
                                        device)
+    assert MB.split_count(768, 3072, 64 * 50, torch.bfloat16)[0] > 1
     for call in (lambda: MB.megablock_fwd(x, w, 12, False, True),
                  lambda: MB.megablock_mlp_bwd(x2, dy, w, True),
                  lambda: MB.megablock_attn_bwd(x, dx2, w, 12, False)):
         for a, b in zip(call(), call()):
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mega_split_k_matches_one_split(device, dtype, monkeypatch):
+    """dWp and dWfc with their depth cut into splits (joined in order)
+    against one split each (no split scratch: the entry point then sums the
+    whole depth in one launch): the same products summed in another order,
+    within the fp32 tolerance of the kernel tests (5e-5 of the largest
+    value); every other output of the MLP backward is bit-equal."""
+    (_, x2, dy, _), w = _mega_inputs(64, 50, 768, 3072, dtype, device,
+                                     seed=2)
+    assert MB.split_count(768, 3072, 64 * 50, dtype)[0] > 1
+    assert MB.split_count(3072, 768, 64 * 50, dtype)[0] > 1
+    split = MB.megablock_mlp_bwd(x2, dy, w, True)
+    monkeypatch.setattr(MB, "_split_floats", lambda *shape: 0)
+    one = MB.megablock_mlp_bwd(x2, dy, w, True)
+    torch.cuda.synchronize()
+    for name, a, b in zip(MEGA_OUT["mlp_bwd"], split, one):
+        if name in ("d_fc_w", "d_proj_w"):
+            scale = float(b.abs().max())
+            assert float((a - b).abs().max()) <= 5e-5 * scale, name
+            assert not torch.equal(a, b), name       # the splits did run
+        else:
+            assert torch.equal(a, b), name
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

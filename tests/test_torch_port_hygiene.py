@@ -210,17 +210,19 @@ def _ablation_names():
 @pytest.mark.parametrize("name", _ablation_names())
 def test_ablation_patches_apply_to_the_committed_header(name):
     """kernels/_ablate.py takes one design decision of the forward or the
-    backward attention template (or of the header they share) back by a
-    textual patch: every patch must still find its text in its header, and
-    change that header and no other."""
+    backward attention template (or of the header they share), or of the
+    block kernels' tensor-core product (or its epilogues' activations), back
+    by a textual patch: every patch must still find its text in its header,
+    and change that header and no other."""
     from swat_tpu_torch.kernels import _ablate
 
     headers = _ablate.read_headers()
     assert set(headers) == {"attention_fwd.cuh", "attention_bwd.cuh",
-                            "attention_mma.cuh"}
+                            "attention_mma.cuh", "megablock.cuh",
+                            "megablock_mma.cuh"}
     patched = _ablate._patched(headers, name)
     changed = {h for h in headers if patched[h] != headers[h]}
-    if name == "committed":
+    if name in ("committed", "mega_committed"):
         assert not changed
     else:
         subs = (_ablate.ABLATIONS["fp32_v_beside_k"]
@@ -228,8 +230,16 @@ def test_ablation_patches_apply_to_the_committed_header(name):
                 if name == _ablate.BOTH else _ablate.ABLATIONS[name])
         assert changed == {h for h, _, _ in subs}
         # a backward variant leaves the forward template alone, and back
-        assert ("attention_fwd.cuh" in changed) <= (not name.startswith("bwd_"))
+        assert ("attention_fwd.cuh" in changed) <= (
+            not name.startswith(("bwd_", "mega_")))
         assert ("attention_bwd.cuh" in changed) <= name.startswith("bwd_")
+        # a product variant patches the product or its epilogues'
+        # activations alone, and an attention variant neither
+        mega = {"megablock_mma.cuh", "megablock.cuh"}
+        if name.startswith("mega_"):
+            assert changed <= mega
+        else:
+            assert not changed & mega
 
 
 def test_device_cuda_without_gpu_raises(monkeypatch, tmp_path):
