@@ -1367,8 +1367,10 @@ MEGA_BF16_GRAD_TOL = 2e-3
 # stay as they are, so it understates the noise where S is long).  The
 # kernel may differ from the plain version in at most MEGA_FLIP_FACTOR times
 # as many elements as that reordering does, plus MEGA_FLIP_FLOOR of them.
-# At width 64-96 every output keeps >= 0.99 (tests/test_torch_cuda.py), and
-# the plain versions are bit-equal to the TPU kernels in interpret mode
+# At width 64-96 every output keeps >= 0.99 (tests/test_torch_cuda.py; bf16
+# dx of the attention backward against the plain version with the card's
+# own mma sums, tests/torch_port_lib.py's mma_sum_dot), and the plain
+# versions are bit-equal to the TPU kernels in interpret mode
 # (tests/test_torch_megablock.py, where a moved rounding point falls below
 # 0.99 even at width 64)
 MEGA_FLIP_FACTOR = 3.0
@@ -1634,17 +1636,15 @@ def phase_mega_timing(smi):
 
 def _mega_device_split(prof):
     """Device ms by launch family from a torch.profiler run of the block
-    kernels: the tensor-core products of the forward and the MLP backward
-    (megablock_mma.cuh), split into the weight gradients (both operands read
-    down their columns), the join of their depth splits and the other
-    products; the CUDA-core products of the attention backward (mega::gemm
-    of megablock.cuh); the attention templates; and the LayerNorm and
-    column-sum launches."""
+    kernels: the tensor-core products of all three (megablock_mma.cuh),
+    split into the weight gradients (both operands read down their
+    columns), the join of their depth splits and the other products; the
+    attention templates; and the LayerNorm and column-sum launches."""
     from torch.autograd import DeviceType
 
     split = {"weight-gradient products": 0.0, "split-K join": 0.0,
-             "other products": 0.0, "mega::gemm (attention backward)": 0.0,
-             "attention": 0.0, "layernorm and column sums": 0.0}
+             "other products": 0.0, "attention": 0.0,
+             "layernorm and column sums": 0.0}
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CUDA:
             continue
@@ -1655,8 +1655,6 @@ def _mega_device_split(prof):
                   else "other products"] += ms
         elif "split_join_kernel" in name:
             split["split-K join"] += ms
-        elif "gemm_kernel" in name:
-            split["mega::gemm (attention backward)"] += ms
         elif "attention_" in name:
             split["attention"] += ms
         elif "ln_" in name or "colsum" in name:

@@ -1,8 +1,8 @@
 // Device code shared by the three block-fused transformer-layer entry
 // points (megablock_fwd.cu, megablock_mlp_bwd.cu, megablock_attn_bwd.cu):
-// a tiled matrix product with the layer's epilogues, the fp32 LayerNorm
-// forward and backward, and deterministic column sums.  This header holds
-// no entry point.
+// the epilogues of the layer's matrix products, the fp32 LayerNorm forward
+// and backward, and deterministic column sums.  This header holds no entry
+// point.
 //
 // The TPU kernels (swat_tpu/kernels/megablock.py) keep a layer's weights
 // and a block of images' activations in VMEM and walk the batch in order,
@@ -13,22 +13,18 @@
 // below over all B*S token rows at once; what the TPU kernel kept on chip
 // between its products (the LayerNorm output, q/k/v, the MLP hidden, ...)
 // goes through scratch tensors that the Python wrapper allocates, and every
-// weight gradient is ONE product over all token rows (deterministic, no
-// atomics, no partial sums to join).  The rounding points are the TPU
-// kernels': every epilogue says where it rounds to the compute dtype T.
+// weight gradient is one product over all token rows (its depth cut into
+// splits whose partials are joined in order: deterministic, no atomics).
+// The rounding points are the TPU kernels': every epilogue says where it
+// rounds to the compute dtype T.
 //
 // What bounds it on the card: operations.  A ViT-B/32 layer at batch 256
 // is 0.18 / 0.30 / 0.17 TFLOP (forward / MLP backward / attention backward)
-// against ~0.15 GB of inputs and outputs.  The product here, mega::gemm,
-// multiplies on the CUDA cores in fp32 for both dtypes (bf16 operands are
-// widened on the way into shared memory, so a bf16 product is exact and only
-// the sum's order differs from any other fp32-accumulating product): a
-// 128 x 128 output tile a block, 8 x 8 outputs a thread, operands staged
-// k-major in shared memory and read as float4.  The block forward and the
-// MLP backward take the tensor-core product of megablock_mma.cuh instead
-// (with these epilogues, whose `pair` stores two columns at once); the
-// attention backward still takes this one.  The fusion that takes the
-// scratch away comes later.
+// against ~0.15 GB of inputs and outputs.  So every product of the three
+// entry points goes to the tensor-core template of megablock_mma.cuh, with
+// the epilogues below (whose `pair` stores two columns at once); their
+// weight gradients cut the depth into splits that one join adds in order.
+// The fusion that takes the scratch away comes later.
 
 #pragma once
 
@@ -98,35 +94,7 @@ __device__ __forceinline__ float act_grad(float m, bool quick_gelu) {
   return cdf + m * phi;
 }
 
-// ---- the matrix product: C[M, N] = sum_k A(m, k) * B(k, n), fp32 sums.
-// An operand is stored k-contiguous (element (i, k) at p[i * ld + k]: an
-// activation [rows, K] as A, a torch [out, in] weight as B) or i-contiguous
-// (element (i, k) at p[k * ld + i]: the transposed activation of a weight
-// gradient, or a weight read along its rows).
-
-constexpr int kBM = 128;         // output rows per block
-constexpr int kBN = 128;         // output columns per block
-constexpr int kBK = 16;          // depth per shared-memory tile
-constexpr int kPad = 4;          // keeps float4 alignment, spreads banks
-constexpr int kGemmThreads = 256;  // 16 x 16, 8 x 8 outputs each
-
-template <typename T, bool kKContig>
-__device__ __forceinline__ void load_tile(float (*tile)[kBM + kPad],
-                                          const T* __restrict__ p,
-                                          long long ld, int i0, int k0,
-                                          int n_i, int n_k) {
-#pragma unroll
-  for (int e = threadIdx.x; e < kBM * kBK; e += kGemmThreads) {
-    const int i = kKContig ? e / kBK : e % kBM;
-    const int k = kKContig ? e % kBK : e / kBM;
-    const int gi = i0 + i, gk = k0 + k;
-    float v = 0.f;
-    if (gi < n_i && gk < n_k)
-      v = to_float(kKContig ? p[static_cast<long long>(gi) * ld + gk]
-                            : p[static_cast<long long>(gk) * ld + gi]);
-    tile[k][i] = v;
-  }
-}
+// ---- the epilogues of the tensor-core product (megablock_mma.cuh)
 
 // two adjacent elements of a row as one access (p aligned to it)
 __device__ __forceinline__ void store2(float* p, float a, float b) {
@@ -144,89 +112,8 @@ __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
 
 // Epi: what happens to each fp32 sum.  operator()(row, col, sum) stores and
 // returns the value whose column sums the block adds up when kColSum (into
-// partial[blockIdx.y][col]; a later kernel joins the row blocks in order).
-template <typename T, bool kAKContig, bool kBKContig, typename Epi>
-__global__ void __launch_bounds__(kGemmThreads)
-    gemm_kernel(const T* __restrict__ a, long long lda,
-                const T* __restrict__ b, long long ldb, int m_total,
-                int n_total, int k_total, Epi epi) {
-  static_assert(kBM == kBN, "one tile shape for both operands");
-  __shared__ __align__(16) float a_s[kBK][kBM + kPad];
-  __shared__ __align__(16) float b_s[kBK][kBN + kPad];
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < k_total; k0 += kBK) {
-    load_tile<T, kAKContig>(a_s, a, lda, m0, k0, m_total, k_total);
-    load_tile<T, kBKContig>(b_s, b, ldb, n0, k0, n_total, k_total);
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kBK; ++k) {
-      const float4 a_lo = *reinterpret_cast<const float4*>(&a_s[k][ty * 4]);
-      const float4 a_hi =
-          *reinterpret_cast<const float4*>(&a_s[k][64 + ty * 4]);
-      const float4 b_lo = *reinterpret_cast<const float4*>(&b_s[k][tx * 4]);
-      const float4 b_hi =
-          *reinterpret_cast<const float4*>(&b_s[k][64 + tx * 4]);
-      const float av[8] = {a_lo.x, a_lo.y, a_lo.z, a_lo.w,
-                           a_hi.x, a_hi.y, a_hi.z, a_hi.w};
-      const float bv[8] = {b_lo.x, b_lo.y, b_lo.z, b_lo.w,
-                           b_hi.x, b_hi.y, b_hi.z, b_hi.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  float col_sum[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) col_sum[j] = 0.f;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-      if (row < m_total && col < n_total)
-        col_sum[j] += epi(row, col, acc[i][j]);
-    }
-  }
-  if constexpr (Epi::kColSum) {
-    // the 16 thread rows' sums of each column, joined in a fixed order
-    float* red = &a_s[0][0];
-    static_assert(16 * kBN <= kBK * (kBM + kPad), "reduction overflows");
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      red[ty * kBN + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4)] = col_sum[j];
-    __syncthreads();
-    const int c = threadIdx.x;
-    if (c < kBN && n0 + c < n_total) {
-      float s = 0.f;
-      for (int t = 0; t < 16; ++t) s += red[t * kBN + c];
-      epi.partial[static_cast<long long>(blockIdx.y) * n_total + n0 + c] = s;
-    }
-  }
-}
-
-template <typename T, bool kAKContig, bool kBKContig, typename Epi>
-cudaError_t gemm(const T* a, long long lda, const T* b, long long ldb, int m,
-                 int n, int k, Epi epi, cudaStream_t stream) {
-  const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
-  if (grid.y > 65535) return cudaErrorInvalidValue;
-  gemm_kernel<T, kAKContig, kBKContig, Epi>
-      <<<grid, kGemmThreads, 0, stream>>>(a, lda, b, ldb, m, n, k, epi);
-  return cudaGetLastError();
-}
+// partial[blockIdx.y][col]; a later kernel joins the row blocks in order);
+// pair(row, col, s0, s1) does the same for columns col and col + 1.
 
 // (sum -> T) + bias in T: q, k, v
 template <typename T>
@@ -347,6 +234,11 @@ struct EpiRound {
     c[r * ldc + n] = from_float<T>(s);
     return 0.f;
   }
+  __device__ __forceinline__ float2 pair(int r, int n, float s0,
+                                         float s1) const {
+    store2(c + r * ldc + n, s0, s1);
+    return make_float2(0.f, 0.f);
+  }
 };
 
 // ---- LayerNorm over rows of `d` elements, one warp a row, always in the
@@ -449,6 +341,7 @@ cudaError_t ln_bwd(const T* x, const float* dh, const T* scale, const T* res,
 // coalesce), then one thread a column joins the row blocks in order.
 // f(row, col, a, b) adds its term(s) to a (and b).
 
+constexpr int kBM = 128;  // rows a block sums
 constexpr int kColThreads = 128;
 
 template <typename F>

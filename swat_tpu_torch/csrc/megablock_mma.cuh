@@ -1,23 +1,25 @@
 // The matrix product of the block-fused layer kernels on the tensor cores,
 // for Hopper (sm_90a): C[M, N] = sum_k A(m, k) * B(k, n), summed in fp32,
 // each sum handed to one of the layer's epilogues (megablock.cuh).  It
-// serves the block forward (megablock_fwd.cu: the qkv, out-projection, fc
-// and MLP-projection products) and the MLP backward (megablock_mlp_bwd.cu:
-// the fc recompute, dg whose epilogue makes dm, dh2, and the two weight
-// gradients dWp and dWfc); the attention backward (megablock_attn_bwd.cu)
-// still takes mega::gemm, the CUDA-core product of megablock.cuh.  This
-// header holds no entry point.
+// serves every product of the three block entry points: the block forward
+// (megablock_fwd.cu: the qkv, out-projection, fc and MLP-projection
+// products), the MLP backward (megablock_mlp_bwd.cu: the fc recompute, dg
+// whose epilogue makes dm, dh2, and the two weight gradients dWp and dWfc)
+// and the attention backward (megablock_attn_bwd.cu: the qkv recompute, do,
+// dh1, and the two weight gradients dWo and d in_proj_weight).  This header
+// holds no entry point.
 //
 // Those kernels replace the Pallas TPU kernels
-// swat_tpu/kernels/megablock.py::_fwd_kernel and ::_mlp_bwd_kernel, whose
-// products go to the TPU's matrix unit with fp32 sums and whose weight
-// gradients are carried from grid step to grid step.
+// swat_tpu/kernels/megablock.py::_fwd_kernel, ::_mlp_bwd_kernel and
+// ::_attn_bwd_kernel, whose products go to the TPU's matrix unit with fp32
+// sums and whose weight gradients are carried from grid step to grid step.
 //
 // What bounds it on the card: operations.  One ViT-B/32 layer at batch 256
-// does 0.18 TFLOP in the forward and 0.30 in the MLP backward on ~0.15 GB of
-// inputs and outputs, some 1,200 operations a byte, far above the 295 at
-// which the tensor cores and not the memory are the limit.  So the products
-// go to the tensor cores and the loads hide behind them.
+// does 0.18 TFLOP in the forward, 0.30 in the MLP backward and 0.17 in the
+// attention backward on ~0.15 GB of inputs and outputs, some 1,000
+// operations a byte, far above the 295 at which the tensor cores and not
+// the memory are the limit.  So the products go to the tensor cores and the
+// loads hide behind them.
 //
 // Design:
 //   * a block computes a BM x BN output tile with 8 warps, a depth of kDepth
@@ -63,11 +65,12 @@
 //     shuffles over lanes xor 4, 8, 16, then the warps of the block in order
 //     through shared memory, one partial a row block of 128;
 //   * the weight gradients sum over all B*S token rows (K = 12,800 at batch
-//     256) into 768 x 3072 outputs: 144 bf16 tiles for 132 SMs, barely more
-//     than one wave.  So K is cut into splits (`split_count`: a number that
-//     depends on M, N and K alone, for at least kSplitBlocks blocks); each
-//     split writes its fp32 partial tile to scratch and one join kernel adds
-//     the splits in order.  Deterministic, no atomics;
+//     256) into 768 x 3072 outputs (dWp, dWfc: 144 bf16 tiles for 132 SMs,
+//     barely more than one wave), 768 x 768 (dWo: 36) or 2304 x 768
+//     (d in_proj_weight: 108).  So K is cut into splits (`split_count`: a
+//     number that depends on M, N and K alone, for at least kSplitBlocks
+//     blocks); each split writes its fp32 partial tile to scratch and one
+//     join kernel adds the splits in order.  Deterministic, no atomics;
 //   * ragged M, N and K edges are masked and what lies past them is read as
 //     zero.  The 16-byte accesses need a base and a row stride that are
 //     multiples of 16 bytes; otherwise the block loads element-wise (same
@@ -84,7 +87,6 @@ namespace tc {
 
 constexpr int kDepth = 32;         // depth of one shared-memory step
 constexpr int kStages16 = 3, kStages32 = 1;  // bf16 ring; fp32 buffers
-constexpr bool kTensorCores = true;  // false: every product on mega::gemm
 // split-K of the weight gradients: enough splits for kSplitBlocks blocks (4
 // waves of 132 SMs), each at least kMinSplitSteps steps deep, at most
 // kMaxSplits
@@ -542,16 +544,12 @@ cudaError_t launch(const T* a, long long lda, const T* b, long long ldb,
   return cudaGetLastError();
 }
 
-// C = A.B into the epilogue, as mega::gemm
+// C = A.B into the epilogue
 template <typename T, bool kAKContig, bool kBKContig, typename Epi>
 cudaError_t gemm(const T* a, long long lda, const T* b, long long ldb, int m,
                  int n, int k, Epi epi, cudaStream_t stream) {
-  if constexpr (!kTensorCores)
-    return mega::gemm<T, kAKContig, kBKContig>(a, lda, b, ldb, m, n, k, epi,
-                                               stream);
-  else
-    return launch<T, kAKContig, kBKContig>(a, lda, b, ldb, m, n, k,
-                                           k > 0 ? k : 1, 1, epi, stream);
+  return launch<T, kAKContig, kBKContig>(a, lda, b, ldb, m, n, k,
+                                         k > 0 ? k : 1, 1, epi, stream);
 }
 
 // the splits of a weight-gradient product [m, n] over k rows and the steps
@@ -599,10 +597,6 @@ template <typename T>
 cudaError_t gemm_wgrad(const T* a, long long lda, const T* b, long long ldb,
                        int m, int n, int k, float* out, float* part,
                        long long part_floats, cudaStream_t stream) {
-  if constexpr (!kTensorCores) {
-    return mega::gemm<T, false, false>(a, lda, b, ldb, m, n, k,
-                                       EpiF32{out, n}, stream);
-  }
   int per;
   const int splits = part != nullptr ? split_count<T>(m, n, k, &per) : 1;
   if (splits == 1)

@@ -11,8 +11,8 @@ decision taken back by a textual patch (``ABLATIONS``; a patch whose
 text is no longer in its header raises).  A name that starts with ``bwd_``
 is a variant of the backward template and is compiled over ``mha_bwd.cu``
 and ``flash_bwd.cu``, one that starts with ``mega_`` a variant of the
-product and is compiled over ``megablock_fwd.cu`` and
-``megablock_mlp_bwd.cu``, any other one of the forward template over
+product and is compiled over ``megablock_fwd.cu``, ``megablock_mlp_bwd.cu``
+and ``megablock_attn_bwd.cu``, any other one of the forward template over
 ``mha_fwd.cu`` and ``flash_fwd.cu``; ``committed`` is the attention
 templates as they stand, ``mega_committed`` the product.  All variants are
 compiled together (one ``nvcc`` each, into a temporary directory), then
@@ -22,8 +22,9 @@ beside its largest difference from the plain version: the forward variants
 through ``swat_mha_fwd``, the backward ones through ``swat_mha_bwd`` and,
 in bf16, ``swat_flash_bwd`` without ``keep_dtype`` (p and ds in two terms).
 The product variants at the ViT-B/32 image block (B=256, S=50, D=768,
-H=12, F=3072) in fp32 and bf16 through ``swat_mega_fwd`` and
-``swat_mega_mlp_bwd``, each beside its largest difference from the plain
+H=12, F=3072) in fp32 and bf16 through ``swat_mega_fwd``,
+``swat_mega_mlp_bwd`` and ``swat_mega_attn_bwd``, each beside its largest
+difference from the plain
 version relative to that output's largest value and the share of its bf16
 outputs bit-equal to the plain version's, and beside a block built
 from library calls (timed as a yardstick); for the committed product also
@@ -125,9 +126,6 @@ ABLATIONS = {
     # step k's mma, split and stored into a second buffer after them
     "mega_fp32_prefetch": [(PRODUCT, "kStages16 = 3, kStages32 = 1;",
                             "kStages16 = 3, kStages32 = 2;")],
-    # #5 and #6 back on mega::gemm, the CUDA-core product of megablock.cuh
-    "mega_cuda_cores": [(PRODUCT, "constexpr bool kTensorCores = true;",
-                         "constexpr bool kTensorCores = false;")],
     # the leading term chained through the tensor cores' accumulator, not
     # summed afresh each step (bf16) or k16 (fp32) and added by the CUDA
     # cores
@@ -209,7 +207,8 @@ def read_headers() -> dict:
 def _sources(name: str):
     fwd, bwd = ["mha_fwd.cu", "flash_fwd.cu"], ["mha_bwd.cu", "flash_bwd.cu"]
     if _is_mega(name):
-        return ["megablock_fwd.cu", "megablock_mlp_bwd.cu"]
+        return ["megablock_fwd.cu", "megablock_mlp_bwd.cu",
+                "megablock_attn_bwd.cu"]
     return fwd + bwd if name == "committed" else (bwd if _is_bwd(name)
                                                   else fwd)
 
@@ -246,6 +245,9 @@ def _build_variants(names, workdir):
             lib.swat_mega_mlp_bwd.restype = i
             lib.swat_mega_mlp_bwd.argtypes = [ptr] * 6 + [ll] * 2 + [i] * 5 + [
                 ptr]
+            lib.swat_mega_attn_bwd.restype = i
+            lib.swat_mega_attn_bwd.argtypes = [ptr] * 6 + [ll] * 2 + [
+                i] * 6 + [ptr]
             libs[name] = lib
             continue
         if not _is_bwd(name):
@@ -265,27 +267,24 @@ def _build_variants(names, workdir):
 
 def _product_label(name):
     """'source dtype/AB/epilogue' of an instantiation of the block kernels'
-    product (A, B: k = k-contiguous, i = i-contiguous; 'cores': mega::gemm
-    on the CUDA cores), from its mangled or demangled name, else None."""
+    product (A, B: k = k-contiguous, i = i-contiguous), from its mangled or
+    demangled name, else None."""
     import re
 
-    t = re.search(r"(megablock_\w+?)_cu.*?(2tc15mma_gemm_kernel|11gemm_kernel)"
+    t = re.search(r"(megablock_\w+?)_cu.*?2tc15mma_gemm_kernel"
                   r"I(13__nv_bfloat16|f)Lb([01])ELb([01])E.*?(\d+)(Epi\w*)",
                   name)
     if t:
-        dtype, a, b = t.group(3), t.group(4), t.group(5)
-        epi = t.group(7)[:int(t.group(6))]     # a mangled name: length, name
-        cores = t.group(2) == "11gemm_kernel"
+        dtype, a, b = t.group(2), t.group(3), t.group(4)
+        epi = t.group(6)[:int(t.group(5))]     # a mangled name: length, name
         return (f"{t.group(1)} {'fp32' if dtype == 'f' else 'bf16'}/"
-                f"{'ik'[int(a)]}{'ik'[int(b)]}/{epi}"
-                f"{' cores' if cores else ''}")
-    t = re.search(r"(tc::mma_gemm_kernel|mega::gemm_kernel)<(float|__nv_bfloat16), "
+                f"{'ik'[int(a)]}{'ik'[int(b)]}/{epi}")
+    t = re.search(r"tc::mma_gemm_kernel<(float|__nv_bfloat16), "
                   r"(true|false), (true|false), .*?(Epi\w+)", name)
     if t:
-        return (f"{'fp32' if t.group(2) == 'float' else 'bf16'}/"
-                f"{'k' if t.group(3) == 'true' else 'i'}"
-                f"{'k' if t.group(4) == 'true' else 'i'}/{t.group(5)}"
-                f"{' cores' if t.group(1).startswith('mega') else ''}")
+        return (f"{'fp32' if t.group(1) == 'float' else 'bf16'}/"
+                f"{'k' if t.group(2) == 'true' else 'i'}"
+                f"{'k' if t.group(3) == 'true' else 'i'}/{t.group(4)}")
     return None
 
 
@@ -376,11 +375,12 @@ def _library_block(w, heads):
 
 
 def _mega_times(libs, smi, gen):
-    """The product variants through the block forward and the MLP backward
-    at MEGA_SHAPE, fp32 and bf16: each variant's ms in turns, its largest
-    difference from the plain version (relative to each output's largest
-    value), the library-built block's ms, and for the committed variant
-    each launch's device ms and each product's TFLOP/s."""
+    """The product variants through the block forward, the MLP backward and
+    the attention backward at MEGA_SHAPE, fp32 and bf16: each variant's ms
+    in turns, its largest difference from the plain version (relative to
+    each output's largest value), the library-built block's ms (its forward;
+    for a backward the forward and backward of its half), and for the
+    committed variant each launch's device ms and each product's TFLOP/s."""
     import torch
     from torch.autograd import DeviceType
 
@@ -390,16 +390,20 @@ def _mega_times(libs, smi, gen):
     b, s, d, heads, f = MEGA_SHAPE
     n = b * s
     stream = torch.cuda.current_stream().cuda_stream
+    kinds = ("fwd", "mlp_bwd", "attn_bwd")
     # multiply-adds of each product launch, in launch order
     flops = {"fwd": [2 * n * 3 * d * d, 2 * n * d * d, 2 * n * f * d,
                      2 * n * d * f],
-             "mlp_bwd": [2 * n * f * d] * 5}
+             "mlp_bwd": [2 * n * f * d] * 5,
+             # qkv, dWo, do, d in_proj_weight, dh1
+             "attn_bwd": [2 * n * 3 * d * d, 2 * n * d * d, 2 * n * d * d,
+                          2 * n * 3 * d * d, 2 * n * 3 * d * d]}
     for dtype in (torch.float32, torch.bfloat16):
         def normal(shape, std=1.0, mean=0.0):
             return (torch.randn(shape, generator=gen, device="cuda") * std
                     + mean).to(dtype)
 
-        x, x2, dy = (normal((b, s, d)) for _ in range(3))
+        x, x2, dy, dx2_in = (normal((b, s, d)) for _ in range(4))
         w = MB.BlockWeights(
             normal((3 * d, d), d ** -0.5), normal((3 * d,), 0.1),
             normal((d, d), d ** -0.5), normal((d,), 0.1),
@@ -408,40 +412,58 @@ def _mega_times(libs, smi, gen):
             normal((f, d), d ** -0.5), normal((f,), 0.1),
             normal((d, f), f ** -0.5), normal((d,), 0.1))
         ref = {"fwd": MB.block_fwd_reference(x, w, heads, False, True),
-               "mlp_bwd": MB.mlp_bwd_reference(x2, dy, w, True)}
-        y, x2_out, dx2 = (torch.empty_like(x) for _ in range(3))
-        grads = [torch.empty(shape, device="cuda")
-                 for shape in ((f, d), (f,), (d, f), (d,), (d,), (d,))]
+               "mlp_bwd": MB.mlp_bwd_reference(x2, dy, w, True),
+               "attn_bwd": MB.attn_bwd_reference(x, dx2_in, w, heads, False)}
+        y, x2_out, dx2, dx = (torch.empty_like(x) for _ in range(4))
+        grads = {kind: [torch.empty(shape, device="cuda") for shape in shapes]
+                 for kind, shapes in (
+                     ("mlp_bwd", ((f, d), (f,), (d, f), (d,), (d,), (d,))),
+                     ("attn_bwd", ((3 * d, d), (3 * d,), (d, d), (d,), (d,),
+                                   (d,))))}
         scratch = {kind: [torch.empty(shape, dtype=dt, device="cuda")
                           for shape, dt in MB.scratch_shapes(
                               kind, b, s, d, f, heads, dtype)]
-                   for kind in ("fwd", "mlp_bwd")}
-        out = {"fwd": (y, x2_out), "mlp_bwd": (dx2, *grads)}
-        ptr = {"w": MB._pointers(w), "fwd": MB._pointers(scratch["fwd"]),
+                   for kind in kinds}
+        out = {"fwd": (y, x2_out), "mlp_bwd": (dx2, *grads["mlp_bwd"]),
+               "attn_bwd": (dx, *grads["attn_bwd"])}
+        ptr = {"w": MB._pointers(w),
                "mlp_w": MB._pointers((w.fc_w, w.fc_b, w.proj_w, w.ln2_w,
                                       w.ln2_b)),
-               "grads": MB._pointers(grads),
-               "mlp_bwd": MB._pointers(scratch["mlp_bwd"])}
+               "attn_w": MB._pointers((w.in_w, w.in_b, w.out_w, w.ln1_w,
+                                       w.ln1_b)),
+               **{f"{kind}_grads": MB._pointers(grads[kind])
+                  for kind in grads},
+               **{kind: MB._pointers(scratch[kind]) for kind in kinds}}
         code, dname = FA._DTYPE_CODE[dtype], str(dtype)[6:]
 
         def calls(name, lib):
-            def fwd():
-                err = lib.swat_mega_fwd(
-                    x.data_ptr(), ptr["w"], y.data_ptr(), x2_out.data_ptr(),
-                    ptr["fwd"], b, s, d, heads, f, code, 0, 1, stream)
+            def check(err, kind):
                 if err:
-                    raise RuntimeError(f"mega_fwd ({name}): CUDA error {err}")
+                    raise RuntimeError(f"mega_{kind} ({name}): CUDA error "
+                                       f"{err}")
+
+            def fwd():
+                check(lib.swat_mega_fwd(
+                    x.data_ptr(), ptr["w"], y.data_ptr(), x2_out.data_ptr(),
+                    ptr["fwd"], b, s, d, heads, f, code, 0, 1, stream),
+                    "fwd")
 
             def mlp_bwd():
-                err = lib.swat_mega_mlp_bwd(
+                check(lib.swat_mega_mlp_bwd(
                     x2.data_ptr(), dy.data_ptr(), ptr["mlp_w"],
-                    dx2.data_ptr(), ptr["grads"], ptr["mlp_bwd"],
+                    dx2.data_ptr(), ptr["mlp_bwd_grads"], ptr["mlp_bwd"],
                     scratch["mlp_bwd"][-2].numel(),
-                    scratch["mlp_bwd"][-1].numel(), n, d, f, code, 1, stream)
-                if err:
-                    raise RuntimeError(f"mega_mlp_bwd ({name}): CUDA error "
-                                       f"{err}")
-            return {"fwd": fwd, "mlp_bwd": mlp_bwd}
+                    scratch["mlp_bwd"][-1].numel(), n, d, f, code, 1,
+                    stream), "mlp_bwd")
+
+            def attn_bwd():
+                check(lib.swat_mega_attn_bwd(
+                    x.data_ptr(), dx2_in.data_ptr(), ptr["attn_w"],
+                    dx.data_ptr(), ptr["attn_bwd_grads"], ptr["attn_bwd"],
+                    scratch["attn_bwd"][-2].numel(),
+                    scratch["attn_bwd"][-1].numel(), b, s, d, heads, code, 0,
+                    stream), "attn_bwd")
+            return {"fwd": fwd, "mlp_bwd": mlp_bwd, "attn_bwd": attn_bwd}
 
         attn_half, mlp_half = _library_block(w, heads)
         with torch.no_grad():
@@ -449,14 +471,19 @@ def _mega_times(libs, smi, gen):
                                       iters=10, warmup=3)}
         leaves = MB.BlockWeights(*(t.detach().requires_grad_(True)
                                    for t in w))
-        leaf = x2.detach().requires_grad_(True)
-        _, mlp_leaf = _library_block(leaves, heads)
-        params = (leaf, leaves.ln2_w, leaves.ln2_b, leaves.fc_w,
-                  leaves.fc_b, leaves.proj_w, leaves.proj_b)
-        lib_ms["mlp_bwd"] = _time_ms(
-            lambda: torch.autograd.grad(mlp_leaf(leaf), params, dy),
-            iters=10, warmup=3)
-        for kind in ("fwd", "mlp_bwd"):
+        attn_leaf, mlp_leaf = _library_block(leaves, heads)
+        for kind, half, inp, grad, params in (
+                ("mlp_bwd", mlp_leaf, x2, dy,
+                 (leaves.ln2_w, leaves.ln2_b, leaves.fc_w, leaves.fc_b,
+                  leaves.proj_w, leaves.proj_b)),
+                ("attn_bwd", attn_leaf, x, dx2_in,
+                 (leaves.in_w, leaves.in_b, leaves.out_w, leaves.out_b,
+                  leaves.ln1_w, leaves.ln1_b))):
+            leaf = inp.detach().requires_grad_(True)
+            lib_ms[kind] = _time_ms(
+                lambda h=half, x0=leaf, g=grad, p=params: torch.autograd.grad(
+                    h(x0), (x0, *p), g), iters=10, warmup=3)
+        for kind in kinds:
             runs = {name: calls(name, lib)[kind] for name, lib in libs.items()}
             order = list(runs) + list(reversed(runs))
             times = {name: [] for name in runs}
@@ -484,10 +511,17 @@ def _mega_times(libs, smi, gen):
                       f"{'/'.join(shares)} on {smi}", flush=True)
             if "mega_committed" not in runs:
                 continue
-            with torch.profiler.profile(activities=[
-                    torch.profiler.ProfilerActivity.CUDA]) as prof:
-                runs["mega_committed"]()
-                torch.cuda.synchronize()
+            # a profile drops the kernels launched while its tracing
+            # starts: the call runs twice and the second, active step is read
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA],
+                    schedule=torch.profiler.schedule(wait=0, warmup=1,
+                                                     active=1)) as prof:
+                for step in range(2):
+                    runs["mega_committed"]()
+                    torch.cuda.synchronize()
+                    if step == 0:
+                        prof.step()
             parts, products = [], iter(flops[kind])
             for evt in prof.events():
                 if evt.device_type != DeviceType.CUDA:
@@ -518,7 +552,7 @@ def main(argv) -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     with tempfile.TemporaryDirectory(prefix="swat_ablate_") as workdir:
         libs = _build_variants(names, workdir)
-        for name in ("committed", "mega_committed", "mega_cuda_cores"):
+        for name in ("committed", "mega_committed"):
             if name in libs:
                 _sass_report(os.path.join(workdir, name, "lib.so"))
         mega = {k: v for k, v in libs.items() if _is_mega(k)}

@@ -129,8 +129,8 @@ def load() -> ctypes.CDLL:
     lib.swat_mega_mlp_bwd.argtypes = [p, p, p, p, p, p, ll, ll, i, i, i, i,
                                       i, p]
     lib.swat_mega_attn_bwd.restype = i
-    lib.swat_mega_attn_bwd.argtypes = [p, p, p, p, p, p, ll, i, i, i, i, i,
-                                       i, p]
+    lib.swat_mega_attn_bwd.argtypes = [p, p, p, p, p, p, ll, ll, i, i, i,
+                                       i, i, i, p]
     lib.swat_cuda_error_string.restype = ctypes.c_char_p
     lib.swat_cuda_error_string.argtypes = [i]
     return lib

@@ -36,8 +36,8 @@ attention per image gives the same p; ``block_imgs`` is accepted and
 changes nothing), S padded to 8, the ``[H, D, hd]`` weight stacks (a head is
 a stride of torch's ``in_proj_weight`` here), and the grid that carries
 weight-gradient sums from batch block to batch block (here each weight
-gradient is one product over all B*S rows; in the MLP backward its depth is
-cut into ``split_count`` splits whose fp32 partials are added in order).
+gradient is one product over all B*S rows, its depth cut into
+``split_count`` splits whose fp32 partials are added in order).
 """
 
 from __future__ import annotations
@@ -343,13 +343,16 @@ def scratch_shapes(kind: str, batch: int, seq: int, width: int, mlp: int,
                 ((blocks, max(f, 2 * d)), f32), ((split,), f32)]
     if kind == "attn_bwd":  # h1, qkv, o (then do), dqkv, dqkv32, dh1, row
         #                     stats, softmax stats (none where one block of
-        #                     the attention backward takes a head), partials
+        #                     the attention backward takes a head), column-
+        #                     sum partials, split partials of dWo and dWqkv
         rounded = 0 if dtype == f32 else n
+        split = max(_split_floats(d, d, n, dtype),
+                    _split_floats(3 * d, d, n, dtype))
         return [((n, d), dtype), ((n, 3 * d), dtype), ((n, d), dtype),
                 ((rounded, 3 * d), dtype), ((n, 3 * d), f32), ((n, d), f32),
                 ((n, 2), f32),
                 (FA._bwd_stats_shape(batch, heads, seq, dtype), f32),
-                ((blocks, 3 * d), f32)]
+                ((blocks, 3 * d), f32), ((split,), f32)]
     raise ValueError(f"unknown kind {kind!r}")
 
 
@@ -455,8 +458,8 @@ def megablock_attn_bwd(x: torch.Tensor, dx2: torch.Tensor, w: BlockWeights,
             x.data_ptr(), dx2.data_ptr(),
             _pointers((w.in_w, w.in_b, w.out_w, w.ln1_w, w.ln1_b)),
             dx.data_ptr(), _pointers(grads), _pointers(scratch),
-            scratch[-1].numel(), b, s, d, heads, FA._DTYPE_CODE[x.dtype],
-            int(causal), stream)
+            scratch[-2].numel(), scratch[-1].numel(), b, s, d, heads,
+            FA._DTYPE_CODE[x.dtype], int(causal), stream)
     _build.check(lib, err, "megablock_attn_bwd kernel")
     LAUNCHES_MEGA_ATTN_BWD += 1
     return (dx, *grads)

@@ -1,6 +1,7 @@
 """The arithmetic of the block kernels' tensor-core product
-(swat_tpu_torch/csrc/megablock_mma.cuh) and of the two entry points that
-use it (megablock_fwd.cu, megablock_mlp_bwd.cu), modelled in plain PyTorch
+(swat_tpu_torch/csrc/megablock_mma.cuh) and of the three entry points that
+use it (megablock_fwd.cu, megablock_mlp_bwd.cu, megablock_attn_bwd.cu),
+modelled in plain PyTorch
 and held on the CPU against the kernels' plain twins and, through the same
 inputs, against the Pallas kernels in interpret mode.
 
@@ -13,8 +14,9 @@ of weight >= 2^-16, the leading one summed apart from the five
 corrections); the weight gradients' depth cut into ``split_count`` splits
 whose partials are added in order; the epilogues' rounding points; the
 column sums in their fixed order (a warp's rows, lanes xor 4, 8, 16, the
-warps of a block, the row blocks).  ``tiled_block_fwd`` and
-``tiled_mlp_bwd`` below are that model, launch by launch."""
+warps of a block, the row blocks).  ``tiled_block_fwd``,
+``tiled_mlp_bwd`` and ``tiled_attn_bwd`` below are that model, launch by
+launch."""
 
 import os
 import re
@@ -203,6 +205,45 @@ def tiled_mlp_bwd(x2, dy, w, quick, split=True, round_dm=True):
             rows_colsum(dh2 * xhat), rows_colsum(dh2))
 
 
+def tiled_attn_bwd(x, dx2, w, heads, causal, split=True, round_dqkv=True):
+    """megablock_attn_bwd.cu launch by launch -> attn_bwd_reference's tuple.
+    ``round_dqkv=False`` moves a rounding point: dq|dk|dv enter d
+    in_proj_weight and dh1 unrounded."""
+    cd = x.dtype
+    b, s, d = x.shape
+    x, dx2 = x.reshape(b * s, d), dx2.reshape(b * s, d)
+    ln_w = w.ln1_w.float()
+    h1_32, xhat, rstd = MB._ln_fwd(x.float(), ln_w, w.ln1_b.float())
+    h1 = h1_32.to(cd)
+    d_out_b = rows_colsum(dx2.float())
+    # EpiBias: (sum -> T) + bias in T
+    qkv = (_r(tiled_product(h1, w.in_w.t(), cd), cd)
+           + w.in_b.float()).to(cd)
+    q, k, v = qkv.reshape(b, s, 3 * d).chunk(3, dim=-1)
+    o = FA.mha_packed_reference(q, k, v, heads, causal).reshape(b * s, d)
+    d_out_w = wgrad_product(dx2, o, cd, split)
+    # EpiRound: do = sum -> T
+    do = tiled_product(dx2, w.out_w, cd).to(cd).reshape(b, s, d)
+    grads = FA._bwd_math(*(FA._split_heads(t, heads) for t in (q, k, v, do)),
+                         causal, cd)
+    dqkv32 = torch.cat([FA._merge_heads(t, torch.float32) for t in grads],
+                       dim=-1).reshape(b * s, 3 * d)
+    # ColRound: the fp32 sums are the qkv bias gradient; in bf16 the rounded
+    # copy feeds both products, in fp32 dqkv32 is read in place
+    d_in_b = rows_colsum(dqkv32)
+    dqkv, dqkv_dt = ((dqkv32.to(cd), cd) if round_dqkv
+                     else (dqkv32, torch.float32))
+    d_in_w = wgrad_product(dqkv, h1, dqkv_dt, split)
+    dh1 = tiled_product(dqkv, w.in_w, dqkv_dt)
+    n = d
+    dyh = dh1 * ln_w
+    s1 = dyh.sum(dim=-1, keepdim=True)
+    s2 = (dyh * xhat).sum(dim=-1, keepdim=True)
+    dx = (dx2.float() + (rstd / n) * (n * dyh - s1 - xhat * s2)).to(cd)
+    return (dx.reshape(b, s, d), d_in_w, d_in_b, d_out_w, d_out_b,
+            rows_colsum(dh1 * xhat), rows_colsum(dh1))
+
+
 # ---------------------------------------------------------------------------
 # the product alone
 
@@ -271,7 +312,11 @@ SPLITS = [(768, 3072, 12800, "bfloat16", 4), (3072, 768, 12800, "bfloat16", 4),
           (768, 3072, 12800, "float32", 2), (3072, 768, 12800, "float32", 2),
           (512, 2048, 19712, "bfloat16", 9), (768, 3072, 1576, "float32", 2),
           (64, 256, 60, "bfloat16", 1), (768, 3072, 255, "float32", 1),
-          (64, 192, 1576, "bfloat16", 6)]
+          (64, 192, 1576, "bfloat16", 6),
+          # the B/32 block's dWo and d in_proj_weight (36 / 108 bf16 and
+          # 72 / 216 fp32 tiles)
+          (768, 768, 12800, "bfloat16", 15), (2304, 768, 12800, "bfloat16", 5),
+          (768, 768, 12800, "float32", 8), (2304, 768, 12800, "float32", 3)]
 
 
 @pytest.mark.parametrize("m,n,k,dtype,want", SPLITS)
@@ -415,6 +460,42 @@ def test_tiled_mlp_bwd_split_against_one_split(dtype):
             assert torch.equal(a, b), name
 
 
+ATTN_NAMES = ("dx", "d_in_w", "d_in_b", "d_out_w", "d_out_b", "d_ln1_w",
+              "d_ln1_b")
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("b,s,d,heads,f,causal,quick", BLOCK_SHAPES)
+def test_tiled_attn_bwd_matches_plain_twin(b, s, d, heads, f, causal, quick,
+                                           dtype):
+    dt = DTYPES[dtype]
+    (x, dx2, _), w = _inputs(b, s, d, f, dt, seed=s + 2)
+    got = tiled_attn_bwd(x, dx2, w, heads, causal)
+    ref = MB.attn_bwd_reference(x, dx2, w, heads, causal)
+    for name, g, r in zip(ATTN_NAMES, got, ref):
+        assert g.shape == r.shape and g.dtype == r.dtype, name
+        _close(name, g, r, dt, fwd=False)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_tiled_attn_bwd_split_against_one_split(dtype):
+    """At 1576 rows dWo and d in_proj_weight are cut into splits: with and
+    without, they agree within the fp32 tolerance and every other output is
+    the same."""
+    dt = DTYPES[dtype]
+    (x, dx2, _), w = _inputs(8, 197, 64, 192, dt, seed=10)
+    assert MB.split_count(64, 64, 1576, dt)[0] > 1
+    assert MB.split_count(192, 64, 1576, dt)[0] > 1
+    many = tiled_attn_bwd(x, dx2, w, 4, False)
+    one = tiled_attn_bwd(x, dx2, w, 4, False, split=False)
+    for name, a, b in zip(ATTN_NAMES, many, one):
+        if name in ("d_in_w", "d_out_w"):
+            scale = float(b.abs().max())
+            assert float((a - b).abs().max()) <= GRAD_TOL * scale, name
+        else:
+            assert torch.equal(a, b), name
+
+
 # ---------------------------------------------------------------------------
 # against the Pallas kernels in interpret mode
 
@@ -427,7 +508,8 @@ def pallas(tmp_path_factory):
 
 
 def _model(name, dtype, round_dm=True):
-    """The modelled forward and MLP backward on a MEGA_CASES case -> float32
+    """The modelled forward, MLP backward and attention backward on a
+    MEGA_CASES case, chained as FusedBlock chains the kernels -> float32
     numpy arrays under the Pallas reference's names (parameter gradients
     cast to the compute dtype, as the block's VJP leaves them)."""
     b, s, d, heads, f, causal, quick = MEGA_CASES[name]
@@ -436,12 +518,16 @@ def _model(name, dtype, round_dm=True):
                           for k in MB.BlockWeights._fields))
     x, dy = torch.from_numpy(x).to(dtype), torch.from_numpy(dy).to(dtype)
     y, x2 = tiled_block_fwd(x, w, heads, causal, quick)
-    _, d_fc_w, d_fc_b, d_proj_w, d_proj_b, d_ln2_w, d_ln2_b = tiled_mlp_bwd(
-        x2, dy, w, quick, round_dm=round_dm)
-    out = {"y": y, "x2": x2}
+    dx2, d_fc_w, d_fc_b, d_proj_w, d_proj_b, d_ln2_w, d_ln2_b = \
+        tiled_mlp_bwd(x2, dy, w, quick, round_dm=round_dm)
+    dx, d_in_w, d_in_b, d_out_w, d_out_b, d_ln1_w, d_ln1_b = tiled_attn_bwd(
+        x, dx2, w, heads, causal)
+    out = {"y": y, "x2": x2, "dx": dx}
     out.update({k: g.to(dtype) for k, g in (
         ("fc_w", d_fc_w), ("fc_b", d_fc_b), ("proj_w", d_proj_w),
-        ("proj_b", d_proj_b), ("ln2_w", d_ln2_w), ("ln2_b", d_ln2_b))})
+        ("proj_b", d_proj_b), ("ln2_w", d_ln2_w), ("ln2_b", d_ln2_b),
+        ("in_w", d_in_w), ("in_b", d_in_b), ("out_w", d_out_w),
+        ("out_b", d_out_b), ("ln1_w", d_ln1_w), ("ln1_b", d_ln1_b))})
     return {k: v.float().numpy() for k, v in out.items()}
 
 
@@ -450,7 +536,7 @@ def _model(name, dtype, round_dm=True):
 def test_tiled_model_matches_pallas_interpret(pallas, case, dtype):
     """fp32: the bounds of tests/test_torch_megablock.py (forward 2e-6 of
     the scale, gradients 1e-5 relative + 1e-6 of it); bf16: 8e-3 of the
-    scale and y, x2 bit-equal in MIN_EQUAL_SHARE of their elements."""
+    scale and y, x2, dx bit-equal in MIN_EQUAL_SHARE of their elements."""
     got = _model(case, DTYPES[dtype])
     for name, g in got.items():
         ref = pallas[f"{case}/{dtype}/{name}"]
@@ -465,9 +551,27 @@ def test_tiled_model_matches_pallas_interpret(pallas, case, dtype):
             np.testing.assert_allclose(g, ref, rtol=1e-5, atol=1e-6 * scale,
                                        err_msg=name)
     if dtype == "bfloat16":
-        for name in ("y", "x2"):
+        for name in ("y", "x2", "dx"):
             share = np.mean(got[name] == pallas[f"{case}/{dtype}/{name}"])
             assert share >= MIN_EQUAL_SHARE, (name, share)
+
+
+def test_moved_dqkv_rounding_point_falls_below():
+    """dq|dk|dv left unrounded before d in_proj_weight and dh1 (in bf16 the
+    kernel stores them rounded and both products read that copy): dx, and
+    d in_proj_weight cast to bf16 as the block's VJP leaves it, are then
+    bit-equal to the plain twin's in fewer than MIN_EQUAL_SHARE of their
+    elements, while the model with the point in place keeps it."""
+    dt = torch.bfloat16
+    (x, dx2, _), w = _inputs(4, 50, 64, 256, dt, seed=12)
+    ref = MB.attn_bwd_reference(x, dx2, w, 4, False)
+    right = tiled_attn_bwd(x, dx2, w, 4, False)
+    wrong = tiled_attn_bwd(x, dx2, w, 4, False, round_dqkv=False)
+    for i, name in ((0, "dx"), (1, "d_in_w")):
+        share = {k: float((g[i].to(dt) == ref[i].to(dt)).float().mean())
+                 for k, g in (("right", right), ("wrong", wrong))}
+        assert share["right"] >= MIN_EQUAL_SHARE > share["wrong"], (name,
+                                                                    share)
 
 
 def test_moved_rounding_point_falls_below():

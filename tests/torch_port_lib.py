@@ -418,3 +418,76 @@ def mega_reference_subprocess(out_path: str) -> dict:
     assert done.returncode == 0, done.stderr[-4000:]
     with np.load(out_path) as data:
         return {k: data[k] for k in data.files}
+
+
+# ---------------------------------------------------------------------------
+# the tensor cores' own sum, as an H100 does it (measured bit for bit
+# against the block kernels' fp32 products: tests/test_torch_cuda.py,
+# test_mega_products_sum_as_the_mma_model)
+
+MMA_K = 16              # products one mma.sync.m16n8k16 sums
+MMA_EXTRA_BITS = 2      # bits kept below an fp32 significand when aligning
+
+
+def _exponent(x):
+    """floor(log2 |x|) of a float64 tensor; very low for zeros."""
+    import torch
+
+    e = torch.frexp(x).exponent.to(torch.float64) - 1
+    return torch.where(x == 0, torch.full_like(e, -1e4), e)
+
+
+def _toward_zero_fp32(x):
+    """float64 ``x`` cut to fp32's 24 significant bits, toward zero."""
+    import torch
+
+    q = torch.exp2(_exponent(x) - 23)
+    return torch.where(x == 0, x, torch.trunc(x / q) * q)
+
+
+def mma_sum(c, a, b):
+    """One mma.sync.m16n8k16 with bf16 operands and an fp32 accumulator as
+    an H100 computes it: c [M, N] + a [M, k] . b [k, N], k <= 16, all
+    float64 tensors that hold bf16 (a, b) and fp32 (c) values.  The
+    products are exact; each counts as having the exponent of its factors'
+    exponents summed (its significand lies in [1, 4)); the products and c
+    are aligned to the largest of those exponents and c's, and every bit
+    below 2^(largest - 23 - MMA_EXTRA_BITS) is cut off (toward zero); the
+    aligned terms are summed exactly and the sum is cut to fp32 toward
+    zero.  A chain of mma therefore errs one way, and more than an fp32 sum
+    rounded to nearest."""
+    import torch
+
+    prods = a[:, None, :] * b.t()[None, :, :]
+    pexp = _exponent(a)[:, None, :] + _exponent(b.t())[None, :, :]
+    pexp = torch.where(prods == 0, torch.full_like(pexp, -1e4), pexp)
+    terms = torch.cat([prods, c[..., None]], -1)
+    top = torch.cat([pexp, _exponent(c)[..., None]], -1).amax(-1, True)
+    q = torch.exp2((top - 23 - MMA_EXTRA_BITS).clamp(min=-900))
+    return _toward_zero_fp32((torch.trunc(terms / q) * q).sum(-1))
+
+
+def mma_sum_dot(a, b, depth=32, rows=256):
+    """a [..., K] . b [K, N] of bf16 values -> fp32, summed as the block
+    kernels' tensor-core product sums bf16 (csrc/megablock_mma.cuh): K in
+    steps of ``depth``, each step two chained mma (``mma_sum``) from a zero
+    accumulator, the steps added by the CUDA cores in fp32, rounded to
+    nearest.  Set in place of ``megablock._dot``, it gives the plain
+    versions the card's sums; ``rows`` rows of a at a time."""
+    import torch
+
+    assert a.dtype == b.dtype == torch.bfloat16, (a.dtype, b.dtype)
+    lead, k = a.shape[:-1], a.shape[-1]
+    a2, b2 = a.reshape(-1, k).double(), b.double()
+    out = []
+    for r0 in range(0, a2.shape[0], rows):
+        ar = a2[r0:r0 + rows]
+        acc = torch.zeros(ar.shape[0], b2.shape[1], device=a.device)
+        for s0 in range(0, k, depth):
+            c = torch.zeros(acc.shape, dtype=torch.float64, device=a.device)
+            for k0 in range(s0, min(k, s0 + depth), MMA_K):
+                ks = slice(k0, min(k, k0 + MMA_K))
+                c = mma_sum(c, ar[:, ks], b2[ks])
+            acc = acc + c.float()
+        out.append(acc)
+    return torch.cat(out).reshape(*lead, b.shape[1])
