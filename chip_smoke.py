@@ -12,9 +12,14 @@ the full-width ViT-B/32 towers with and without the kernels; zero-shot
 classification through ``swat_tpu_torch.cli.main``; one full-width ViT-B/32
 cutmix train step, kernel against plain attention, timed and profiled; one
 attentivemix train step (heatmaps through the heads-first forward); one
-cutmix train step with the heads-first backward (``bwd="fused"``); and
-stage-1 finetuning through ``swat_tpu_torch.cli.main`` with cutmix,
-attentivemix and mixup; then the three block-fused layer kernels (block
+cutmix train step with the heads-first backward (``bwd="fused"``); the
+flagship SWAT run through ``swat_tpu_torch.cli.main`` (stage-1 cutmix,
+WiSE-FT, tau-norm, stage-2 probing on the few-shot snapshot features and
+few-shot finetuning, its time by stage and its stage-2 launches), stage 2
+alone from its stage-1 bundle (``--skip_stage1``), ``--save_ckpt`` then
+``--resume``, and stage-1 finetuning with cutmix (streaming, bf16, the host
+PIL transform), attentivemix and mixup; then the three block-fused layer
+kernels (block
 forward, MLP backward, attention backward) against their plain versions and
 timed beside their bounds and a library-built block, both full-width towers
 through ``use_mega``, and a full-width cutmix train step whose image tower
@@ -27,6 +32,7 @@ the repository beside it, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -1224,15 +1230,49 @@ def _write_retrieved(root, dataset, n_per_class, n_classes=10, seed=1):
 
 RETRIEVAL_SPLIT = "retrieved_smoke.txt"
 CLI_BSZ = 64
+N_FEWSHOT, N_RETRIEVED, N_TEST = 40, 220, 300   # the smoke splits
+# the flagship run's batch: few-shot finetuning's drop-last loader refuses
+# a batch larger than the 40 few-shot images, in both packages
+FLAGSHIP_BSZ = 32
+STAGE_FILES = ("test_confusion_matrix.npy", "test_scores.json",
+               "val_confusion_matrix_best.npy", "val_scores_best.json")
+
+
+@contextlib.contextmanager
+def _stage2_counts(FA):
+    """The four launch counts of each stage-2 entry point of the runs made
+    inside: SwatPipeline.run_stage2_probing / run_stage2_fsft wrapped to
+    read the counts before and after -> {name: counts}."""
+    from swat_tpu_torch.train import stages
+
+    per = {}
+    saved = {}
+    for name in ("run_stage2_probing", "run_stage2_fsft"):
+        fn = saved[name] = getattr(stages.SwatPipeline, name)
+
+        def wrapped(self, *args, _fn=fn, _name=name):
+            before = _counts(FA)
+            try:
+                return _fn(self, *args)
+            finally:
+                per[_name] = tuple(a - b for a, b in
+                                   zip(_counts(FA), before))
+
+        setattr(stages.SwatPipeline, name, wrapped)
+    try:
+        yield per
+    finally:
+        for name, fn in saved.items():
+            setattr(stages.SwatPipeline, name, fn)
 
 
 def _train_cli_run(workdir, ckpt, dataset, method, dtype, resident, smi,
-                   extra=()):
-    """One stage-1 run of ``method`` through swat_tpu_torch.cli.main at full
-    width (2 epochs at bsz CLI_BSZ, --skip_stage2), its summary line,
-    loss.csv and output files checked.  The four counts are set to 0 just
-    before the run and read just after -> (counts, steps)."""
-    import contextlib
+                   extra=(), bsz=CLI_BSZ, tag="", rows_want=2, stage2=False):
+    """One run of ``method`` through swat_tpu_torch.cli.main at full width
+    (2 epochs at ``bsz`` unless ``extra`` says otherwise; --skip_stage2
+    unless ``stage2``), its summary line, loss.csv (``rows_want`` rows) and
+    output files checked.  The four counts are set to 0 just before the run
+    and read just after -> dict of what it gave."""
     import csv
     import io
     import math
@@ -1242,20 +1282,23 @@ def _train_cli_run(workdir, ckpt, dataset, method, dtype, resident, smi,
     from swat_tpu_torch.cli.main import main as cli_main
     from swat_tpu_torch.kernels import flash_attention as FA
 
-    folder = f"{workdir}/train_{method}_{dtype}_{resident}"
+    folder = f"{workdir}/train_{method}_{dtype}_{resident}{tag}"
     _reset_counts(FA)
     buf = io.StringIO()
+    t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         cli_main(["--dataset", dataset, "--method", method,
                   "--data_source", "fewshot+retrieved",
                   "--retrieval_split", RETRIEVAL_SPLIT,
-                  "--shots", "4", "--epochs", "2", "--skip_stage2",
-                  "--bsz", str(CLI_BSZ), "--model_cfg", MODEL_CFG,
+                  "--shots", "4", "--epochs", "2",
+                  *(() if stage2 else ("--skip_stage2",)),
+                  "--bsz", str(bsz), "--model_cfg", MODEL_CFG,
                   "--checkpoint_path", ckpt,
                   "--config_yml", f"{workdir}/config.yml",
                   "--folder", folder, "--compute_dtype", dtype,
                   "--resident", resident, "--num_workers", "8",
                   "--recal_prompt", "--device", "cuda", *extra])
+    wall = time.perf_counter() - t0
     counts = _counts(FA)
     out = buf.getvalue()
     summary = [ln for ln in out.splitlines()
@@ -1263,72 +1306,189 @@ def _train_cli_run(workdir, ckpt, dataset, method, dtype, resident, smi,
     if len(summary) != 1 or len(summary[0].split(",")) != 11:
         raise AssertionError(f"no 11-field summary line:\n{out[-2000:]}")
     accs = [float(x) for x in summary[0].split(",")[7:]]
-    if not all(0.0 <= a <= 100.0 for a in accs[:2]) or \
-            accs[2:] != [-1.0, -1.0]:
+    skipped_stage1 = "--skip_stage1" in extra
+    ran = accs[2:] if skipped_stage1 else accs if stage2 else accs[:2]
+    if not all(0.0 <= a <= 100.0 for a in ran) or (
+            not stage2 and accs[2:] != [-1.0, -1.0]) or (
+            skipped_stage1 and accs[:2] != [-1.0, -1.0]):
         raise AssertionError(f"bad accuracies in {summary[0]}")
     (run_dir,) = [r for r, _, files in os.walk(folder)
                   if "loss.csv" in files]
     with open(os.path.join(run_dir, "loss.csv")) as f:
         rows = list(csv.DictReader(f))
     losses = [float(r["Train_loss"]) for r in rows]
-    if len(rows) != 2 or not all(math.isfinite(x) for x in losses):
+    if len(rows) != rows_want or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"loss.csv malformed: {rows}")
     files = sorted(os.listdir(run_dir))
-    want = ["stage1_test_confusion_matrix.npy", "stage1_test_scores.json",
-            "stage1_val_confusion_matrix_best.npy",
-            "stage1_val_scores_best.json"]
+    stages = (2, 3) if skipped_stage1 else (1, 2, 3) if stage2 else (1,)
+    # a run stopped before its last epoch takes no best snapshot, so it has
+    # no validation confusion matrix
+    want = [f"stage{n}_{name}" for n in stages for name in STAGE_FILES
+            if not ("--stop_epochs" in extra and name.startswith("val_c"))]
     bundles = [f for f in files if re.fullmatch(
-        r"stage1_model_best-epoch_\d+_best\.pt(\.json)?", f)]
+        r"stage\d_model_best-epoch_-?\d+_best\.msgpack(\.json)?", f)]
     missing = [w for w in want if w not in files]
-    if missing or len(bundles) != 2:
-        raise AssertionError(f"stage-1 outputs missing: {missing} "
-                             f"(bundle files {bundles})")
+    arrays = {f for f in bundles if f.endswith(".msgpack")}
+    # a bundle (the resumed run's folder keeps the stopped run's too) and
+    # its sidecar for each stage that ran
+    if missing or {f + ".json" for f in arrays} != set(bundles) - arrays \
+            or {f[:6] for f in arrays} != {f"stage{n}" for n in stages}:
+        raise AssertionError(f"outputs missing: {missing} (bundle files "
+                             f"{bundles})")
     resident_run = "resident epochs" in out
     rate = re.findall(r"Epoch \d+, Iter \d+, .*?, (\d+) img/s", out)
-    steps = len(rows) * ((40 + 220) // CLI_BSZ)
-    log(f"[train-cli] {method} {dtype} resident={resident}"
+    steps = len(rows) * ((N_FEWSHOT + N_RETRIEVED) // bsz)
+    log(f"[train-cli] {method} {dtype} resident={resident}{tag}"
         f"{' (resident epochs)' if resident_run else ' (streaming)'}: "
-        f"{summary[0]} | train loss {losses[0]:.6f} -> {losses[1]:.6f} | "
-        f"{steps} steps at bsz {CLI_BSZ}, epoch rates {'/'.join(rate)} "
-        f"images/s (host clock, decode included when streaming) on {smi} | "
-        f"kernel launches fwd {counts[0]} bwd {counts[1]} heads-first fwd "
-        f"{counts[2]} heads-first bwd {counts[3]}")
-    return counts, steps, resident_run
+        f"{summary[0]} | train loss "
+        f"{' -> '.join(f'{x:.6f}' for x in losses[:2])} | "
+        f"{len(rows)} loss.csv rows at bsz {bsz} in {wall:.3f} s, rates "
+        f"{'/'.join(rate[:4])} images/s (host clock, decode included when "
+        f"streaming) on {smi} | kernel launches fwd {counts[0]} bwd "
+        f"{counts[1]} heads-first fwd {counts[2]} heads-first bwd "
+        f"{counts[3]}")
+    return {"counts": counts, "steps": steps, "resident": resident_run,
+            "out": out, "run_dir": run_dir, "rows": rows,
+            "summary": summary[0], "wall": wall}
+
+
+def _check_stage1_counts(run, method, layers):
+    need = layers * run["steps"]
+    need_flash = need if method == "attentivemix" else 0
+    counts = run["counts"]
+    log(f"[train-cli] {method}: need >= {need} fwd and bwd, {need_flash} "
+        f"heads-first fwd, 0 heads-first bwd")
+    if (counts[0] < need or counts[1] < need or counts[2] != need_flash
+            or counts[3] != 0):
+        raise AssertionError(f"{method} training did not go through the "
+                             f"attention kernels: {counts}")
+
+
+def _flagship(workdir, ckpt, dataset, smi, layers):
+    """The flagship SWAT run at full width: stage 1 (cutmix, fp32, resident
+    canvases), WiSE-FT, tau-norm, stage-2 probing on the few-shot
+    train-transform snapshot features, few-shot finetuning; then stage 2
+    alone from its stage-1 bundle (--skip_stage1).  -> (the runs' summed
+    counts, the stage-2 counts)."""
+    import glob
+    import math
+    import re
+
+    from swat_tpu_torch.kernels import flash_attention as FA
+
+    with _stage2_counts(FA) as per:
+        full = _train_cli_run(workdir, ckpt, dataset, "cutmix", "float32",
+                              "auto", smi, bsz=FLAGSHIP_BSZ, rows_want=22,
+                              stage2=True)
+    stage2 = dict(per)
+    out = full["out"]
+    walls = {name: float(re.search(rf"{name} wall time: ([\d.]+) s",
+                                   out).group(1))
+             for name in ("Stage 1", "Stage 2 probing", "Stage 2 FSFT")}
+    rates = re.findall(r"Extracted (\w+) features: (\d+) images in ([\d.]+) "
+                       r"s \(([\d.]+) images/s", out)
+    fsft_steps = 10 * (N_FEWSHOT // FLAGSHIP_BSZ)
+    need_probe = layers * (math.ceil(N_FEWSHOT / 128)
+                           + math.ceil(N_TEST / 256))
+    need_fsft = layers * (fsft_steps + 1 + math.ceil(N_TEST / 256))
+    probe, fsft = stage2["run_stage2_probing"], stage2["run_stage2_fsft"]
+    log(f"[flagship] {full['summary']} on {smi} | wall {full['wall']:.3f} s: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items())
+        + " | stage-2 extraction "
+        + ", ".join(f"{tag} {n} images in {secs} s = {rate} images/s"
+                    for tag, n, secs, rate in rates)
+        + f" (decode included) | stage-2 launches: probing fwd {probe[0]} "
+        f"bwd {probe[1]} (need >= {need_probe} fwd), FSFT fwd {fsft[0]} bwd "
+        f"{fsft[1]} (need >= {need_fsft} fwd, >= {layers * fsft_steps} "
+        f"bwd)")
+    if (probe[0] < need_probe or probe[1] != 0 or fsft[0] < need_fsft
+            or fsft[1] < layers * fsft_steps or probe[2:] != (0, 0)
+            or fsft[2:] != (0, 0)):
+        raise AssertionError("stage 2 did not go through the attention "
+                             f"kernels: probing {probe}, FSFT {fsft}")
+    _check_stage1_counts({"counts": tuple(
+        c - p - f for c, p, f in zip(full["counts"], probe, fsft)),
+        "steps": 2 * ((N_FEWSHOT + N_RETRIEVED) // FLAGSHIP_BSZ)},
+        "cutmix", layers)
+
+    (bundle,) = glob.glob(f"{full['run_dir']}/stage1_model_best-epoch_*"
+                          "_best.msgpack")
+    skip = _train_cli_run(workdir, ckpt, dataset, "cutmix", "float32",
+                          "auto", smi, bsz=FLAGSHIP_BSZ, tag="_skip_stage1",
+                          rows_want=20, stage2=True,
+                          extra=("--skip_stage1", "--stage1_model_path",
+                                 bundle))
+    a, b = full["summary"].split(","), skip["summary"].split(",")
+    log(f"[flagship] --skip_stage1 from {bundle.rsplit('/', 1)[-1]}: stage-2 "
+        f"fields {b[9:]} (full run {a[9:]}) | loss rows (full | skip):")
+    for r, q in zip(full["rows"][2:], skip["rows"]):
+        log(f"    {','.join(r.values())} | {','.join(q.values())}")
+    if b[9:] != a[9:]:
+        raise AssertionError("--skip_stage1 from the stage-1 bundle gave "
+                             f"other stage-2 fields: {b[9:]} vs {a[9:]}")
+    return ([x + y for x, y in zip(full["counts"], skip["counts"])],
+            stage2)
+
+
+def _resume(workdir, ckpt, dataset, smi, layers):
+    """--save_ckpt through 2 of 3 epochs (--stop_epochs 2), then --resume:
+    the resumed run restores the epoch-2 checkpoint and trains epoch 3
+    alone -> the two runs' summed counts."""
+    import os
+
+    first = _train_cli_run(workdir, ckpt, dataset, "cutmix", "float32",
+                           "auto", smi, tag="_resume",
+                           extra=("--epochs", "3", "--stop_epochs", "2",
+                                  "--save_ckpt", "True", "--save_freq", "2"))
+    steps = (N_FEWSHOT + N_RETRIEVED) // CLI_BSZ
+    ckpts = sorted(os.listdir(f"{first['run_dir']}/model_ckpts"))
+    if ckpts != [f"ckpt_ep2_it{2 * steps}.msgpack",
+                 f"ckpt_ep2_it{2 * steps}.msgpack.json"]:
+        raise AssertionError(f"train checkpoints: {ckpts}")
+    resumed = _train_cli_run(workdir, ckpt, dataset, "cutmix", "float32",
+                             "auto", smi, tag="_resume", rows_want=1,
+                             extra=("--epochs", "3", "--resume", "True"))
+    row = resumed["rows"][0]
+    log(f"[resume] {ckpts[0]} -> resumed loss.csv row {dict(row)}")
+    if (row["Epoch"], row["Iter"]) != ("3", str(3 * steps)) or \
+            "Resumed from" not in resumed["out"]:
+        raise AssertionError("--resume did not go on at epoch 3")
+    _check_stage1_counts(resumed, "cutmix", layers)
+    return [x + y for x, y in zip(first["counts"], resumed["counts"])]
 
 
 def phase_train_cli(workdir, ckpt, dataset, smi):
-    """Stage-1 finetuning through swat_tpu_torch.cli.main at full width:
-    cutmix in fp32 with resident train data, fp32 streaming and bf16
-    resident; attentivemix (streaming, its heatmaps through the heads-first
-    forward at every step: --mix_prob 1) and mixup (resident) in fp32.
-    -> the four counts summed over the runs, each run counted from 0."""
+    """Training through swat_tpu_torch.cli.main at full width: the flagship
+    run (stage 1 cutmix fp32 resident, then stage 2) and stage 2 alone from
+    its bundle; stage-1 cutmix fp32 streaming, bf16 resident, with the host
+    PIL transform (--aug_mode host), and --save_ckpt then --resume;
+    attentivemix (streaming, its heatmaps through the heads-first forward
+    at every step: --mix_prob 1) and mixup (resident) in fp32.  -> (the four
+    counts summed over the runs, each run counted from 0; the stage-2
+    counts of the flagship run)."""
     from swat_tpu_torch.models.configs import get_model_config
 
     layers = get_model_config(MODEL_CFG).vision.layers
-    _write_retrieved(workdir, dataset, 22)
-    total = [0, 0, 0, 0]
-    runs = [("cutmix", "float32", "auto", (), True),
-            ("cutmix", "float32", "off", (), False),
+    _write_retrieved(workdir, dataset, N_RETRIEVED // 10)
+    total, stage2 = _flagship(workdir, ckpt, dataset, smi, layers)
+    total = [t + c for t, c in zip(total, _resume(workdir, ckpt, dataset,
+                                                  smi, layers))]
+    runs = [("cutmix", "float32", "off", (), False),
             ("cutmix", "bfloat16", "auto", (), True),
+            ("cutmix", "float32", "auto", ("--aug_mode", "host"), False),
             ("attentivemix", "float32", "auto", ("--mix_prob", "1.0"), False),
             ("mixup", "float32", "auto", (), True)]
     for method, dtype, resident, extra, want_resident in runs:
-        counts, steps, resident_run = _train_cli_run(
-            workdir, ckpt, dataset, method, dtype, resident, smi, extra)
-        need = layers * steps
-        need_flash = need if method == "attentivemix" else 0
-        log(f"[train-cli] {method}: need >= {need} fwd and bwd, "
-            f"{need_flash} heads-first fwd, 0 heads-first bwd")
-        if (counts[0] < need or counts[1] < need or counts[2] != need_flash
-                or counts[3] != 0):
-            raise AssertionError(f"stage-1 {method} training did not go "
-                                 f"through the attention kernels: {counts}")
-        if resident_run != want_resident:
+        run = _train_cli_run(workdir, ckpt, dataset, method, dtype, resident,
+                             smi, extra,
+                             tag="".join(f"_{x.lstrip('-')}" for x in extra))
+        _check_stage1_counts(run, method, layers)
+        if run["resident"] != want_resident:
             raise AssertionError(f"{method} resident={resident}: resident "
-                                 f"epochs {resident_run}, expected "
+                                 f"epochs {run['resident']}, expected "
                                  f"{want_resident}")
-        total = [t + c for t, c in zip(total, counts)]
-    return total
+        total = [t + c for t, c in zip(total, run["counts"])]
+    return total, stage2
 
 
 # ---------------------------------------------------------------------------
@@ -1837,6 +1997,7 @@ def main() -> int:
 
     import tempfile
 
+    t_start = time.perf_counter()
     smi, name = phase_card()
     phase_build()
     worst = phase_kernel_vs_plain()
@@ -1851,7 +2012,8 @@ def main() -> int:
         phase_train_step(ckpt, smi)
         step_flash = phase_attentive_step(ckpt, smi)
         step_flash_bwd = phase_fused_step(ckpt, smi)
-        cli_counts = phase_train_cli(workdir, ckpt, "smoke10", smi)
+        cli_counts, stage2_counts = phase_train_cli(workdir, ckpt,
+                                                    "smoke10", smi)
         worst_mega = phase_mega_kernels()
         times_mega = phase_mega_timing(smi)
         tower_mega = phase_mega_towers(ckpt, smi)
@@ -1904,6 +2066,13 @@ def main() -> int:
             "max_abs_err": worst_mega[(kernel, "vitb32_image", "float32")],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": by, "library_ms": lib_ms})
+    probe, fsft = (stage2_counts[k] for k in ("run_stage2_probing",
+                                               "run_stage2_fsft"))
+    log(f"[launches] mha_fwd {kernels[0]['launches']}, of which stage 2 "
+        f"{probe[0] + fsft[0]} (probing {probe[0]}, FSFT {fsft[0]}); mha_bwd "
+        f"{kernels[1]['launches']}, of which stage 2 {fsft[1]} (FSFT)")
+    log(f"[total] {time.perf_counter() - t_start:.1f} s, the kernels' build "
+        f"included, on {smi}")
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} was launched no time on its "

@@ -11,15 +11,19 @@ here they come from a converted checkpoint file).
 The port adds ``--device {cuda,cpu}``.  ``--use_pallas`` is accepted and
 does nothing (the kernels always run on the card); ``--remat`` and
 ``--accum`` do nothing for inference and raise in training; a mesh other
-than one device raises.  Ported so far: ``--method zeroshot``, and stage 1
+than one device raises.  Ported so far: ``--method zeroshot``; stage 1
 of ``--method finetune`` / ``cutmix`` / ``mixup`` / ``resizemix`` /
-``saliencymix`` / ``attentivemix`` with ``--skip_stage2``.
+``saliencymix`` / ``attentivemix`` / ``probing`` (``--aug_mode canvas |
+host | eval``); stage 2 (probing, then few-shot
+finetuning), or ``--skip_stage2``; ``--skip_stage1 --stage1_model_path``,
+``--model_path``, ``--save_ckpt`` / ``--resume``.  The ``.msgpack``
+bundles are those of ``swat_tpu``: either package reads the other's.
 
 Usage:
     python -m swat_tpu_torch.cli.main --dataset semi-aves --method zeroshot \
         --checkpoint_path /path/to/openclip_vitb32.pt
     python -m swat_tpu_torch.cli.main --dataset semi-aves --method cutmix \
-        --data_source fewshot+retrieved --epochs 10 --skip_stage2 \
+        --data_source fewshot+retrieved --epochs 10 \
         --checkpoint_path /path/to/openclip_vitb32.pt
 """
 

@@ -1,14 +1,19 @@
-"""Text and image feature extraction (counterpart of
-``swat_tpu/data/features.py:23-103`` and ``swat_tpu/data/prompts.py:221-247``).
+"""Text and image feature extraction and the feature cache (counterpart of
+``swat_tpu/data/features.py:23-160`` and ``swat_tpu/data/prompts.py:221-247``).
 
 Everything runs under ``torch.inference_mode()`` on the model's device;
-host arrays go in and come out as numpy.  The feature cache of stage 2
-waits for that slice.
+host arrays go in and come out as numpy.  The cache is the JAX package's:
+``.npz`` files named by dataset, model config, split tag and a fingerprint
+of the weights taken over the JAX package's param tree
+(``models.loader.jax_params_from_state_dict``), so the same weights give
+the same file name in both packages.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping
+import hashlib
+import os
+from typing import Callable, Dict, List, Mapping
 
 import numpy as np
 import torch
@@ -88,3 +93,65 @@ def extract_image_features(model: CLIPModel, loader) -> Dict[str, np.ndarray]:
     return {"image_features": np.concatenate(feats, axis=0),
             "labels": np.concatenate(labels, axis=0),
             "source": np.concatenate(source, axis=0)}
+
+
+def feature_cache_path(cache_dir: str, dataset: str, model_cfg: str,
+                       split_tag: str, extra: str = "") -> str:
+    name = (f"{dataset}_{model_cfg}_{split_tag}"
+            f"{('_' + extra) if extra else ''}.npz")
+    return os.path.join(cache_dir, name)
+
+
+def save_features(path: str, feats: dict):
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez(path, **feats)
+
+
+def load_features(path: str) -> dict:
+    with np.load(path) as data:
+        return {k: data[k] for k in data.files}
+
+
+def extract_or_load(path: str, recalc: bool, extract_fn, logger=None):
+    """The reference's pre_extract_feature contract
+    (utils/dataloader.py:35-104): reuse the features on disk across runs
+    unless ``recalc`` (--recal_fea)."""
+    if not recalc and os.path.exists(path):
+        if logger:
+            logger.info(f"Loading pre-extracted features: {path}")
+        return load_features(path)
+    feats = extract_fn()
+    try:
+        save_features(path, feats)
+        if logger:
+            logger.info(f"Saved pre-extracted features: {path}")
+    except OSError as e:   # a read-only dataset root must not end the run
+        if logger:
+            logger.warning(f"Could not save feature cache {path}: {e}")
+    return feats
+
+
+def tree_leaves(tree) -> List[np.ndarray]:
+    """The leaves of a dict tree in ``jax.tree_util`` order: keys sorted at
+    every level, None and empty dicts holding no leaf."""
+    if isinstance(tree, dict):
+        return [leaf for key in sorted(tree) for leaf in
+                tree_leaves(tree[key])]
+    return [] if tree is None else [tree]
+
+
+def params_fingerprint(params) -> str:
+    """A digest of every leaf of a JAX-layout param tree, as
+    ``swat_tpu.data.features.params_fingerprint``: per leaf its shape, a
+    strided sample of 64 values and the exact float64 sum."""
+    leaves = tree_leaves(params)
+    h = hashlib.sha1()
+    h.update(str(len(leaves)).encode())
+    for leaf in leaves:
+        a = np.asarray(leaf)
+        h.update(str(a.shape).encode())
+        flat = a.reshape(-1)
+        stride = max(1, flat.size // 64)
+        h.update(np.ascontiguousarray(flat[::stride][:64]).tobytes())
+        h.update(np.float64(flat.astype(np.float64).sum()).tobytes())
+    return h.hexdigest()[:10]

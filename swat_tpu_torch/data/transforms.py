@@ -1,14 +1,15 @@
-# Copied in part (the eval half and train_canvas) from swat_tpu/data/transforms.py; the port keeps its own copy, permanently (it imports nothing of swat_tpu).
+# Copied from swat_tpu/data/transforms.py; the port keeps its own copy, permanently (it imports nothing of swat_tpu).
 """Host-side image preprocessing (counterpart of
-``swat_tpu/data/transforms.py:22-76``; copied, since that module imports
+``swat_tpu/data/transforms.py:22-117``; copied, since that module imports
 the JAX augmentation kernels for its constants).
 
 Eval: OpenCLIP's deterministic transform, resize the shorter side
 (bicubic) -> center crop -> RGB -> CLIP-normalize.  Train: an
 aspect-preserving resize onto a fixed uint8 canvas; the random crop, flip,
 normalize and mixing run on the device (``swat_tpu_torch.kernels.augment``).
-The reference's host-side train transform (``--aug_mode host``) is not
-ported yet.
+``host_train_preprocess`` is the reference's own train transform on the
+host, with PIL (``--aug_mode host``, and the train-transform feature
+snapshots of probing).
 """
 
 from __future__ import annotations
@@ -74,3 +75,43 @@ def train_canvas(img: Image.Image, canvas: int = CANVAS_SIZE
     out = np.zeros((canvas, canvas, 3), dtype=np.uint8)
     out[:nh, :nw] = np.asarray(img, dtype=np.uint8)
     return out, (nh, nw)
+
+
+def host_train_preprocess(img: Image.Image, rng: np.random.Generator,
+                          n_px: int = 224, scale=(0.9, 1.0),
+                          ratio=(3 / 4, 4 / 3)) -> np.ndarray:
+    """The reference train transform on the host (RandomResizedCrop +
+    HFlip + normalize, utils/extras.py:66-77), draw for draw as
+    ``swat_tpu``'s: the same generator gives the same array."""
+    w, h = img.size
+    area = w * h
+    for _ in range(10):
+        target = rng.uniform(scale[0], scale[1]) * area
+        aspect = float(np.exp(rng.uniform(np.log(ratio[0]),
+                                          np.log(ratio[1]))))
+        cw = int(round((target * aspect) ** 0.5))
+        ch = int(round((target / aspect) ** 0.5))
+        if 0 < cw <= w and 0 < ch <= h:
+            j = int(rng.integers(0, w - cw + 1))
+            i = int(rng.integers(0, h - ch + 1))
+            break
+    else:
+        # torchvision RandomResizedCrop's fallback: the ratio-clamped
+        # centre crop, not the whole image (with scale (0.9, 1.0) every
+        # 3:2 image fails all ten attempts and lands here)
+        in_ratio = w / h
+        if in_ratio < ratio[0]:
+            cw = w
+            ch = int(round(cw / ratio[0]))
+        elif in_ratio > ratio[1]:
+            ch = h
+            cw = int(round(ch * ratio[1]))
+        else:
+            cw, ch = w, h
+        i = (h - ch) // 2
+        j = (w - cw) // 2
+    img = img.crop((j, i, j + cw, i + ch)).resize((n_px, n_px), Image.BICUBIC)
+    if rng.random() < 0.5:
+        img = img.transpose(Image.FLIP_LEFT_RIGHT)
+    # RGB convert after the geometry, as the reference places it
+    return normalize_u8(np.asarray(img.convert("RGB"), dtype=np.uint8))

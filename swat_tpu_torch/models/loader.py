@@ -5,8 +5,10 @@
 ``swat_tpu/models/loader.py:302``).  ``state_dict_from_jax_params`` carries
 the JAX package's param tree (as numpy arrays) across, mirroring
 ``swat_tpu.models.loader.params_to_torch_state_dict`` without importing it
-(key map in that module's docstring).  Only ViT towers: the ResNet tower is
-not ported yet.
+(key map in that module's docstring); ``jax_params_from_state_dict`` is its
+reverse, the port's counterpart of ``torch_state_dict_to_params`` (``:75``),
+which the bundles and the feature-cache fingerprint use.  Only ViT towers:
+the ResNet tower is not ported yet.
 """
 
 from __future__ import annotations
@@ -89,3 +91,76 @@ def state_dict_from_jax_params(params: Mapping[str, Any],
     put_blocks(txt["transformer"]["blocks"], "transformer.resblocks.")
     put("logit_scale", np.float32(logit_scale))
     return out
+
+
+def _f32(t) -> np.ndarray:
+    return (t.detach().cpu().numpy() if isinstance(t, torch.Tensor)
+            else np.asarray(t)).astype(np.float32)
+
+
+def _layers(sd: Mapping[str, Any], prefix: str) -> int:
+    return sum(1 for k in sd
+               if k.startswith(prefix) and k.endswith(".ln_1.weight"))
+
+
+def jax_params_from_state_dict(sd: Mapping[str, Any]) -> Tuple[dict, float]:
+    """The port's (OpenCLIP-named) state dict -> (the JAX package's ViT CLIP
+    param tree of float32 numpy arrays, logit_scale): flax kernels [in,
+    out], each tower's blocks stacked on a leading layer axis, the patch
+    embedding as a [p*p*3, width] matrix in the NHWC unfold order.  Bit
+    for bit what ``swat_tpu.models.loader.torch_state_dict_to_params``
+    makes of the same tensors."""
+    if "visual.conv1.weight" not in sd:
+        raise NotImplementedError("ResNet image towers are not ported yet "
+                                  "(ROADMAP Queue A item 7)")
+
+    def blocks(prefix):
+        n = _layers(sd, prefix)
+
+        def stack(name, transpose=False):
+            mats = [_f32(sd[f"{prefix}{i}.{name}"]) for i in range(n)]
+            return np.stack([m.T for m in mats] if transpose else mats)
+
+        def linear(w, b):
+            return {"kernel": stack(w, True), "bias": stack(b)}
+
+        return {
+            "ln_1": {"ln": {"scale": stack("ln_1.weight"),
+                            "bias": stack("ln_1.bias")}},
+            "ln_2": {"ln": {"scale": stack("ln_2.weight"),
+                            "bias": stack("ln_2.bias")}},
+            "attn": {"qkv": linear("attn.in_proj_weight",
+                                   "attn.in_proj_bias"),
+                     "out": linear("attn.out_proj.weight",
+                                   "attn.out_proj.bias")},
+            "mlp": {"fc": linear("mlp.c_fc.weight", "mlp.c_fc.bias"),
+                    "proj": linear("mlp.c_proj.weight", "mlp.c_proj.bias")},
+        }
+
+    def ln(name):
+        return {"ln": {"scale": _f32(sd[f"{name}.weight"]),
+                       "bias": _f32(sd[f"{name}.bias"])}}
+
+    conv1 = _f32(sd["visual.conv1.weight"])          # [w, 3, p, p]
+    w, c, p, _ = conv1.shape
+    params = {
+        "visual": {
+            "patch_embed": {"kernel": conv1.transpose(2, 3, 1, 0).reshape(
+                p * p * c, w)},
+            "class_embedding": _f32(sd["visual.class_embedding"]),
+            "positional_embedding": _f32(sd["visual.positional_embedding"]),
+            "ln_pre": ln("visual.ln_pre"),
+            "ln_post": ln("visual.ln_post"),
+            "proj": _f32(sd["visual.proj"]),
+            "transformer": {"blocks": blocks(
+                "visual.transformer.resblocks.")},
+        },
+        "text": {
+            "token_embedding": _f32(sd["token_embedding.weight"]),
+            "positional_embedding": _f32(sd["positional_embedding"]),
+            "ln_final": ln("ln_final"),
+            "text_projection": _f32(sd["text_projection"]),
+            "transformer": {"blocks": blocks("transformer.resblocks.")},
+        },
+    }
+    return params, float(_f32(sd["logit_scale"]).reshape(()))

@@ -18,9 +18,9 @@ utils/optimizers.py:
   lr_classifier.  Frozen tensors (the text tower) are in no group, so they
   get neither update nor decay (optax's ``set_to_zero``).
 
-SGD, and the labelings of FLYP and of the frozen-backbone methods, are not
-ported yet (ROADMAP Queue A item 6): ``label_params`` knows the finetune
-family (the single-loader mixes among them) and raises for the rest.
+SGD and the labeling of FLYP are not ported yet (ROADMAP Queue A item 6):
+``label_params`` knows the finetune family (the single-loader mixes among
+them) and the frozen methods, and raises for the rest.
 """
 
 from __future__ import annotations
@@ -39,6 +39,8 @@ FINETUNE_METHODS = {
     "mixup", "mixup-fs", "cutmix", "cutmix-fs", "resizemix",
     "saliencymix", "attentivemix", "CMO", "fixmatch",
 }
+# the whole model frozen: only the head trains, logit_scale pinned at ln 100
+FROZEN_METHODS = {"zeroshot", "probing", "REAL-Linear", "CMLP"}
 
 
 def make_lr_schedule(base_lr: float, total_iter: int,
@@ -69,9 +71,11 @@ def default_warmup_lr(lr_backbone: float) -> float:
 def label_params(model: nn.Module, method: str) -> Dict[str, str]:
     """Parameter name -> 'backbone' | 'frozen' for the model's own tensors
     (reference set_params, utils/optimizers.py:38-81): finetune methods
-    train the visual tower and lock the text tower.  The CLIP module's own
-    logit_scale is never trained: the train state carries its own
-    (``state.init_logit_scale``)."""
+    train the visual tower and lock the text tower; frozen methods lock
+    both.  The CLIP module's own logit_scale is never trained: the train
+    state carries its own (``state.init_logit_scale``)."""
+    if method in FROZEN_METHODS:
+        return {n: "frozen" for n, _ in model.named_parameters()}
     if method in FINETUNE_METHODS:
         return {n: "backbone" if n.startswith("visual.") else "frozen"
                 for n, _ in model.named_parameters()}

@@ -1,20 +1,26 @@
-"""Stage orchestration: zero-shot and stage 1 (counterpart of
-``swat_tpu/train/stages.py:131-385,390-788,903-1050,1206-1255``).
+"""Stage orchestration: zero-shot, stage 1 and stage 2 (counterpart of
+``swat_tpu/train/stages.py:131-455,520-788,903-1177,1206-1255``).
 
 ``SwatPipeline`` builds the towers from an OpenCLIP checkpoint, encodes the
 class prompts with the text tower and makes the zero-shot head from the
 prompt means.  ``--method zeroshot`` validates the test split and prints
-the reference's zero-shot summary line.  ``--method finetune`` and the
+the reference's zero-shot summary line.  ``--method finetune``, the
 single-loader mixes (cutmix, mixup, resizemix, saliencymix, attentivemix)
-run stage 1: the finetune epochs (streaming or resident), WiSE-FT, feature
-re-extraction with the best weights, test scores, tau-normalization and the
-stage-1 bundle, then the 11-field summary line with the stage-2 fields at
--1.0 (``--skip_stage2``).  Stage 2, the other methods and the other stage
-options raise NotImplementedError naming their ROADMAP item.
+and linear probing (on pre-extracted features or streamed) run stage 1:
+the epochs (streaming or resident), WiSE-FT, feature re-extraction with
+the best weights, test scores, tau-normalization and the stage-1 bundle.
+Stage 2 starts from that bundle (or from ``--stage1_model_path`` with
+``--skip_stage1``): probing on the few-shot train-transform snapshot's
+features, then few-shot finetuning; the 11-field summary line follows.  ``--model_path`` warm-starts stage 1,
+``--save_ckpt`` / ``--resume`` write and restore train checkpoints.  The
+other methods and options raise NotImplementedError naming their ROADMAP
+item.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
 import os
 import time
 from typing import Dict, Optional, Tuple
@@ -29,8 +35,12 @@ from swat_tpu_torch.core.config import RunConfig
 from swat_tpu_torch.core.precision import DEFAULT_PRECISION, FP32_PRECISION
 from swat_tpu_torch.data.features import (encode_prompts,
                                           extract_image_features,
-                                          make_text_encoder)
-from swat_tpu_torch.data.pipeline import EvalLoader, TrainLoader
+                                          extract_or_load,
+                                          feature_cache_path,
+                                          make_text_encoder,
+                                          params_fingerprint)
+from swat_tpu_torch.data.pipeline import (EvalLoader, FeatureBatches,
+                                          TrainLoader, TrainSnapshotLoader)
 from swat_tpu_torch.data.transforms import CANVAS_SIZE
 from swat_tpu_torch.eval.heatmap import (clip_attention_heatmap,
                                          clip_text_heatmap)
@@ -42,16 +52,20 @@ from swat_tpu_torch.models.configs import get_model_config
 from swat_tpu_torch.models.head import (init_head_from_prompts,
                                         init_head_random, tau_normalize,
                                         wise_ft_head, wise_ft_params)
-from swat_tpu_torch.models.loader import load_torch_checkpoint
+from swat_tpu_torch.models.loader import (jax_params_from_state_dict,
+                                          load_torch_checkpoint,
+                                          state_dict_from_jax_params)
 from swat_tpu_torch.models.tokenizer import get_tokenizer
-from swat_tpu_torch.train.checkpoint import save_best_model, save_test_scores
+from swat_tpu_torch.train.checkpoint import (load_best_model,
+                                             save_best_model,
+                                             save_test_scores)
 from swat_tpu_torch.train.losses import set_loss
 from swat_tpu_torch.train.resident import (ResidentData, epoch_permutation,
                                            make_resident_epoch)
 from swat_tpu_torch.train.state import create_train_state
-from swat_tpu_torch.train.steps import (MIX_METHODS, RESIDENT_METHODS,
+from swat_tpu_torch.train.steps import (RESIDENT_METHODS, STEP_METHODS,
                                         make_ce_step, make_mixing_step,
-                                        make_sampler)
+                                        make_probing_step, make_sampler)
 from swat_tpu_torch.train.trainer import train_loop
 
 
@@ -82,8 +96,6 @@ class SwatPipeline:
         if cfg.mesh_data not in (1, -1) or cfg.mesh_model not in (1, -1):
             raise _not_ported("a device mesh (--mesh_data/--mesh_model)",
                               "Queue A item 10")
-        if cfg.model_path:
-            raise _not_ported("--model_path warm starts", "Queue A item 4")
         if cfg.trace_dir:
             raise _not_ported("--trace_dir", "Queue A item 11")
         self.device = resolve_device(cfg.device)
@@ -108,6 +120,10 @@ class SwatPipeline:
                 f"WARNING: no checkpoint_path; {cfg.model_cfg} initialized "
                 "randomly (smoke-test mode)")
         self.model.to(self.device).eval().requires_grad_(False)
+        # the pretrained weights: WiSE-FT's other end, and the template of
+        # the bundles that hold part of a model
+        self.zeroshot_state = {k: v.detach().clone()
+                               for k, v in self.model.state_dict().items()}
 
         self.tokenizer = get_tokenizer(
             cfg.bpe_path, vocab_size=self.model_cfg.text.vocab_size)
@@ -131,9 +147,6 @@ class SwatPipeline:
         else:
             raise NotImplementedError(cfg.cls_init)
         self.zeroshot_head = head
-        # the pretrained weights, kept for WiSE-FT before training moves
-        # the model (taken in run_stage1)
-        self.zeroshot_state: Optional[Dict[str, torch.Tensor]] = None
 
         self.evaluator = Evaluator(cfg.num_classes, loss=self._loss(),
                                    device=self.device)
@@ -143,8 +156,8 @@ class SwatPipeline:
     # ------------------------------------------------------------------
     # helpers
 
-    def _loss(self):
-        cfg = self.cfg
+    def _loss(self, cfg: Optional[RunConfig] = None):
+        cfg = cfg or self.cfg
         cls_num_list = None
         if cfg.loss_name == "BalancedSoftmax":
             samples = read_split(cfg.dataset_root, cfg.train_split)
@@ -218,6 +231,52 @@ class SwatPipeline:
             model, head, logit_scale, self._eval_loader(split),
             return_confusion=return_confusion)
 
+    def _cached_extract(self, cfg: RunConfig, fingerprint: str,
+                        split_tag: str, loader_fn, samples):
+        """Features of the model's current weights, whose
+        ``params_fingerprint`` is ``fingerprint``, through the persistent
+        cache under ``<dataset_root>/pre_extracted/`` (the JAX package's
+        file names: dataset, model config, split tag, the weights' and the
+        split's digests, ``samples`` being the split); ``--recal_fea``
+        extracts anew."""
+        h = hashlib.sha1()
+        for smp in samples:
+            h.update(f"{smp.path}|{smp.label}|{smp.is_fewshot};".encode())
+        path = feature_cache_path(
+            os.path.join(cfg.dataset_root, "pre_extracted"), cfg.dataset,
+            cfg.model_cfg, split_tag,
+            extra=f"{fingerprint}_{h.hexdigest()[:8]}")
+
+        def extract():
+            t0 = time.perf_counter()
+            feats = extract_image_features(self.model, loader_fn())
+            secs = time.perf_counter() - t0
+            n = len(feats["labels"])
+            self.logger.info(
+                f"Extracted {split_tag} features: {n} images in {secs:.3f} s "
+                f"({n / max(secs, 1e-9):.1f} images/s, decode included, "
+                f"{self.device})")
+            return feats
+
+        return extract_or_load(path, cfg.recal_fea, extract,
+                               logger=self.logger)
+
+    def _load_ckpt(self, path: str):
+        """A stage bundle or warm-start file -> (JAX param tree, head on
+        the device, logit_scale, meta); the pretrained weights and the
+        prompt head fill in what a partial file lacks."""
+        template = jax_params_from_state_dict(self.zeroshot_state)[0]
+        params, head, logit_scale, meta = load_best_model(
+            path, template, self.zeroshot_head.cpu().numpy())
+        head = torch.from_numpy(np.array(head, np.float32)).to(self.device)
+        return params, head, logit_scale, meta
+
+    def _load_params(self, params) -> None:
+        """Loads a JAX param tree into the shared model (its own, unused
+        logit_scale kept)."""
+        self.model.load_state_dict(state_dict_from_jax_params(
+            params, self.model.logit_scale.item()))
+
     # ------------------------------------------------------------------
     # zero-shot (reference run_zeroshot, utils/training.py:23-44)
 
@@ -240,17 +299,59 @@ class SwatPipeline:
     # stage-1 training (reference main.py:236-327)
 
     def train_method(self, cfg: RunConfig, head: torch.Tensor):
-        """The finetune epochs of ``cfg.method`` (finetune or a
-        single-loader mix) from the model's current weights and ``head``
-        -> (final state, BestSnapshot)."""
+        """The epochs of ``cfg.method`` (finetune, a single-loader mix or
+        a probe) from the model's current weights and ``head`` -> (final
+        state, BestSnapshot)."""
         method = cfg.method
         logger = self.logger
-        loss = self._loss()
+        loss = self._loss(cfg)
         image_size = self.model_cfg.vision.image_size
         samples = self._samples(cfg.train_split)
-        train_loader = TrainLoader(
-            samples, batch_size=cfg.bsz, seed=cfg.training_seed,
-            mode=cfg.aug_mode, n_px=image_size, num_workers=cfg.num_workers)
+        frozen = method == "probing"
+
+        if frozen:
+            # val / test features of the eval transform are deterministic,
+            # so every validation reuses them in both pre_extracted modes.
+            # The train side follows the reference: pre_extracted=False
+            # (the parser's default) streams images with fresh train
+            # augmentation every step; pre_extracted=True extracts one
+            # train-transform snapshot, cached across runs
+            fingerprint = params_fingerprint(
+                jax_params_from_state_dict(self.model.state_dict())[0])
+            if cfg.pre_extracted:
+                snap_mode = "eval" if cfg.aug_mode == "eval" else "train"
+                train_feats = self._cached_extract(
+                    cfg, fingerprint,
+                    "train_trainaug" if snap_mode == "train"
+                    else "train_evalaug",
+                    lambda: TrainSnapshotLoader(
+                        samples, 256, image_size, cfg.num_workers,
+                        seed=cfg.training_seed, mode=snap_mode),
+                    samples=samples)
+                train_loader = FeatureBatches(
+                    train_feats["image_features"], train_feats["labels"],
+                    batch_size=cfg.bsz, shuffle=True, drop_last=True,
+                    seed=cfg.training_seed,
+                    source=train_feats.get("source"))
+            else:
+                train_loader = TrainLoader(
+                    samples, batch_size=cfg.bsz, seed=cfg.training_seed,
+                    mode=cfg.aug_mode, n_px=image_size,
+                    num_workers=cfg.num_workers)
+            feats = {}
+            for tag, split in (("val", cfg.val_split),
+                               ("test", cfg.test_split)):
+                smp = self._samples(split)
+                feats[tag] = self._cached_extract(
+                    cfg, fingerprint, tag,
+                    lambda smp=smp: EvalLoader(smp, 256, image_size,
+                                               cfg.num_workers),
+                    samples=smp)
+        else:
+            train_loader = TrainLoader(
+                samples, batch_size=cfg.bsz, seed=cfg.training_seed,
+                mode=cfg.aug_mode, n_px=image_size,
+                num_workers=cfg.num_workers)
 
         # the resident path: the split's uint8 canvases on the device
         resident_data = None
@@ -275,26 +376,46 @@ class SwatPipeline:
                       else None)
 
         def make_step(aug_dtype):
+            if frozen:
+                return make_probing_step(loss, cfg.pre_extracted, image_size)
             if method == "finetune":
                 return make_ce_step(loss, image_size, aug_dtype)
             return make_mixing_step(method, loss, heatmap_fn=heatmap_fn,
                                     image_size=image_size,
                                     aug_dtype=aug_dtype)
 
-        sample = make_sampler(method, mixup_alpha=cfg.mixup_alpha,
+        sample = make_sampler("probing" if frozen else method,
+                              mixup_alpha=cfg.mixup_alpha,
                               cutmix_beta=cfg.cutmix_beta,
                               mix_prob=cfg.mix_prob, image_size=image_size)
 
-        def validate_fn(state):
-            return self._validate_images(
-                state.model, state.head.detach(), state.logit_scale.item(),
-                cfg.val_split, return_confusion=True)
+        if frozen:
+            def validate_fn(state):
+                f = feats["val"]
+                return validate_features(
+                    state.head.detach(), state.logit_scale.item(),
+                    f["image_features"], f["labels"], cfg.num_classes, loss,
+                    source=f.get("source"))
 
-        def test_fn(state):
-            acc, _, _ = self._validate_images(
-                state.model, state.head.detach(), state.logit_scale.item(),
-                cfg.test_split)
-            return acc
+            def test_fn(state):
+                f = feats["test"]
+                acc, _, _ = validate_features(
+                    state.head.detach(), state.logit_scale.item(),
+                    f["image_features"], f["labels"], cfg.num_classes, loss,
+                    source=f.get("source"))
+                return acc
+        else:
+            def validate_fn(state):
+                return self._validate_images(
+                    state.model, state.head.detach(),
+                    state.logit_scale.item(), cfg.val_split,
+                    return_confusion=True)
+
+            def test_fn(state):
+                acc, _, _ = self._validate_images(
+                    state.model, state.head.detach(),
+                    state.logit_scale.item(), cfg.test_split)
+                return acc
 
         epoch_runner = None
         if resident_data is not None:
@@ -313,7 +434,8 @@ class SwatPipeline:
             sample_fn=sample, train_batches=lambda: iter(train_loader),
             steps_per_epoch=steps_per_epoch, validate_fn=validate_fn,
             test_fn=test_fn, logger=logger, loss_logger=self.loss_logger,
-            epoch_runner=epoch_runner)
+            epoch_runner=epoch_runner,
+            ckpt_dir=os.path.join(cfg.output_dir, "model_ckpts"))
 
     def _heatmap_fn(self):
         """CLIP heatmap for attentivemix, the replacement for the
@@ -432,7 +554,7 @@ class SwatPipeline:
         logger = self.logger
         best_tau, best_val, best_test = 0.0, 0.0, 0.0
         best_tau_head = head
-        loss = self._loss()
+        loss = self._loss(cfg)
         for tau in np.arange(0.0, 2.2, 0.2):
             tau_head = tau_normalize(head, float(tau))
             val_acc, _, _ = validate_features(
@@ -458,6 +580,14 @@ class SwatPipeline:
     def run_stage1(self) -> Tuple[float, Optional[str], float]:
         cfg = self.cfg
         logger = self.logger
+        # --model_path is loaded before the zero-shot check, as the
+        # reference loads it (main.py:215-221): the check reports the
+        # loaded weights, with the prompt-built head
+        head = self.zeroshot_head
+        if cfg.model_path:
+            params, head, _, _ = self._load_ckpt(cfg.model_path)
+            self._load_params(params)
+            logger.info(f"Loaded model_path: {cfg.model_path}")
         zs_acc = None
         if cfg.check_zeroshot or cfg.method == "zeroshot":
             logger.info("Check Zero-shot Acc ......")
@@ -470,9 +600,11 @@ class SwatPipeline:
             print(summary)
             return zs_acc, None, -1.0
 
-        self.zeroshot_state = {k: v.detach().clone()
-                               for k, v in self.model.state_dict().items()}
-        _, best = self.train_method(cfg, self.zeroshot_head)
+        if cfg.skip_stage1:
+            logger.info("Skip stage 1 finetuning.")
+            return -1.0, cfg.stage1_model_path, -1.0
+
+        _, best = self.train_method(cfg, head)
         best_trainable = best.trainable
 
         # ---- WiSE-FT
@@ -495,7 +627,7 @@ class SwatPipeline:
         logger.info("Extracted val, test features for fast testing "
                     "after training.")
 
-        loss = self._loss()
+        loss = self._loss(cfg)
         test_acc, _, test_cm = validate_features(
             best_head, logit_scale, test_feats["image_features"],
             test_feats["labels"], cfg.num_classes, loss)
@@ -528,6 +660,125 @@ class SwatPipeline:
         return test_acc, path, wsft_test_acc
 
     # ------------------------------------------------------------------
+    # stage-2 probing (reference run_stage2_probing, main.py:402-474)
+
+    def run_stage2_probing(self, stage1_path: str) -> Tuple[float, str]:
+        """10 epochs of the head alone, from the stage-1 bundle, on the
+        few-shot split's train-transform snapshot features, logit_scale
+        back at ln 100 -> (test acc, the stage-2 bundle)."""
+        cfg = self.cfg
+        logger = self.logger
+        logger.info("Run stage 2 classifier retraining ......")
+        params, head, _, _ = self._load_ckpt(stage1_path)
+        self._load_params(params)
+        stage2 = dataclasses.replace(
+            cfg, method="probing", pre_extracted=True, freeze_visual=True,
+            epochs=10, early_stop=False, data_source="fewshot", accum=1)
+        n_px = self.model_cfg.vision.image_size
+        fingerprint = params_fingerprint(params)
+
+        # the few-shot train features through the train transform, one
+        # snapshot an image, extracted as the reference's
+        # extract_train_dataloader does (main.py:413-415,
+        # utils/dataloader.py:278-287): shuffled, drop-last, batch 128
+        fs_smp = self._samples(cfg.fewshot_data)
+        snap_mode = "eval" if cfg.aug_mode == "eval" else "train"
+        train_feats = self._cached_extract(
+            cfg, fingerprint,
+            "fsprobe_trainaug" if snap_mode == "train" else "fsprobe_evalaug",
+            lambda: TrainSnapshotLoader(fs_smp, 128, n_px, cfg.num_workers,
+                                        seed=cfg.training_seed,
+                                        shuffle_drop_bsz=128,
+                                        mode=snap_mode),
+            samples=fs_smp)
+        test_smp = self._samples(cfg.test_split)
+        test_feats = self._cached_extract(
+            cfg, fingerprint, "test",
+            lambda: EvalLoader(test_smp, 256, n_px, cfg.num_workers),
+            samples=test_smp)
+
+        loss = self._loss(stage2)
+        train_loader = FeatureBatches(
+            train_feats["image_features"], train_feats["labels"],
+            batch_size=stage2.bsz, shuffle=True, drop_last=True,
+            seed=stage2.training_seed)
+        # logit_scale is back at ln(100): the reference re-runs set_params
+        # with method='probing' (main.py:429)
+        state = create_train_state(
+            self.model, head, "probing",
+            lr_classifier=stage2.lr_classifier,
+            lr_backbone=stage2.lr_backbone,
+            total_iter=len(train_loader) * stage2.epochs, wd=stage2.wd,
+            optim_type=stage2.optim)
+
+        def validate_fn(state):
+            return validate_features(
+                state.head.detach(), state.logit_scale.item(),
+                train_feats["image_features"], train_feats["labels"],
+                stage2.num_classes, loss)
+
+        def test_fn(state):
+            acc, _, _ = validate_features(
+                state.head.detach(), state.logit_scale.item(),
+                test_feats["image_features"], test_feats["labels"],
+                stage2.num_classes, loss)
+            return acc
+
+        _, best = train_loop(
+            cfg=stage2, state=state, step_fn=make_probing_step(loss, True),
+            sample_fn=make_sampler("probing"),
+            train_batches=lambda: iter(train_loader),
+            steps_per_epoch=len(train_loader), validate_fn=validate_fn,
+            test_fn=test_fn, logger=logger, loss_logger=self.loss_logger)
+
+        best_head = best.trainable["head"]
+        best_scale = float(best.trainable["logit_scale"])
+        test_acc, _, test_cm = validate_features(
+            best_head, best_scale, test_feats["image_features"],
+            test_feats["labels"], stage2.num_classes, loss)
+        logger.info(f"+++++ stage 2 Test Acc: {round(test_acc, 3)}")
+        save_test_scores(calculate_scores(test_cm), test_cm, cfg.output_dir,
+                         "test", stage=2)
+        path = save_best_model(
+            cfg.output_dir, 2, best_records=best.records,
+            model_params=best.trainable["model"], head=best_head,
+            logit_scale=best.trainable["logit_scale"], test_acc=test_acc)
+        return test_acc, path
+
+    # ------------------------------------------------------------------
+    # stage-2 few-shot finetuning (reference run_stage2_FSFT,
+    # main.py:478-540)
+
+    def run_stage2_fsft(self, stage1_path: str) -> Tuple[float, str]:
+        """10 epochs of finetune on the few-shot split, from the stage-1
+        bundle (not from what probing or WiSE-FT left in the model) ->
+        (test acc, the stage-3 bundle)."""
+        cfg = self.cfg
+        logger = self.logger
+        logger.info("Run stage 2 few-shot finetuning ......")
+        params, head, _, _ = self._load_ckpt(stage1_path)
+        self._load_params(params)
+        stage2 = dataclasses.replace(
+            cfg, method="finetune", pre_extracted=False, freeze_visual=False,
+            epochs=10, early_stop=False, save_ckpt=False,
+            data_source="fewshot")
+        _, best = self.train_method(stage2, head)
+        self.model.load_state_dict(best.trainable["model"])
+        best_head = best.trainable["head"]
+        best_scale = float(best.trainable["logit_scale"])
+        test_acc, _, test_cm = self._validate_images(
+            self.model, best_head, best_scale, cfg.test_split,
+            return_confusion=True)
+        logger.info(f"+++++ Stage 2 FSFT Test Acc: {round(test_acc, 3)}")
+        save_test_scores(calculate_scores(test_cm), test_cm, cfg.output_dir,
+                         "test", stage=3)
+        path = save_best_model(
+            cfg.output_dir, 3, best_records=best.records,
+            model_params=best.trainable["model"], head=best_head,
+            logit_scale=best.trainable["logit_scale"], test_acc=test_acc)
+        return test_acc, path
+
+    # ------------------------------------------------------------------
     # full run (reference __main__, main.py:544-606)
 
     def _check_ported(self) -> None:
@@ -536,10 +787,7 @@ class SwatPipeline:
         cfg = self.cfg
         if cfg.method == "zeroshot" or cfg.zeroshot_only:
             return
-        if cfg.skip_stage1:
-            raise _not_ported("--skip_stage1 (stage-2 from a stage-1 bundle)",
-                              "Queue A item 4")
-        if cfg.method not in MIX_METHODS:
+        if not cfg.skip_stage1 and cfg.method not in STEP_METHODS:
             raise _not_ported(f"--method {cfg.method} training",
                               "Queue A item 6")
         if cfg.utrain:
@@ -548,30 +796,38 @@ class SwatPipeline:
         if cfg.accum > 1 or cfg.remat:
             raise _not_ported("--accum > 1 and --remat in training",
                               "Queue A item 6")
-        if cfg.save_ckpt or cfg.resume:
-            raise _not_ported("--save_ckpt / --resume", "Queue A item 4")
-        if not cfg.skip_stage2:
-            raise _not_ported("stage 2 (probing and few-shot finetuning); "
-                              "pass --skip_stage2", "Queue A item 4")
         if cfg.test_imagenet_ood:
             raise _not_ported("--test_imagenet_ood", "Queue A item 8")
 
     def run(self) -> str:
         self._check_ported()
         cfg = self.cfg
+        logger = self.logger
         start = time.time()
-        stage1_acc, _, wsft_acc = self.run_stage1()
+        t0 = time.perf_counter()
+        stage1_acc, stage1_path, wsft_acc = self.run_stage1()
         if cfg.zeroshot_only or cfg.method == "zeroshot":
             return ""
-        self.logger.info("Skip stage 2.")
-        self.logger.info(
-            f"Total time: {round((time.time() - start) / 60, 1)} mins.")
+        logger.info(f"Stage 1 wall time: {time.perf_counter() - t0:.3f} s")
         stage2_lp_acc = stage2_fsft_acc = -1.0
+        if not cfg.skip_stage2 and stage1_path:
+            t0 = time.perf_counter()
+            stage2_lp_acc, _ = self.run_stage2_probing(stage1_path)
+            logger.info("Stage 2 probing wall time: "
+                        f"{time.perf_counter() - t0:.3f} s")
+            t0 = time.perf_counter()
+            stage2_fsft_acc, _ = self.run_stage2_fsft(stage1_path)
+            logger.info("Stage 2 FSFT wall time: "
+                        f"{time.perf_counter() - t0:.3f} s")
+        else:
+            logger.info("Skip stage 2.")
+        logger.info(
+            f"Total time: {round((time.time() - start) / 60, 1)} mins.")
         summary = (f"{cfg.dataset},{cfg.method},{cfg.data_source},"
                    f"{cfg.cls_init},{cfg.shots},{cfg.seed},"
                    f"{cfg.retrieval_split},{round(stage1_acc, 1)},"
                    f"{round(wsft_acc, 1)},{round(stage2_lp_acc, 1)},"
                    f"{round(stage2_fsft_acc, 1)}")
-        self.logger.info(summary)
+        logger.info(summary)
         print(summary)
         return summary

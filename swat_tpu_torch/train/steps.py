@@ -1,5 +1,5 @@
-"""Train steps of the finetune and single-loader mixing families
-(counterpart of ``swat_tpu/train/steps.py:48-153,312-400``).
+"""Train steps of the finetune and single-loader mixing families and of
+linear probing (counterpart of ``swat_tpu/train/steps.py:48-222,312-400``).
 
 One step: on-device augmentation (random-resized-crop / flip / normalize
 from uint8 canvases, when the batch carries them), the method's mix, the
@@ -11,9 +11,11 @@ JAX package: ``make_mix_fn`` (augment + mix) and ``make_encode_loss``
 
 Every random quantity comes in as explicit draws (``StepDraws``), made on
 the host by ``make_sampler`` from a ``numpy.random.Generator``; tests feed
-the JAX package's own draws instead.  Ported: ``finetune`` and the
-single-loader mixes (``MIX_METHODS``); the twin-loader mixes (mixup-fs,
-cutmix-fs, CMO, finetune-mixed) raise (ROADMAP Queue A item 6).
+the JAX package's own draws instead.  Ported: ``finetune``, the
+single-loader mixes (``MIX_METHODS``) and ``probing``
+(``make_probing_step``: the head alone on pre-extracted or freshly encoded
+features); the twin-loader mixes (mixup-fs, cutmix-fs, CMO,
+finetune-mixed) raise (ROADMAP Queue A item 6).
 """
 
 from __future__ import annotations
@@ -39,6 +41,8 @@ MIX_METHODS = ("finetune", "cutmix", "mixup", "resizemix", "saliencymix",
 # (``swat_tpu``'s scan_loop.SCAN_METHODS; attentivemix streams there too)
 RESIDENT_METHODS = ("finetune", "cutmix", "mixup", "resizemix",
                     "saliencymix")
+# every method whose step is ported
+STEP_METHODS = MIX_METHODS + ("probing",)
 
 MixDraws = Union[aug.CutmixDraws, aug.MixupDraws, aug.ResizemixDraws,
                  aug.PeakMixDraws]
@@ -69,8 +73,10 @@ def make_sampler(method: str, *, mixup_alpha: float = 1.0,
                  cutmix_beta: float = 1.0, mix_prob: float = 0.5,
                  image_size: int = 224):
     """sample(rng, batch) -> StepDraws for a batch whose ``valid_hw`` (if
-    it carries canvases) is a host array.  Draw order: crops, flips, mix."""
-    _check_method(method)
+    it carries canvases) is a host array.  Draw order: crops, flips, mix
+    (probing draws no mix)."""
+    if method != "probing":
+        _check_method(method)
 
     def sample(rng: np.random.Generator, batch: Mapping) -> StepDraws:
         crops = None
@@ -175,7 +181,7 @@ def batch_to_device(batch: Mapping, device: torch.device) -> dict:
     """The arrays a step reads, as tensors on ``device`` (labels as int64);
     tensors already there pass through."""
     out = {}
-    for key in ("canvases", "images", "labels", "source"):
+    for key in ("canvases", "images", "features", "labels", "source"):
         if key in batch:
             t = torch.as_tensor(batch[key])
             out[key] = t.to(device, torch.long if key == "labels" else None,
@@ -230,3 +236,37 @@ def make_mixing_step(method: str, loss: LossFn = cross_entropy, *,
                                         image_size=image_size,
                                         aug_dtype=aug_dtype), attention,
                       use_mega)
+
+
+def make_probing_step(loss: LossFn = cross_entropy,
+                      pre_extracted: bool = True, image_size: int = 224,
+                      attention: Attention = mha_qkv):
+    """Linear probe (reference train_probing, utils/training.py:47-161;
+    ``swat_tpu.train.steps.make_probing_step``): the model frozen, CE of
+    the head's logits at the state's fixed logit_scale.  Pre-extracted
+    batches carry 'features'; otherwise (the parser's default,
+    pre_extracted=False) each step augments the batch's canvases on the
+    device (or takes its host-augmented images) and encodes them without
+    a graph, through the attention kernels on the card."""
+
+    def step(state: TrainState, batch, draws: StepDraws) -> torch.Tensor:
+        batch = batch_to_device(batch, state.head.device)
+        if pre_extracted:
+            feats = batch["features"]
+        else:
+            if "canvases" in batch:
+                images = aug.train_augment(batch["canvases"], draws.crops,
+                                           image_size)
+            else:
+                images = batch["images"]
+            with torch.no_grad():
+                feats = state.model.encode_image(images, normalize=True,
+                                                 attention=attention)
+        logits = head_logits(state.head, feats) * torch.exp(state.logit_scale)
+        val = loss(logits, batch["labels"], batch["source"])
+        state.optimizer.zero_grad(set_to_none=True)
+        val.backward()
+        state.apply_update()
+        return val.detach()
+
+    return step

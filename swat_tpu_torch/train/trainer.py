@@ -8,21 +8,27 @@
 * one loss.csv row and one log line per epoch, with -1 before the first
   validation;
 * ``--stop_epochs`` breaks early; ``--epochs 0`` snapshots the initial
-  weights.
-
-Periodic checkpoints (``--save_ckpt``) and ``--resume`` are not ported yet
-(ROADMAP Queue A item 4; ``SwatPipeline.run`` refuses them).
+  weights;
+* ``--save_ckpt`` writes a train checkpoint when ``epoch % save_freq == 0``
+  and at the last epoch; ``--resume`` restores the newest one (by mtime)
+  and goes on at the epoch after it, its iteration count from the
+  checkpoint's step.  The per-run draws start again from
+  ``--training_seed``, as the JAX key does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import glob
+import os
+import re
 import time
 from typing import Any, Callable, Dict, Iterable, Optional
 
 import numpy as np
 
 from swat_tpu_torch.eval.metrics import calculate_scores
+from swat_tpu_torch.train.checkpoint import load_train_ckpt, save_train_ckpt
 from swat_tpu_torch.train.state import TrainState
 
 VALIDATE_EVERY_EPOCH = {
@@ -47,19 +53,35 @@ def snapshot_trainable(state: TrainState) -> dict:
             "logit_scale": state.logit_scale.detach().clone()}
 
 
+def try_resume(state: TrainState, ckpt_dir: str, logger):
+    """Loads the newest train checkpoint in ckpt_dir into ``state`` ->
+    the epoch it completed, or 0 when there is none (the file name holds
+    it: ``ckpt_ep{E}_it{I}.msgpack``)."""
+    paths = glob.glob(os.path.join(ckpt_dir, "ckpt_ep*_it*.msgpack"))
+    if not paths:
+        return 0
+    latest = max(paths, key=os.path.getmtime)
+    m = re.search(r"ckpt_ep(\d+)_it(\d+)", latest)
+    epoch = int(m.group(1)) if m else 0
+    load_train_ckpt(latest, state)
+    logger.info(f"Resumed from {latest} (epoch {epoch}, iter {state.step})")
+    return epoch
+
+
 def train_loop(*, cfg, state: TrainState, step_fn: Callable,
                sample_fn: Callable,
                train_batches: Callable[[], Iterable[dict]],
                steps_per_epoch: int, validate_fn: Callable,
                test_fn: Callable, logger, loss_logger=None,
-               epoch_runner: Optional[Callable] = None):
+               epoch_runner: Optional[Callable] = None,
+               ckpt_dir: Optional[str] = None):
     """Runs cfg.epochs epochs -> (final state, BestSnapshot).
 
     ``step_fn(state, batch, draws)`` updates the state in place;
     ``sample_fn(rng, batch)`` draws each step's random inputs from one
     generator seeded from ``--training_seed``.  ``epoch_runner(state,
     epoch, rng) -> mean loss`` replaces the per-batch loop for resident
-    data."""
+    data.  ``ckpt_dir``: where --save_ckpt writes and --resume reads."""
     every_epoch = cfg.method in VALIDATE_EVERY_EPOCH
     # the draws' own stream: the loaders shuffle with default_rng(seed)
     rng = np.random.default_rng([cfg.training_seed, 1])
@@ -67,7 +89,13 @@ def train_loop(*, cfg, state: TrainState, step_fn: Callable,
     best = BestSnapshot()
     num_iter = 0
     val_acc, val_loss, test_acc = -1.0, -1.0, -1.0
-    for epoch in range(1, cfg.epochs + 1):
+    start_epoch = 1
+    if cfg.resume and ckpt_dir:
+        resumed = try_resume(state, ckpt_dir, logger)
+        if resumed:
+            start_epoch = resumed + 1
+            num_iter = state.step
+    for epoch in range(start_epoch, cfg.epochs + 1):
         t0 = time.perf_counter()
         if epoch_runner is not None:
             avg_loss = epoch_runner(state, epoch, rng)
@@ -115,6 +143,13 @@ def train_loop(*, cfg, state: TrainState, step_fn: Callable,
             f"Val Loss: {round(val_loss, 6)}, "
             f"Val Acc: {round(val_acc, 3)}, Test Acc: {round(test_acc, 3)}, "
             f"{steps_per_epoch * cfg.bsz / max(secs, 1e-9):.0f} img/s")
+        # save_freq counts epochs, as the reference documents it
+        # (utils/parser.py:141; its code tests num_iter, a bug)
+        if cfg.save_ckpt and ckpt_dir and (
+                epoch % cfg.save_freq == 0 or epoch == cfg.epochs):
+            path = save_train_ckpt(ckpt_dir, f"ep{epoch}_it{num_iter}",
+                                   state, best.records)
+            logger.info(f"Model ckpt saved to: {path}")
         if epoch == cfg.stop_epochs:
             break
 

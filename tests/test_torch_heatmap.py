@@ -190,7 +190,7 @@ def _check_against_jax(jax_run, output_dir, summary, method):
         assert got[0][3:] == [-1.0, -1.0, -1.0]
     else:
         assert got[0][3] > 0 and got[0][4] >= 0
-    g_meta = _bundle_meta(output_dir, ".pt")
+    g_meta = _bundle_meta(output_dir, ".msgpack")
     r_meta = _bundle_meta(jax_dir, ".msgpack")
     for key in ("best_val_acc", "best_epoch", "best_iter", "test_acc",
                 "best_tau", "best_tau_test_acc", "wsft_test_acc"):

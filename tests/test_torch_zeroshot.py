@@ -144,7 +144,6 @@ def test_cli_main_prints_the_summary_on_cpu(setup, tmp_path, capsys):
 
 @pytest.mark.parametrize("kw,match", [
     ({"method": "FLYP"}, "Queue A"),
-    ({"method": "cutmix", "skip_stage1": True}, "skip_stage1"),
 ])
 def test_unported_paths_raise(setup, tmp_path, kw, match):
     dataset_path, ckpt = setup
@@ -154,11 +153,57 @@ def test_unported_paths_raise(setup, tmp_path, kw, match):
         SwatPipeline(cfg).run()
 
 
-@pytest.mark.parametrize("kw", [{"mesh_data": 4}, {"model_path": "x.msgpack"},
-                                {"trace_dir": "trace"}])
+@pytest.mark.parametrize("kw", [{"mesh_data": 4}, {"trace_dir": "trace"}])
 def test_unported_options_raise_at_start(setup, tmp_path, kw):
     dataset_path, ckpt = setup
     args = run_kwargs(dataset_path, tmp_path, checkpoint_path=ckpt)
     args.update(kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SwatPipeline(RunConfig(device="cpu", **args))
+
+
+@pytest.mark.parametrize("fmt", ["full", "visual_only"])
+def test_model_path_warm_start_matches_swat_tpu(setup, tmp_path, fmt):
+    """--model_path is loaded before the zero-shot check: a full stage
+    bundle, or a visual-tower-only file over the pretrained text tower,
+    written by swat_tpu; the zero-shot summary of the loaded weights (with
+    the prompt head of the pretrained text tower) equals swat_tpu's."""
+    from swat_tpu.train.checkpoint import save_bundle
+    from torch_port_lib import jax_params_from_state_dict
+
+    dataset_path, ckpt = setup
+    cfg = get_model_config("test_tiny")
+    params, _ = jax_params_from_state_dict(random_state_dict(cfg, seed=3),
+                                           cfg)
+    arrays = ({"clip": params, "head": np.zeros((3, 32), np.float32),
+               "logit_scale": np.asarray(np.float32(4.6))}
+              if fmt == "full" else {"model": {"visual": params["visual"]}})
+    path = str(tmp_path / "warm.msgpack")
+    save_bundle(path, arrays, {})
+    kw = run_kwargs(dataset_path, tmp_path, checkpoint_path=ckpt,
+                    model_path=path, resident="off")
+    jax_pipe = JaxPipeline(JaxRunConfig(**kw).derived())
+    jax_acc = jax_pipe.run_stage1()[0]
+    port = SwatPipeline(RunConfig(device="cpu", **kw))
+    acc = port.run_stage1()[0]
+    assert acc == pytest.approx(jax_acc, abs=1e-4)
+    visual = {k: v for k, v in port.model.state_dict().items()
+              if k.startswith("visual.")}
+    ref = random_state_dict(cfg, seed=3)
+    assert all(torch.equal(v, ref[k]) for k, v in visual.items())
+
+
+def test_skip_stage1_without_a_bundle_matches_swat_tpu(setup, tmp_path):
+    """--skip_stage1 with no --stage1_model_path: no stage runs and every
+    accuracy field of the summary is -1.0, as in swat_tpu."""
+    dataset_path, ckpt = setup
+    kw = run_kwargs(dataset_path, tmp_path, checkpoint_path=ckpt,
+                    method="cutmix", skip_stage1=True)
+    jax_pipe = JaxPipeline(JaxRunConfig(**kw).derived())
+    jax_summary = jax_pipe.run()
+    jax_pipe.loss_logger.close()
+    port = SwatPipeline(RunConfig(device="cpu", **kw))
+    summary = port.run()
+    port.loss_logger.close()
+    assert summary == jax_summary
+    assert summary.split(",")[7:] == ["-1.0"] * 4

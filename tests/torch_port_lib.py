@@ -90,6 +90,36 @@ def run_kwargs(dataset_path, folder, **kw) -> dict:
     return out
 
 
+def summary_line(out: str) -> str:
+    """The one summary line a run printed."""
+    lines = [ln for ln in out.splitlines() if ln.startswith(f"{DATASET},")]
+    assert len(lines) == 1, out
+    return lines[0]
+
+
+def loss_rows(output_dir) -> list:
+    """loss.csv's rows as lists of floats."""
+    with open(os.path.join(output_dir, "loss.csv")) as f:
+        lines = f.read().strip().splitlines()
+    assert lines[0] == "Epoch,Iter,Train_loss,Val_loss,Val_acc,Test_acc"
+    return [[float(x) for x in ln.split(",")] for ln in lines[1:]]
+
+
+def assert_rows_match(got, ref) -> None:
+    """loss.csv rows of the two packages: epoch, iter and the accuracies
+    exactly; the losses, means of fp32 losses summed in another order by
+    another framework's kernels, to rtol 1e-4 or the file's own resolution
+    (it rounds to 6 decimals; probing's losses fall to 1e-5)."""
+    import pytest
+
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        assert g[:2] == r[:2]
+        assert g[2] == pytest.approx(r[2], rel=1e-4, abs=1e-6)
+        assert g[3] == pytest.approx(r[3], rel=1e-4, abs=1e-6)
+        assert g[4:] == r[4:]
+
+
 def random_state_dict(cfg, seed: int = 0) -> dict:
     """Seeded OpenCLIP-format state dict (torch tensors) for ``cfg``, made
     by the port's initializer."""
