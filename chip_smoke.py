@@ -18,7 +18,14 @@ WiSE-FT, tau-norm, stage-2 probing on the few-shot snapshot features and
 few-shot finetuning, its time by stage and its stage-2 launches), stage 2
 alone from its stage-1 bundle (``--skip_stage1``), ``--save_ckpt`` then
 ``--resume``, and stage-1 finetuning with cutmix (streaming, bf16, the host
-PIL transform), attentivemix and mixup; then the three block-fused layer
+PIL transform), attentivemix and mixup; stage 1 of the twin-loader methods
+through the CLI (cutmix-fs resident, mixup-fs, CMO resident with
+``--utrain``, finetune-mixed with ``--optim SGD``) and cutmix with
+``--accum 4`` and with ``--remat full``, each run's training launches
+counted exactly; one full-width step of each twin-loader method, kernel
+against plain attention; the cutmix step under every remat policy and
+gradient accumulation, its peak memory, time and launches, its gradients
+against no remat; then the three block-fused layer
 kernels (block
 forward, MLP backward, attention backward) against their plain versions and
 timed beside their bounds and a library-built block, both full-width towers
@@ -1203,6 +1210,254 @@ def phase_fused_step(ckpt, smi):
     return total
 
 
+def _twin_batch(rng, n):
+    """``n`` seeded random uint8 canvases on the card, with their valid
+    sizes, labels and source, as a twin loader's batch (*_fs keys)."""
+    import numpy as np
+    import torch
+
+    valid_hw = np.stack([rng.integers(160, 257, n), np.full(n, 256)],
+                        axis=1)
+    valid_hw[1::2] = valid_hw[1::2, ::-1]
+    return {"canvases_fs": torch.from_numpy(rng.integers(
+                0, 256, (n, 256, 256, 3), dtype=np.uint8)).cuda(),
+            "valid_hw_fs": valid_hw,
+            "labels_fs": torch.from_numpy(rng.integers(0, 10, n)).cuda(),
+            "source_fs": torch.ones(n, dtype=torch.long).cuda()}
+
+
+def _visual_grads(model):
+    return {n: p.grad.detach().float().flatten().clone()
+            for n, p in model.named_parameters() if p.grad is not None}
+
+
+def _compare_grads(got, ref):
+    """-> (min cosine over the tensors, the tensor, bit-equal share of all
+    elements)."""
+    import torch
+
+    cos = {n: float(torch.nn.functional.cosine_similarity(
+        got[n].double(), ref[n].double(), dim=0))
+        for n in got if ref[n].abs().max() > 0}
+    worst = min(cos, key=cos.get)
+    equal = sum(int((got[n] == ref[n]).sum()) for n in got)
+    total = sum(got[n].numel() for n in got)
+    return cos[worst], worst, equal / total
+
+
+# the twin methods and their twin batch: half the batch for the two that
+# join it (fewshot_ratio 0.5), the whole batch for the two that mix row
+# against row
+TWIN_STEP = (("cutmix-fs", TRAIN_BSZ // 2), ("mixup-fs", TRAIN_BSZ),
+             ("CMO", TRAIN_BSZ), ("finetune-mixed", TRAIN_BSZ // 2))
+
+
+def phase_twin_step(ckpt, smi):
+    """One full-width ViT-B/32 step at bsz 256 of each twin-loader method
+    (cutmix-fs, mixup-fs, CMO, finetune-mixed; mix_prob 1), fp32 and bf16,
+    from seeded uint8 canvases, the twin batch at its own size: the visual
+    gradients with the kernels against plain attention, then one step with
+    the counts set to 0 just before it and read just after (one encode a
+    step: 12 launches each, on the joined batch for cutmix-fs and
+    finetune-mixed), then 3 steps timed."""
+    import numpy as np
+    import torch
+
+    from swat_tpu_torch.core.precision import DEFAULT_PRECISION, FP32_PRECISION
+    from swat_tpu_torch.kernels import flash_attention as FA
+    from swat_tpu_torch.train.losses import cross_entropy
+    from swat_tpu_torch.train.state import create_train_state
+    from swat_tpu_torch.train.steps import (make_ce_step, make_encode_loss,
+                                            make_mix_fn, make_mixing_step,
+                                            make_sampler)
+
+    cfg, model, batch, head, rng = _train_setup(ckpt)
+    n_px, layers = cfg.vision.image_size, cfg.vision.layers
+    results = {}
+    for method, twin_bsz in TWIN_STEP:
+        twin = dict(batch, **_twin_batch(rng, twin_bsz))
+        sample = make_sampler(method, mix_prob=1.0, image_size=n_px)
+        for dname, precision in (("float32", FP32_PRECISION),
+                                 ("bfloat16", DEFAULT_PRECISION)):
+            precision.apply_backend_flags()
+            model.precision = precision
+            state = create_train_state(model, head, method, total_iter=100)
+            draws = sample(rng, twin)
+            mix = make_mix_fn(method, image_size=n_px)
+            grads = {}
+            for attn_name, attn in (("kernel", FA.mha_qkv),
+                                    ("plain", FA.mha_qkv_reference)):
+                state.optimizer.zero_grad(set_to_none=True)
+                loss = make_encode_loss(cross_entropy, attn)(
+                    state, mix(state, twin, draws))
+                loss.backward()
+                grads[attn_name] = (loss.item(), _visual_grads(model))
+            (lk, gk), (lp, gp) = grads["kernel"], grads["plain"]
+            cos, worst, share = _compare_grads(gk, gp)
+            del grads, gk, gp
+            state.optimizer.zero_grad(set_to_none=True)
+            step = (make_ce_step(image_size=n_px, concat_fs=True)
+                    if method == "finetune-mixed"
+                    else make_mixing_step(method, image_size=n_px))
+            _reset_counts(FA)
+            val = float(step(state, twin, draws))
+            torch.cuda.synchronize()
+            counts = _counts(FA)
+            ms = _time_ms(lambda: step(state, twin, draws), iters=3,
+                          warmup=0)
+            encode = TRAIN_BSZ + (twin_bsz if method in (
+                "cutmix-fs", "finetune-mixed") else 0)
+            ok = (np.isfinite(lk) and np.isfinite(val)
+                  and cos >= GRAD_MIN_COS[dname]
+                  and counts == (layers, layers, 0, 0))
+            log(f"[twin-step] {MODEL_CFG} {method} bsz {TRAIN_BSZ} + twin "
+                f"{twin_bsz} (encode {encode}) {dname}: loss kernel "
+                f"{lk:.6f} / plain {lp:.6f}; min cosine of the visual grads "
+                f"kernel vs plain = {cos:.8f} ({worst}; bound "
+                f"{GRAD_MIN_COS[dname]}), bit-equal share {share:.4f}; "
+                f"launches fwd {counts[0]} bwd {counts[1]} heads-first "
+                f"{counts[2]}/{counts[3]} (need {layers}, {layers}, 0, 0); "
+                f"{ms:.2f} ms/step ({encode * 1e3 / ms:.1f} encoded "
+                f"images/s) on {smi} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{method} step failed ({dname})")
+            results[(method, dname)] = ms
+            del state, step
+    del model
+    torch.cuda.empty_cache()
+    return results
+
+
+# the remat / accum policies of the [memory] phase: (name, remat, accum)
+MEMORY_POLICIES = (("none", False, 1), ("full", "full", 1),
+                   ("first4", "first4", 1), ("dots", "dots", 1),
+                   ("dots_all", "dots_all", 1), ("accum2", False, 2),
+                   ("accum8", False, 8))
+# remat recomputes the same arithmetic: bit-equal is expected, and these
+# bounds only catch a wrong recompute.  Accumulation sums the microbatches'
+# gradients in another order (fp32); in bf16 each microbatch's weight
+# gradient is also rounded to bf16 before the sum (the gradient of the
+# bf16 copy of an fp32 weight), as in swat_tpu: the bf16 tower bound
+REMAT_MIN_COS = {"float32": 1 - 1e-6, "bfloat16": 1 - 1e-3}
+ACCUM_MIN_COS = {"float32": 1 - 1e-5, "bfloat16": 1 - 1e-3}
+
+
+def phase_memory(ckpt, smi):
+    """The full-width ViT-B/32 cutmix step at bsz 256, fp32 and bf16, under
+    each remat policy and gradient accumulation (MEMORY_POLICIES): first
+    the visual gradients of each against no remat on the same draws and
+    weights (bit-equal share and cosine; accumulation also its loss), then
+    per policy one untimed step, the peak-memory counter reset, one step
+    with the launch counts set to 0 just before it and read just after
+    (mha_fwd 12 x accum plus the recomputed blocks, mha_bwd 12 x accum),
+    3 steps timed (the peak is torch.cuda.max_memory_allocated over those
+    4 steps), and one step profiled (device busy time by kernel family)."""
+    import numpy as np
+    import torch
+
+    from swat_tpu_torch.core.precision import DEFAULT_PRECISION, FP32_PRECISION
+    from swat_tpu_torch.kernels import flash_attention as FA
+    from swat_tpu_torch.models.clip import resolve_remat_policy
+    from swat_tpu_torch.train.losses import cross_entropy
+    from swat_tpu_torch.train.state import create_train_state
+    from swat_tpu_torch.train.steps import (accum_backward, make_encode_loss,
+                                            make_mix_fn, make_mixing_step,
+                                            make_sampler)
+
+    cfg, model, batch, head, rng = _train_setup(ckpt)
+    n_px, layers = cfg.vision.image_size, cfg.vision.layers
+    sample = make_sampler("cutmix", mix_prob=1.0, image_size=n_px)
+    mix = make_mix_fn("cutmix", image_size=n_px)
+    encode_loss = make_encode_loss(cross_entropy)
+    results = {}
+    for dname, precision in (("float32", FP32_PRECISION),
+                             ("bfloat16", DEFAULT_PRECISION)):
+        precision.apply_backend_flags()
+        model.precision = precision
+        state = create_train_state(model, head, "cutmix", total_iter=100)
+        draws = sample(rng, batch)
+        ref = None
+        for name, remat, accum in MEMORY_POLICIES:
+            model.remat = remat
+            state.optimizer.zero_grad(set_to_none=True)
+            if accum > 1:
+                with torch.no_grad():
+                    mixed = mix(state, batch, draws)
+                loss = accum_backward(state, encode_loss, mixed, accum)
+            else:
+                loss = encode_loss(state, mix(state, batch, draws))
+                loss.backward()
+            grads = (loss.item(), _visual_grads(model))
+            if ref is None:
+                ref = grads
+                continue
+            cos, worst, share = _compare_grads(grads[1], ref[1])
+            bound = (ACCUM_MIN_COS if accum > 1 else REMAT_MIN_COS)[dname]
+            ok = cos >= bound and (accum > 1 or grads[0] == ref[0])
+            log(f"[memory] {dname} {name}: loss {grads[0]:.6f} (no remat "
+                f"{ref[0]:.6f}); visual grads against no remat: bit-equal "
+                f"share {share:.6f}, min cosine {cos:.10f} ({worst}; bound "
+                f"{bound}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{name} gradients disagree ({dname})")
+            del grads
+        del ref
+        state.optimizer.zero_grad(set_to_none=True)
+        for name, remat, accum in MEMORY_POLICIES:
+            model.remat = remat
+            _, _, first_k = resolve_remat_policy(remat)
+            recomputed = 0 if not remat else min(first_k or layers, layers)
+            step = make_mixing_step("cutmix", image_size=n_px, accum=accum)
+            step(state, batch, draws)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resting = torch.cuda.memory_allocated()
+            _reset_counts(FA)
+            val = float(step(state, batch, draws))
+            torch.cuda.synchronize()
+            counts = _counts(FA)
+            ms = _time_ms(lambda: step(state, batch, draws), iters=3,
+                          warmup=0)
+            peak = torch.cuda.max_memory_allocated()
+            # one more step profiled: device busy time by kernel family in
+            # a window of CUDA events around it
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                start.record()
+                step(state, batch, draws)
+                end.record()
+                torch.cuda.synchronize()
+            window = start.elapsed_time(end)
+            split, _ = _device_split(prof, 1)
+            busy = sum(split.values())
+            need = ((layers + recomputed) * accum, layers * accum, 0, 0)
+            ok = np.isfinite(val) and counts == need
+            log(f"[memory] {MODEL_CFG} cutmix bsz {TRAIN_BSZ} {dname} "
+                f"{name}: peak {peak / 2 ** 30:.3f} GiB allocated (at rest "
+                f"{resting / 2 ** 30:.3f} GiB: weights, gradients, optimizer "
+                f"state, the batch), {ms:.2f} ms/step ({TRAIN_BSZ * 1e3 / ms:.1f}"
+                f" images/s); profiled step: {busy:.2f} ms busy of a "
+                f"{window:.2f} ms window (idle "
+                f"{100 * (1 - busy / window):.1f} %; "
+                + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+                + f"); launches fwd {counts[0]} bwd {counts[1]} "
+                f"heads-first {counts[2]}/{counts[3]} (need {need[0]}, "
+                f"{need[1]}, 0, 0) on {smi} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{name} step failed ({dname}): "
+                                     f"{counts}")
+            results[(name, dname)] = (peak, ms)
+            del step
+        model.remat = False
+        del state
+    del model
+    torch.cuda.empty_cache()
+    return results
+
+
 def _write_retrieved(root, dataset, n_per_class, n_classes=10, seed=1):
     """A retrieved split beside the smoke dataset's few-shot and test
     splits (retrieved data lives under retrieved_path/<dataset>)."""
@@ -1266,6 +1521,45 @@ def _stage2_counts(FA):
             setattr(stages.SwatPipeline, name, fn)
 
 
+@contextlib.contextmanager
+def _train_loop_counts(FA):
+    """The launch counts of the training steps alone of each train_loop run
+    inside (SwatPipeline.train_method's, stage 2's included): the counts
+    over the loop less those made by its validate_fn and test_fn ->
+    [counts, ...] in the order of the loops."""
+    from swat_tpu_torch.train import stages
+
+    per = []
+    real = stages.train_loop
+
+    def counted(*, validate_fn, test_fn, **kw):
+        evals = [0, 0, 0, 0]
+
+        def counting(fn):
+            def wrapped(state):
+                before = _counts(FA)
+                try:
+                    return fn(state)
+                finally:
+                    for i, (a, b) in enumerate(zip(_counts(FA), before)):
+                        evals[i] += a - b
+            return wrapped
+
+        before = _counts(FA)
+        try:
+            return real(validate_fn=counting(validate_fn),
+                        test_fn=counting(test_fn), **kw)
+        finally:
+            per.append(tuple(a - b - e for a, b, e in
+                             zip(_counts(FA), before, evals)))
+
+    stages.train_loop = counted
+    try:
+        yield per
+    finally:
+        stages.train_loop = real
+
+
 def _train_cli_run(workdir, ckpt, dataset, method, dtype, resident, smi,
                    extra=(), bsz=CLI_BSZ, tag="", rows_want=2, stage2=False):
     """One run of ``method`` through swat_tpu_torch.cli.main at full width
@@ -1286,7 +1580,7 @@ def _train_cli_run(workdir, ckpt, dataset, method, dtype, resident, smi,
     _reset_counts(FA)
     buf = io.StringIO()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
+    with contextlib.redirect_stdout(buf), _train_loop_counts(FA) as loops:
         cli_main(["--dataset", dataset, "--method", method,
                   "--data_source", "fewshot+retrieved",
                   "--retrieval_split", RETRIEVAL_SPLIT,
@@ -1337,31 +1631,46 @@ def _train_cli_run(workdir, ckpt, dataset, method, dtype, resident, smi,
                              f"{bundles})")
     resident_run = "resident epochs" in out
     rate = re.findall(r"Epoch \d+, Iter \d+, .*?, (\d+) img/s", out)
-    steps = len(rows) * ((N_FEWSHOT + N_RETRIEVED) // bsz)
+    # the steps of the rows' stage: a resumed run counts on from its
+    # checkpoint's iteration
+    steps = len(rows) * (int(rows[0]["Iter"]) // int(rows[0]["Epoch"]))
     log(f"[train-cli] {method} {dtype} resident={resident}{tag}"
         f"{' (resident epochs)' if resident_run else ' (streaming)'}: "
         f"{summary[0]} | train loss "
         f"{' -> '.join(f'{x:.6f}' for x in losses[:2])} | "
-        f"{len(rows)} loss.csv rows at bsz {bsz} in {wall:.3f} s, rates "
+        f"{len(rows)} loss.csv rows, {steps} steps at bsz {bsz} in "
+        f"{wall:.3f} s, rates "
         f"{'/'.join(rate[:4])} images/s (host clock, decode included when "
         f"streaming) on {smi} | kernel launches fwd {counts[0]} bwd "
         f"{counts[1]} heads-first fwd {counts[2]} heads-first bwd "
-        f"{counts[3]}")
-    return {"counts": counts, "steps": steps, "resident": resident_run,
+        f"{counts[3]}; the training steps' own fwd {loops[0][0]} bwd "
+        f"{loops[0][1]}")
+    return {"counts": counts, "loops": loops, "steps": steps,
+            "resident": resident_run,
             "out": out, "run_dir": run_dir, "rows": rows,
             "summary": summary[0], "wall": wall}
 
 
-def _check_stage1_counts(run, method, layers):
-    need = layers * run["steps"]
-    need_flash = need if method == "attentivemix" else 0
-    counts = run["counts"]
-    log(f"[train-cli] {method}: need >= {need} fwd and bwd, {need_flash} "
-        f"heads-first fwd, 0 heads-first bwd")
-    if (counts[0] < need or counts[1] < need or counts[2] != need_flash
-            or counts[3] != 0):
+def _check_stage1_counts(run, method, layers, accum=1, remat=False):
+    """Stage 1's training steps (the first train_loop of the run) launched
+    exactly layers x accum x steps of mha_fwd plus the blocks remat
+    recomputes, and as many mha_bwd; attentivemix as many heads-first
+    forwards (its heatmaps, mix_prob 1); the whole run at least those."""
+    from swat_tpu_torch.models.clip import resolve_remat_policy
+
+    _, _, first_k = resolve_remat_policy(remat)
+    recomputed = 0 if not remat else min(first_k or layers, layers)
+    micro = accum * run["steps"]
+    need = ((layers + recomputed) * micro, layers * micro,
+            layers * run["steps"] if method == "attentivemix" else 0, 0)
+    counts, train = run["counts"], run["loops"][0]
+    log(f"[train-cli] {method}: stage-1 steps launched {train} (need "
+        f"{need}: {run['steps']} steps x accum {accum}, remat {remat!r}); "
+        f"the whole run {counts}")
+    if train != need or any(c < n for c, n in zip(counts, need)):
         raise AssertionError(f"{method} training did not go through the "
-                             f"attention kernels: {counts}")
+                             f"attention kernels as counted: {train}, "
+                             f"{counts}")
 
 
 def _flagship(workdir, ckpt, dataset, smi, layers):
@@ -1408,6 +1717,7 @@ def _flagship(workdir, ckpt, dataset, smi, layers):
                              f"kernels: probing {probe}, FSFT {fsft}")
     _check_stage1_counts({"counts": tuple(
         c - p - f for c, p, f in zip(full["counts"], probe, fsft)),
+        "loops": full["loops"],
         "steps": 2 * ((N_FEWSHOT + N_RETRIEVED) // FLAGSHIP_BSZ)},
         "cutmix", layers)
 
@@ -1455,6 +1765,75 @@ def _resume(workdir, ckpt, dataset, smi, layers):
         raise AssertionError("--resume did not go on at epoch 3")
     _check_stage1_counts(resumed, "cutmix", layers)
     return [x + y for x, y in zip(first["counts"], resumed["counts"])]
+
+
+def _write_pseudo(root, dataset, n):
+    """A --utrain file over the first ``n`` test images, one
+    ``<path> <label>`` line each (the pseudo-labels of a model's dump;
+    every fifth one wrong) -> its path."""
+    import os
+
+    ddir = os.path.join(root, dataset)
+    with open(os.path.join(ddir, "test.txt")) as f:
+        lines = f.read().split()
+    path = os.path.join(root, "pseudo_labels.txt")
+    with open(path, "w") as f:
+        for i in range(n):
+            rel, label = lines[3 * i], int(lines[3 * i + 1])
+            f.write(f"{os.path.join(ddir, rel)} "
+                    f"{(label + (i % 5 == 0)) % 10}\n")
+    return path
+
+
+N_PSEUDO = 60
+# the twin-loader methods and the memory levers through the CLI at the
+# flagship batch: (method, --resident, extra flags, tag, resident epochs
+# expected, accum, remat)
+TWIN_CLI_RUNS = (
+    ("cutmix-fs", "auto", (), "", True, 1, False),
+    ("mixup-fs", "off", ("--mix_prob", "1.0"), "_mix_prob1", False, 1,
+     False),
+    ("CMO", "auto", ("--utrain", None), "_utrain", True, 1, False),
+    ("finetune-mixed", "off", ("--optim", "SGD"), "_sgd", False, 1, False),
+    ("cutmix", "off", ("--accum", "4"), "_accum4", False, 4, False),
+    ("cutmix", "auto", ("--remat", "full"), "_remat_full", True, 1, "full"))
+
+
+def phase_twin_cli(workdir, ckpt, dataset, smi):
+    """Stage 1 of the twin-loader methods and the memory levers through
+    swat_tpu_torch.cli.main at full width, fp32, bsz 32, 2 epochs:
+    cutmix-fs with its twin resident, mixup-fs streaming at mix_prob 1, CMO
+    resident with --utrain (a pseudo-label file over 60 test images),
+    finetune-mixed streaming with --optim SGD, cutmix streaming with
+    --accum 4 and resident with --remat full.  Each run's summary line,
+    loss.csv rows and output files are checked, its training steps'
+    launches exactly.  -> the four counts summed over the runs."""
+    from swat_tpu_torch.models.configs import get_model_config
+
+    layers = get_model_config(MODEL_CFG).vision.layers
+    pseudo = _write_pseudo(workdir, dataset, N_PSEUDO)
+    total = [0, 0, 0, 0]
+    for (method, resident, extra, tag, want_resident, accum,
+         remat) in TWIN_CLI_RUNS:
+        extra = tuple(pseudo if x is None else x for x in extra)
+        n_train = N_FEWSHOT + N_RETRIEVED + (N_PSEUDO if method == "CMO"
+                                             else 0)
+        run = _train_cli_run(workdir, ckpt, dataset, method, "float32",
+                             resident, smi, extra, bsz=FLAGSHIP_BSZ, tag=tag)
+        # finetune-mixed's config takes half the batch from each loader
+        bsz = FLAGSHIP_BSZ // (2 if method == "finetune-mixed" else 1)
+        if run["steps"] != 2 * (n_train // bsz):
+            raise AssertionError(f"{method}{tag}: {run['steps']} steps, "
+                                 f"expected {2 * (n_train // bsz)}")
+        _check_stage1_counts(run, method, layers, accum, remat)
+        if run["resident"] != want_resident:
+            raise AssertionError(f"{method}{tag}: resident epochs "
+                                 f"{run['resident']}, expected "
+                                 f"{want_resident}")
+        if method == "CMO" and f"({N_PSEUDO} samples)" not in run["out"]:
+            raise AssertionError("--utrain samples were not loaded")
+        total = [t + c for t, c in zip(total, run["counts"])]
+    return total
 
 
 def phase_train_cli(workdir, ckpt, dataset, smi):
@@ -2014,6 +2393,10 @@ def main() -> int:
         step_flash_bwd = phase_fused_step(ckpt, smi)
         cli_counts, stage2_counts = phase_train_cli(workdir, ckpt,
                                                     "smoke10", smi)
+        twin_counts = phase_twin_cli(workdir, ckpt, "smoke10", smi)
+        cli_counts = [c + t for c, t in zip(cli_counts, twin_counts)]
+        phase_twin_step(ckpt, smi)
+        phase_memory(ckpt, smi)
         worst_mega = phase_mega_kernels()
         times_mega = phase_mega_timing(smi)
         tower_mega = phase_mega_towers(ckpt, smi)

@@ -10,14 +10,16 @@ here they come from a converted checkpoint file).
 
 The port adds ``--device {cuda,cpu}``.  ``--use_pallas`` is accepted and
 does nothing (the kernels always run on the card); ``--remat`` and
-``--accum`` do nothing for inference and raise in training; a mesh other
-than one device raises.  Ported so far: ``--method zeroshot``; stage 1
-of ``--method finetune`` / ``cutmix`` / ``mixup`` / ``resizemix`` /
-``saliencymix`` / ``attentivemix`` / ``probing`` (``--aug_mode canvas |
-host | eval``); stage 2 (probing, then few-shot
-finetuning), or ``--skip_stage2``; ``--skip_stage1 --stage1_model_path``,
-``--model_path``, ``--save_ckpt`` / ``--resume``.  The ``.msgpack``
-bundles are those of ``swat_tpu``: either package reads the other's.
+``--accum`` act in training only (``--accum`` in streaming epochs only, as
+in ``swat_tpu``); a mesh other than one device raises.  Ported so far:
+``--method zeroshot``; stage 1 of ``--method finetune`` / ``cutmix`` /
+``mixup`` / ``resizemix`` / ``saliencymix`` / ``attentivemix`` /
+``finetune-mixed`` / ``cutmix-fs`` / ``mixup-fs`` / ``CMO`` / ``probing``
+(``--aug_mode canvas | host | eval``), with ``--optim AdamW | SGD`` and
+``--utrain``; stage 2 (probing, then few-shot finetuning), or
+``--skip_stage2``; ``--skip_stage1 --stage1_model_path``, ``--model_path``,
+``--save_ckpt`` / ``--resume``.  The ``.msgpack`` bundles are those of
+``swat_tpu``: either package reads the other's.
 
 Usage:
     python -m swat_tpu_torch.cli.main --dataset semi-aves --method zeroshot \
@@ -193,17 +195,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "train batches (differential-oracle harness)")
     p.add_argument("--use_pallas", default=False, type=str2bool)
     p.add_argument("--remat", default=False, type=str2remat,
-                   help="False | True/full (checkpoint whole blocks) | "
-                        "dots (save projection matmuls, recompute "
-                        "attention+elementwise) | dots_all (save every "
-                        "matmul incl. attention scores)")
+                   help="False | True/full (recompute whole blocks in the "
+                        "backward) | first<K> (the first K blocks only) | "
+                        "dots (keep the projections' product outputs, "
+                        "recompute attention and elementwise work) | "
+                        "dots_all (keep every product's output)")
     p.add_argument("--accum", type=int, default=1,
                    help="gradient-accumulation microbatches per step "
-                        "(ViT towers only); the batch is mixed/augmented "
-                        "whole, then encode+loss runs per microbatch — "
-                        "same semantics, 1/accum the activation HBM with "
-                        "zero recompute (the remat alternative for L/14 "
-                        "single-chip)")
+                        "(CE and mixing methods, streaming epochs); the "
+                        "batch is augmented and mixed whole, then "
+                        "encode+loss runs per microbatch: the same "
+                        "gradient to summation order, 1/accum of the "
+                        "activation memory, no recompute")
     p.add_argument("--resident", type=str, default="auto",
                    choices=["auto", "on", "off"],
                    help="whole-epoch-on-device scan execution: auto picks "

@@ -1,6 +1,5 @@
-# Copied in part (_prefetch, EvalLoader, TrainSnapshotLoader, TrainLoader, FeatureBatches) from swat_tpu/data/pipeline.py; the port keeps its own copy, permanently (it imports nothing of swat_tpu).
-"""Host input pipeline (counterpart of ``swat_tpu/data/pipeline.py:32-307,
-329-371``).
+# Copied in part (_prefetch, EvalLoader, TrainSnapshotLoader, TrainLoader, CyclingLoader, FeatureBatches, WeightedSampler, WeightedTrainLoader) from swat_tpu/data/pipeline.py; the port keeps its own copy, permanently (it imports nothing of swat_tpu).
+"""Host input pipeline (counterpart of ``swat_tpu/data/pipeline.py:32-413``).
 
 A threaded decode pool with one-batch prefetch.  Eval batches are fully
 preprocessed on the host, in a fixed order, and the final batch is padded
@@ -11,7 +10,10 @@ on-device augmentation (or, in ``host`` mode, the reference's PIL train
 transform; in ``eval`` mode, eval-preprocessed images).
 ``TrainSnapshotLoader`` is the eval-shaped pass that extracts probing's
 train features through the train transform, once an image, and
-``FeatureBatches`` batches pre-extracted features.
+``FeatureBatches`` batches pre-extracted features.  The twin-loader
+methods cycle a second loader (``CyclingLoader``): the few-shot split, or
+for CMO the train split drawn with inverse class frequencies
+(``WeightedTrainLoader``).
 """
 
 from __future__ import annotations
@@ -239,6 +241,25 @@ class TrainLoader:
         return _prefetch(self._batches())
 
 
+class CyclingLoader:
+    """Wraps a loader to cycle forever (the reference's try/except
+    StopIteration pattern for the second loader of mixed methods,
+    utils/training.py:724-737)."""
+
+    def __init__(self, loader):
+        self.loader = loader
+        self._it = None
+
+    def next(self):
+        if self._it is None:
+            self._it = iter(self.loader)
+        try:
+            return next(self._it)
+        except StopIteration:
+            self._it = iter(self.loader)
+            return next(self._it)
+
+
 class FeatureBatches:
     """Batches over pre-extracted (features, labels) arrays; a short last
     batch (without drop_last) is padded and masked."""
@@ -283,3 +304,47 @@ class FeatureBatches:
                 "source": src.astype(np.int32),
                 "mask": np.arange(bs) < k,
             }
+
+
+class WeightedSampler:
+    """Inverse-class-frequency sampling with replacement: the CMO second
+    loader (reference utils/dataloader.py:229-246)."""
+
+    def __init__(self, samples: Sequence[Sample], num_classes: int,
+                 cmo_alpha: float = 1.0, seed: int = 1):
+        counts = np.bincount([s.label for s in samples],
+                             minlength=num_classes).astype(np.float64)
+        counts = np.maximum(counts, 1)
+        cls_weight = 1.0 / (counts ** cmo_alpha)
+        cls_weight = cls_weight / cls_weight.sum()
+        self.p = np.array([cls_weight[s.label] for s in samples])
+        self.p = self.p / self.p.sum()
+        self.samples = list(samples)
+        self._rng = np.random.default_rng(seed)
+
+    def draw(self, n: int) -> List[Sample]:
+        idx = self._rng.choice(len(self.samples), size=n, replace=True,
+                               p=self.p)
+        return [self.samples[i] for i in idx]
+
+
+class WeightedTrainLoader(TrainLoader):
+    """TrainLoader whose epoch is a WeightedSampler draw of as many samples
+    as the split holds, shuffled; the sampler is seeded from the loader's
+    own generator at construction, before the first permutation."""
+
+    def __init__(self, samples, num_classes: int, cmo_alpha: float = 1.0,
+                 **kw):
+        super().__init__(samples, **kw)
+        self._sampler = WeightedSampler(
+            samples, num_classes, cmo_alpha,
+            seed=int(self._rng.integers(2 ** 31)))
+
+    def _batches(self):
+        drawn = self._sampler.draw(len(self.samples))
+        orig = self.samples
+        self.samples = drawn
+        try:
+            yield from super()._batches()
+        finally:
+            self.samples = orig

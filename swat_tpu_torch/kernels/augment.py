@@ -1,18 +1,18 @@
 """On-device batched train augmentation (counterpart of
 ``swat_tpu/kernels/augment.py``): random-resized-crop, horizontal flip and
-CLIP normalization from uint8 canvases, and the single-loader mixing
-strategies: cutmix, mixup, resizemix, saliencymix and attentivemix.
+CLIP normalization from uint8 canvases, the single-loader mixing
+strategies (cutmix, mixup, resizemix, saliencymix and attentivemix) and the
+two that mix from a second loader's batch (``cutmix_from``, CMO's, and
+``mixup_fs``; cutmix-fs is ``cutmix`` over the two batches joined).
 
 Every sampled quantity is an explicit input.  The host draws them from a
 ``numpy.random.Generator`` (``sample_crops``, ``sample_flips``,
-``sample_cutmix``, ``sample_mixup``, ``sample_resizemix``,
-``sample_peak_mix``): a batch needs B x 10 candidate crop sizes and a few
-scalars, and torch's Beta sampler takes no generator.  The device functions
-(``random_resized_crop``, ``hflip``, ``train_augment``, ``cutmix``,
-``mixup``, ``resizemix``, ``saliencymix``, ``attentivemix``) apply the
-draws, so a test can feed them the JAX package's own draws.  The
-twin-loader strategies (mixup-fs, cutmix-fs, CMO) are not ported yet
-(ROADMAP Queue A item 6).
+``sample_cutmix``, ``sample_cutmix_from``, ``sample_mixup``,
+``sample_mixup_fs``, ``sample_resizemix``, ``sample_peak_mix``): a batch
+needs B x 10 candidate crop sizes and a few scalars, and torch's Beta
+sampler takes no generator.  The device functions (``random_resized_crop``,
+``hflip``, ``train_augment`` and the mixes) apply the draws, so a test can
+feed them the JAX package's own draws.
 
 The resamples are ``jax.image.scale_and_translate``, not
 ``F.interpolate``: weights over the whole input (zero padding included),
@@ -129,6 +129,42 @@ def sample_cutmix(rng: np.random.Generator, batch: int, height: int,
     cx = int(rng.integers(0, width))
     return CutmixDraws(gate, lam0, perm,
                        rand_bbox(height, width, lam0, cy, cx))
+
+
+@dataclasses.dataclass
+class CutmixFromDraws:
+    """One batch's CMO draws (``augment.cutmix_from``): the gate, the Beta
+    draw lam0 and the box; no permutation, the box comes from the second
+    batch."""
+    gate: bool
+    lam0: float
+    box: Tuple[int, int, int, int]
+
+
+def sample_cutmix_from(rng: np.random.Generator, height: int, width: int,
+                       beta: float = 1.0,
+                       mix_prob: float = 0.5) -> CutmixFromDraws:
+    """``augment.cutmix_from``'s draws: ``sample_cutmix``'s without the
+    permutation."""
+    gate = bool(rng.random() < mix_prob)
+    lam0 = _beta(rng, beta)
+    cy = int(rng.integers(0, height))
+    cx = int(rng.integers(0, width))
+    return CutmixFromDraws(gate, lam0, rand_bbox(height, width, lam0, cy, cx))
+
+
+@dataclasses.dataclass
+class MixupFsDraws:
+    """One batch's mixup-fs draw: lam 0 (take the few-shot batch) or 1
+    (keep the retrieved one)."""
+    lam: float
+
+
+def sample_mixup_fs(rng: np.random.Generator,
+                    mix_prob: float = 0.5) -> MixupFsDraws:
+    """``augment.mixup_fs``'s draw: the few-shot batch when U[0,1) <=
+    mix_prob."""
+    return MixupFsDraws(0.0 if rng.random() <= mix_prob else 1.0)
 
 
 @dataclasses.dataclass
@@ -309,6 +345,37 @@ def cutmix(images: torch.Tensor, labels: torch.Tensor, draws: CutmixDraws):
     lam = np.float32(1.0) - (np.float32((y2 - y1) * (x2 - x1))
                              / np.float32(h * w))
     return mixed, labels, labels[perm], float(lam)
+
+
+def cutmix_from(images: torch.Tensor, labels: torch.Tensor,
+                images2: torch.Tensor, labels2: torch.Tensor,
+                draws: CutmixFromDraws):
+    """CMO's mix (``augment.cutmix_from``, reference utils/training.py:
+    1909-1925): the box of every image is replaced by that of the same row
+    of the second batch, y_b is that row's label.  With the gate off: the
+    images unchanged, lam = 1, y_b = y_a.  -> (mixed, y_a, y_b, lam)."""
+    if not draws.gate:
+        return images, labels, labels, 1.0
+    b, h, w, _ = images.shape
+    y1, y2, x1, x2 = draws.box
+    mixed = images.clone()
+    mixed[:, y1:y2, x1:x2] = images2[:, y1:y2, x1:x2]
+    lam = np.float32(1.0) - (np.float32((y2 - y1) * (x2 - x1))
+                             / np.float32(h * w))
+    return mixed, labels, labels2, float(lam)
+
+
+def mixup_fs(images_retr: torch.Tensor, labels_retr: torch.Tensor,
+             images_fs: torch.Tensor, labels_fs: torch.Tensor,
+             draws: MixupFsDraws):
+    """Reference mixup_data_fs (``augment.mixup_fs``): one of the two
+    batches whole, written as the blend lam * x + (1 - lam) * x_fs with lam
+    0 or 1, so that signed zeros come out as there; the images' dtype is
+    kept (lam is a weakly typed scalar there).  -> (mixed, y_a, y_b,
+    lam)."""
+    lam = draws.lam
+    mixed = lam * images_retr + (1.0 - lam) * images_fs
+    return mixed, labels_retr, labels_fs, lam
 
 
 def mixup(images: torch.Tensor, labels: torch.Tensor, draws: MixupDraws):

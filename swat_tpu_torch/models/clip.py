@@ -34,6 +34,13 @@ towers' ``use_pallas=True`` attention: the heads-first forward kernel on
 the card, in both precision policies too.  Training differentiates the image
 tower only: the train state turns ``requires_grad`` off for the text tower.
 
+Remat (``CLIPModel(remat=...)``, ``--remat``; ``resolve_remat_policy``)
+recomputes blocks in the backward through ``torch.utils.checkpoint``
+(non-reentrant): every block, the first K, or every block keeping the
+products' outputs (``dots``, ``dots_all``; a selective checkpoint).  It acts
+only where a graph is built; the blocks draw no random numbers, so the
+recompute needs no RNG state.
+
 ``use_mega=True`` on ``encode_image`` / ``encode_text`` runs the block stack
 through the block-fused layer kernels instead
 (``kernels.megablock.fused_transformer``: one forward kernel a layer, two
@@ -44,12 +51,15 @@ used.  ``encode_image_tokens`` has no such route, as there.
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Callable, Optional
+from typing import Callable, Optional, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from swat_tpu_torch.core.precision import DEFAULT_PRECISION, Precision
 from swat_tpu_torch.kernels.attention import heads_first_attention
@@ -97,6 +107,48 @@ def project(x: torch.Tensor, proj: torch.Tensor,
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(1.702 * x)
+
+
+Remat = Union[bool, str]
+# the aten products whose outputs the selective policies keep: ``dense``
+# dispatches its 2-D products as mm (addmm with a fused bias), the
+# attention's plain versions their batched ones as bmm / baddbmm
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_BATCHED_DOTS = (torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+
+
+def resolve_remat_policy(remat: Remat):
+    """The remat flag -> (enabled, ops whose outputs are kept or None,
+    first_k or None), as ``swat_tpu.models.clip.resolve_remat_policy``:
+
+    False          no remat
+    True / 'full'  every block recomputed whole in the backward
+    'dots'         every block, keeping the outputs of the projections'
+                   2-D products (the counterpart of
+                   dots_with_no_batch_dims_saveable)
+    'dots_all'     the same, keeping the batched products' too
+                   (dots_saveable)
+    'first<K>'     the first K blocks recomputed whole, the rest not.
+
+    The attention kernels' output is no product here (an empty tensor and
+    a launch), so every policy launches the forward kernel again."""
+    if not remat:
+        return False, None, None
+    if remat is True or remat == "full":
+        return True, None, None
+    if isinstance(remat, str) and remat.startswith("first"):
+        suffix = remat[len("first"):]
+        if not suffix.isdigit() or int(suffix) <= 0:
+            raise ValueError(
+                f"remat 'first<K>' needs a positive block count; "
+                f"got {remat!r}")
+        return True, None, int(suffix)
+    policies = {"dots": _DOTS, "dots_all": _DOTS + _BATCHED_DOTS}
+    if remat not in policies:
+        raise ValueError(
+            f"remat must be bool, 'full', 'dots', 'dots_all' or "
+            f"'first<K>'; got {remat!r}")
+    return True, policies[remat], None
 
 
 class MultiheadAttentionParams(nn.Module):
@@ -151,13 +203,27 @@ class Transformer(nn.Module):
             for _ in range(layers))
 
     def forward(self, x, causal: bool, precision: Precision,
-                attention: Attention, use_mega: bool = False):
+                attention: Attention, use_mega: bool = False,
+                remat: Remat = False):
+        """``remat`` applies where a graph is built; ``use_mega`` ignores
+        it, as ``functional._transformer`` does."""
         if use_mega:
             return fused_transformer(
                 self.resblocks, x, heads=self.heads, quick_gelu=self.quick,
                 causal=causal, compute_dtype=precision.compute_dtype)
-        for block in self.resblocks:
-            x = block(x, causal, precision, attention)
+        enabled, saved_ops, first_k = resolve_remat_policy(remat)
+        enabled = enabled and torch.is_grad_enabled()
+        kw = {}
+        if saved_ops is not None:
+            kw["context_fn"] = functools.partial(
+                create_selective_checkpoint_contexts, list(saved_ops))
+        for i, block in enumerate(self.resblocks):
+            if enabled and (first_k is None or i < first_k):
+                x = checkpoint(block, x, causal, precision, attention,
+                               use_reentrant=False, preserve_rng_state=False,
+                               **kw)
+            else:
+                x = block(x, causal, precision, attention)
         return x
 
 
@@ -183,7 +249,7 @@ class VisionTower(nn.Module):
 
     def forward(self, images: torch.Tensor, precision: Precision,
                 attention: Attention, pool: bool = True,
-                use_mega: bool = False) -> torch.Tensor:
+                use_mega: bool = False, remat: Remat = False) -> torch.Tensor:
         """images [B, H, W, 3] -> [B, embed]; ``pool=False`` applies
         ln_post and the projection to every token -> [B, S, embed], class
         token first (the heatmaps' input)."""
@@ -200,7 +266,8 @@ class VisionTower(nn.Module):
         cls = self.class_embedding.to(cd).expand(b, 1, -1)
         x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(cd)
         x = layer_norm(self.ln_pre, x, precision)
-        x = self.transformer(x, False, precision, attention, use_mega)
+        x = self.transformer(x, False, precision, attention, use_mega,
+                             remat)
         x = layer_norm(self.ln_post, x[:, 0] if pool else x, precision)
         return project(x, self.proj, precision)
 
@@ -223,11 +290,12 @@ class TextTower(nn.Module):
 
     def encode_text_features(self, token_ids: torch.Tensor,
                              precision: Precision, attention: Attention,
-                             use_mega: bool = False) -> torch.Tensor:
+                             use_mega: bool = False,
+                             remat: Remat = False) -> torch.Tensor:
         cd = precision.compute_dtype
         x = self.token_embedding.weight[token_ids].to(cd)
         x = x + self.positional_embedding.to(cd)
-        x = self.transformer(x, True, precision, attention, use_mega)
+        x = self.transformer(x, True, precision, attention, use_mega, remat)
         x = layer_norm(self.ln_final, x, precision)
         eot = token_ids.argmax(dim=-1)
         x = x[torch.arange(x.shape[0], device=x.device), eot]
@@ -241,10 +309,13 @@ def _normalize(feats: torch.Tensor) -> torch.Tensor:
 class CLIPModel(TextTower):
     """OpenCLIP's ``CLIP`` module tree: the text tower at the top level,
     the image tower under ``visual``, and ``logit_scale``.  ``precision``
-    is the compute policy of both encoders."""
+    is the compute policy of both encoders, ``remat`` their blocks' remat
+    policy in training (``resolve_remat_policy``)."""
 
     def __init__(self, cfg: CLIPConfig,
-                 precision: Precision = DEFAULT_PRECISION):
+                 precision: Precision = DEFAULT_PRECISION,
+                 remat: Remat = False):
+        resolve_remat_policy(remat)
         if isinstance(cfg.vision, ResNetConfig):
             raise NotImplementedError(
                 f"{cfg.name}: the port has no ResNet image tower yet "
@@ -252,6 +323,7 @@ class CLIPModel(TextTower):
         super().__init__(cfg.text)
         self.cfg = cfg
         self.precision = precision
+        self.remat = remat
         self.visual = VisionTower(cfg.vision)
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
 
@@ -260,7 +332,7 @@ class CLIPModel(TextTower):
                      use_mega: bool = False) -> torch.Tensor:
         """images [B, H, W, 3] (CLIP-normalized) -> [B, embed] fp32."""
         feats = self.visual(images, self.precision, attention,
-                            use_mega=use_mega)
+                            use_mega=use_mega, remat=self.remat)
         return _normalize(feats) if normalize else feats
 
     def encode_image_tokens(
@@ -278,7 +350,7 @@ class CLIPModel(TextTower):
                     use_mega: bool = False) -> torch.Tensor:
         """token ids [B, context] -> [B, embed] fp32."""
         feats = self.encode_text_features(token_ids, self.precision,
-                                          attention, use_mega)
+                                          attention, use_mega, self.remat)
         return _normalize(feats) if normalize else feats
 
     @torch.no_grad()

@@ -9,10 +9,10 @@ the other's stage bundles.  The score files and the ``.npy`` confusion
 matrices are the same too.
 
 Train checkpoints (``--save_ckpt``, ``ckpt_ep{E}_it{I}.msgpack``) hold the
-model, head, logit_scale, step and the port's own AdamW state, keyed by
-parameter name.  optax's multi-transform state does not map one to one
-onto torch's AdamW, so a train checkpoint resumes only in the package that
-wrote it (ROADMAP Queue C, recorded departures).  The orbax pair of the
+model, head, logit_scale, step and the port's own optimizer state (AdamW's
+moments, or SGD's momentum buffers), keyed by parameter name.  optax's
+multi-transform state does not map one to one onto torch's optimizers, so
+a train checkpoint resumes only in the package that wrote it (ROADMAP Queue C, recorded departures).  The orbax pair of the
 JAX package has no counterpart here.
 """
 
@@ -160,7 +160,7 @@ def _opt_names(state) -> dict:
 
 
 def _opt_state_tree(state) -> dict:
-    """The AdamW state of every parameter in the optimizer, keyed as the
+    """The optimizer state of every parameter in it, keyed as the
     trainable tree: {'model': {name: {...}}, 'head': {...}, ...}."""
     names = _opt_names(state)
     tree: dict = {}
@@ -178,7 +178,7 @@ def _opt_state_tree(state) -> dict:
 
 def save_train_ckpt(ckpt_dir: str, tag: str, state, best_records: dict):
     """``ckpt_{tag}.msgpack``: model (JAX param tree), head, logit_scale,
-    the AdamW state and the step (reference save_model_ckpt)."""
+    the optimizer state and the step (reference save_model_ckpt)."""
     path = os.path.join(ckpt_dir, f"ckpt_{tag}.msgpack")
     arrays = {
         "model": jax_params_from_state_dict(state.model.state_dict())[0],
@@ -199,12 +199,15 @@ def load_train_ckpt(path: str, state):
     package (optax state) raises ValueError."""
     arrays, meta = load_bundle(path)
     opt = arrays.get("opt_state")
+    kind = type(state.optimizer).__name__
+    slot = "momentum_buffer" if kind == "SGD" else "exp_avg"
     if not isinstance(opt, dict) or not isinstance(opt.get("head"), dict) \
-            or "exp_avg" not in opt["head"]:
+            or slot not in opt["head"]:
         raise ValueError(
-            f"{path} does not hold the port's AdamW state (a checkpoint of "
-            "swat_tpu?); train checkpoints resume only in the package that "
-            "wrote them (ROADMAP Queue C)")
+            f"{path} does not hold the port's {kind} state (a checkpoint of "
+            "swat_tpu, or of a run with the other --optim?); train "
+            "checkpoints resume only in the package and with the optimizer "
+            "that wrote them (ROADMAP Queue C)")
     sd = state_dict_from_jax_params(arrays["model"],
                                     state.model.logit_scale.item())
     state.model.load_state_dict(sd)

@@ -1,5 +1,5 @@
-"""AdamW param groups and the per-iteration LR schedule (counterpart of
-``swat_tpu/train/optim.py:29-157``), reproducing reference
+"""AdamW and SGD param groups and the per-iteration LR schedule
+(counterpart of ``swat_tpu/train/optim.py:29-157``), reproducing reference
 utils/optimizers.py:
 
 * per-iteration stepped schedule: optimizer step i (the count BEFORE the
@@ -14,13 +14,16 @@ utils/optimizers.py:
   trained tensor, logit_scale included.  optax's adamw decays as
   lr * wd * p inside the update, torch's AdamW scales p by (1 - lr * wd)
   first: equal in math, different in rounding;
+* ``--optim SGD``: momentum 0.9 (no dampening, no Nesterov), the weight
+  decay added to the gradient before the momentum (optax's
+  ``add_decayed_weights`` -> ``trace(0.9)`` -> the learning rate);
 * groups by label: the visual tower at lr_backbone, head and logit_scale at
   lr_classifier.  Frozen tensors (the text tower) are in no group, so they
   get neither update nor decay (optax's ``set_to_zero``).
 
-SGD and the labeling of FLYP are not ported yet (ROADMAP Queue A item 6):
-``label_params`` knows the finetune family (the single-loader mixes among
-them) and the frozen methods, and raises for the rest.
+The labeling of FLYP is not ported yet (ROADMAP Queue A item 6b):
+``label_params`` knows the finetune family (every mix among them) and the
+frozen methods, and raises for the rest.
 """
 
 from __future__ import annotations
@@ -88,14 +91,13 @@ def label_params(model: nn.Module, method: str) -> Dict[str, str]:
 def build_optimizer(groups: Dict[str, List[torch.Tensor]], *,
                     lr_classifier: float, lr_backbone: float,
                     total_iter: int, wd: float = 1e-2,
-                    optim_type: str = "AdamW") -> torch.optim.AdamW:
-    """AdamW over the labeled groups {'backbone': [...], 'head': [...]}
-    (empty groups are left out); each param group carries its
-    ``schedule``, applied by ``set_lr`` before every step."""
-    if optim_type != "AdamW":
-        raise NotImplementedError(
-            f"--optim {optim_type} is not ported to swat_tpu_torch yet (see "
-            "ROADMAP, Queue A item 6); run it with swat_tpu")
+                    optim_type: str = "AdamW") -> torch.optim.Optimizer:
+    """AdamW (or, for ``optim_type`` 'SGD', SGD with momentum) over the
+    labeled groups {'backbone': [...], 'head': [...]} (empty groups are
+    left out); each param group carries its ``schedule``, applied by
+    ``set_lr`` before every step."""
+    if optim_type not in ("AdamW", "SGD"):
+        raise ValueError(f"--optim must be AdamW or SGD; got {optim_type!r}")
     warmup_lr = default_warmup_lr(lr_backbone)
     base = {"backbone": lr_backbone, "head": lr_classifier}
     param_groups = []
@@ -105,6 +107,9 @@ def build_optimizer(groups: Dict[str, List[torch.Tensor]], *,
                                         warmup_lr=warmup_lr)
             param_groups.append({"params": groups[label], "label": label,
                                  "schedule": schedule, "lr": schedule(0)})
+    if optim_type == "SGD":
+        return torch.optim.SGD(param_groups, momentum=0.9, dampening=0.0,
+                               nesterov=False, weight_decay=wd)
     return torch.optim.AdamW(param_groups, betas=(0.9, 0.999), eps=1e-8,
                              weight_decay=wd)
 

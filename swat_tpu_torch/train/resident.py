@@ -1,5 +1,6 @@
 """Resident-dataset epochs (counterpart of
-``swat_tpu/train/scan_loop.py:43-201``).
+``swat_tpu/train/scan_loop.py:43-201`` and the twin permutations of
+``swat_tpu/train/stages.py:747-779``).
 
 SWAT's few-shot and retrieved splits are small (10^2-10^5 images), so the
 whole train split fits in device memory as uint8 canvases.  An epoch then
@@ -9,11 +10,16 @@ it is a Python loop of the same step body as the streaming path
 (``steps.make_mix_fn`` + ``steps.make_encode_loss``), with the losses kept
 on the device until the epoch ends.  The batch order is the JAX package's
 (``epoch_permutation`` from ``np.random.default_rng(training_seed)``).
+A twin method's epoch gathers its second batch from a second resident
+split (the few-shot split; CMO's: the train split) by a twin permutation
+drawn from the same generator after the epoch's (``twin_permutation``).
+The resident epoch takes no ``--accum``: it trains whole batches, as
+``swat_tpu``'s scan epoch does.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -63,15 +69,39 @@ def epoch_permutation(rng: np.random.Generator, n: int,
         np.int64)
 
 
+def twin_permutation(rng: np.random.Generator, n: int, steps: int,
+                     twin_bsz: int,
+                     probs: Optional[np.ndarray] = None) -> np.ndarray:
+    """[steps, twin_bsz] rows of the twin split for one epoch: drawn with
+    replacement by ``probs`` (CMO's inverse class frequencies), else
+    successive permutations of the split joined and cut, as a cycling
+    few-shot loader would serve them."""
+    if probs is not None:
+        return rng.choice(n, size=(steps, twin_bsz), replace=True,
+                          p=probs).astype(np.int64)
+    need = steps * twin_bsz
+    reps = []
+    while sum(len(r) for r in reps) < need:
+        reps.append(rng.permutation(n))
+    return np.concatenate(reps)[:need].reshape(steps, twin_bsz).astype(
+        np.int64)
+
+
 def make_resident_epoch(step_fn: Callable, sample_fn: Callable):
-    """run(state, data, perm, rng) -> mean loss over the epoch's steps (a
-    0-d device tensor); ``rng`` draws each step's crops and mix."""
+    """run(state, data, perm, rng[, twin, twin_perm]) -> mean loss over the
+    epoch's steps (a 0-d device tensor); ``rng`` draws each step's crops
+    and mix.  With ``twin``, step i's batch carries the twin split's rows
+    ``twin_perm[i]`` under *_fs keys."""
 
     def run(state: TrainState, data: ResidentData, perm: np.ndarray,
-            rng: np.random.Generator) -> torch.Tensor:
+            rng: np.random.Generator, twin: Optional[ResidentData] = None,
+            twin_perm: Optional[np.ndarray] = None) -> torch.Tensor:
         loss_sum = None
-        for idx in perm:
+        for i, idx in enumerate(perm):
             batch = data.batch(idx)
+            if twin is not None:
+                batch.update({f"{k}_fs": v for k, v in
+                              twin.batch(twin_perm[i]).items()})
             val = step_fn(state, batch, sample_fn(rng, batch))
             loss_sum = val if loss_sum is None else loss_sum + val
         return loss_sum / perm.shape[0]

@@ -5,16 +5,19 @@
 class prompts with the text tower and makes the zero-shot head from the
 prompt means.  ``--method zeroshot`` validates the test split and prints
 the reference's zero-shot summary line.  ``--method finetune``, the
-single-loader mixes (cutmix, mixup, resizemix, saliencymix, attentivemix)
-and linear probing (on pre-extracted features or streamed) run stage 1:
-the epochs (streaming or resident), WiSE-FT, feature re-extraction with
-the best weights, test scores, tau-normalization and the stage-1 bundle.
+single-loader mixes (cutmix, mixup, resizemix, saliencymix, attentivemix),
+the twin-loader methods (finetune-mixed, cutmix-fs, mixup-fs, CMO) and
+linear probing (on pre-extracted features or streamed) run stage 1: the
+epochs (streaming or resident), WiSE-FT, feature re-extraction with the
+best weights, test scores, tau-normalization and the stage-1 bundle.
+``--accum``, ``--remat``, ``--optim SGD`` and ``--utrain`` (pseudo-labeled
+samples appended to the train split) apply as in ``swat_tpu``.
 Stage 2 starts from that bundle (or from ``--stage1_model_path`` with
 ``--skip_stage1``): probing on the few-shot train-transform snapshot's
 features, then few-shot finetuning; the 11-field summary line follows.  ``--model_path`` warm-starts stage 1,
 ``--save_ckpt`` / ``--resume`` write and restore train checkpoints.  The
-other methods and options raise NotImplementedError naming their ROADMAP
-item.
+other methods (FLYP, CMLP, REAL-Linear, fixmatch, multitask, dataset-cls)
+and options raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ import numpy as np
 import torch
 
 from swat_tpu_torch.data import prompts as P
-from swat_tpu_torch.data.splits import class_counts, read_split
+from swat_tpu_torch.data.splits import (class_counts, read_pseudo_split,
+                                        read_split)
 from swat_tpu_torch.utils.logging import set_logger
 from swat_tpu_torch.core.config import RunConfig
 from swat_tpu_torch.core.precision import DEFAULT_PRECISION, FP32_PRECISION
@@ -39,8 +43,11 @@ from swat_tpu_torch.data.features import (encode_prompts,
                                           feature_cache_path,
                                           make_text_encoder,
                                           params_fingerprint)
-from swat_tpu_torch.data.pipeline import (EvalLoader, FeatureBatches,
-                                          TrainLoader, TrainSnapshotLoader)
+from swat_tpu_torch.data.pipeline import (CyclingLoader, EvalLoader,
+                                          FeatureBatches, TrainLoader,
+                                          TrainSnapshotLoader,
+                                          WeightedSampler,
+                                          WeightedTrainLoader)
 from swat_tpu_torch.data.transforms import CANVAS_SIZE
 from swat_tpu_torch.eval.heatmap import (clip_attention_heatmap,
                                          clip_text_heatmap)
@@ -61,12 +68,14 @@ from swat_tpu_torch.train.checkpoint import (load_best_model,
                                              save_test_scores)
 from swat_tpu_torch.train.losses import set_loss
 from swat_tpu_torch.train.resident import (ResidentData, epoch_permutation,
-                                           make_resident_epoch)
+                                           make_resident_epoch,
+                                           twin_permutation)
 from swat_tpu_torch.train.state import create_train_state
-from swat_tpu_torch.train.steps import (RESIDENT_METHODS, STEP_METHODS,
+from swat_tpu_torch.train.steps import (ACCUM_METHODS, RESIDENT_METHODS,
+                                        STEP_METHODS, TWIN_METHODS,
                                         make_ce_step, make_mixing_step,
                                         make_probing_step, make_sampler)
-from swat_tpu_torch.train.trainer import train_loop
+from swat_tpu_torch.train.trainer import compose_twin, train_loop
 
 
 def resolve_device(name: str) -> torch.device:
@@ -79,6 +88,44 @@ def resolve_device(name: str) -> torch.device:
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {name!r} (cuda or cpu)")
     return device
+
+
+def _pick_accum(combined_bsz: int, target_micro: int = 32):
+    """Smallest divisor of the encode batch giving microbatch <= target."""
+    lo = max(2, -(-combined_bsz // target_micro))
+    for d in range(lo, combined_bsz + 1):
+        if combined_bsz % d == 0 and combined_bsz // d <= target_micro:
+            return d
+    return None
+
+
+def auto_memory_policy(model_cfg: str, remat, accum: int, bsz: int,
+                       n_devices: int, method: str):
+    """The effective (remat, accum) of a run, ``swat_tpu``'s decision on
+    the same inputs (``stages.auto_memory_policy``), so that both packages
+    train the same microbatches.  Only ViT-L/14 at bsz >= 64 on one device
+    with neither --remat nor an accum whose microbatch is under 64 images
+    is touched: the microbatch-decomposable methods (ACCUM_METHODS) get
+    accumulation to microbatches of <= 32 images (``_pick_accum`` over the
+    encode batch, doubled for finetune-mixed's joined twin), the others
+    full remat; an explicit accum that leaves >= 64 images a microbatch
+    gets full remat on top.  ``swat_tpu`` measured the need on its own
+    accelerator; whether an H100's 80 GB needs the trigger at all is open
+    (ROADMAP Queue A item 7)."""
+    if not ("vitl14" in model_cfg and bsz >= 64 and n_devices == 1):
+        return remat, accum
+    if remat:
+        return remat, accum
+    combined = bsz * (2 if method == "finetune-mixed" else 1)
+    if accum > 1:
+        if combined // accum >= 64:
+            return "full", accum
+        return remat, accum
+    if method in ACCUM_METHODS:
+        picked = _pick_accum(combined)
+        if picked is not None:
+            return False, picked
+    return "full", accum
 
 
 def _not_ported(what: str, item: str):
@@ -106,7 +153,19 @@ class SwatPipeline:
         self.precision = (FP32_PRECISION if cfg.compute_dtype == "float32"
                           else DEFAULT_PRECISION)
         self.precision.apply_backend_flags()
-        self.model = CLIPModel(self.model_cfg, precision=self.precision)
+        remat, accum = auto_memory_policy(cfg.model_cfg, cfg.remat,
+                                          cfg.accum, cfg.bsz, 1, cfg.method)
+        if (remat, accum) != (cfg.remat, cfg.accum):
+            logger.warning(
+                f"{cfg.model_cfg} at bsz {cfg.bsz} on one device: "
+                f"auto-enabling remat={remat!r}, accum={accum} (swat_tpu's "
+                "memory policy, kept so that both packages train the same "
+                "microbatches). Pass --remat/--accum explicitly to "
+                "override.")
+            self.cfg = dataclasses.replace(self.cfg, accum=accum)
+            cfg = self.cfg
+        self.model = CLIPModel(self.model_cfg, precision=self.precision,
+                               remat=remat)
 
         # ---- pretrained weights (reference set_model, utils/models.py:11)
         if cfg.checkpoint_path:
@@ -192,6 +251,18 @@ class SwatPipeline:
 
     def _samples(self, split):
         return read_split(self.cfg.dataset_root, split)
+
+    def _train_samples(self, cfg: RunConfig):
+        """The train split, with --utrain's pseudo-labeled samples appended
+        (reference utils/dataloader.py:188-202, inat_dataset.py:26-32)."""
+        samples = self._samples(cfg.train_split)
+        if cfg.utrain:
+            pseudo = read_pseudo_split(cfg.utrain)
+            self.logger.info(
+                f"Load utrain data with pseudo-labels from: {cfg.utrain} "
+                f"({len(pseudo)} samples)")
+            samples = samples + pseudo
+        return samples
 
     def _eval_loader(self, split, bsz: int = 128):
         return EvalLoader(self._samples(split), batch_size=bsz,
@@ -299,15 +370,20 @@ class SwatPipeline:
     # stage-1 training (reference main.py:236-327)
 
     def train_method(self, cfg: RunConfig, head: torch.Tensor):
-        """The epochs of ``cfg.method`` (finetune, a single-loader mix or
-        a probe) from the model's current weights and ``head`` -> (final
-        state, BestSnapshot)."""
+        """The epochs of ``cfg.method`` (finetune, a mix, a twin-loader
+        method or a probe) from the model's current weights and ``head``
+        -> (final state, BestSnapshot)."""
         method = cfg.method
         logger = self.logger
         loss = self._loss(cfg)
         image_size = self.model_cfg.vision.image_size
-        samples = self._samples(cfg.train_split)
+        samples = self._train_samples(cfg)
         frozen = method == "probing"
+        if cfg.accum > 1 and method not in ACCUM_METHODS:
+            raise ValueError(
+                f"--accum only supports the CE/mixing methods, not "
+                f"{method!r} (FLYP's contrastive loss couples the whole "
+                "batch; frozen-encoder methods don't need it)")
 
         if frozen:
             # val / test features of the eval transform are deterministic,
@@ -353,17 +429,53 @@ class SwatPipeline:
                 mode=cfg.aug_mode, n_px=image_size,
                 num_workers=cfg.num_workers)
 
-        # the resident path: the split's uint8 canvases on the device
-        resident_data = None
+        # the twin-loader methods' second batch: for CMO the train split
+        # drawn with inverse class frequencies, else the few-shot split
+        # (reference get_retrieve_fewshot_dataloader,
+        # utils/dataloader.py:138-165).  mixup-fs takes one of the two
+        # batches whole and CMO pastes row into row, so their twin is as
+        # large as the batch; the joining methods take bsz * fewshot_ratio
+        twin_loader = None
+        twin_bsz = (cfg.bsz if method in ("mixup-fs", "CMO")
+                    else max(1, int(cfg.bsz * cfg.fewshot_ratio)))
+        if method == "CMO":
+            twin_loader = WeightedTrainLoader(
+                samples, cfg.num_classes, cfg.cmo_alpha, batch_size=twin_bsz,
+                seed=cfg.training_seed, mode=cfg.aug_mode, n_px=image_size,
+                num_workers=cfg.num_workers)
+        elif method in TWIN_METHODS:
+            twin_loader = TrainLoader(
+                self._samples(cfg.fewshot_data), batch_size=twin_bsz,
+                seed=cfg.training_seed + 7, mode=cfg.aug_mode,
+                n_px=image_size, num_workers=cfg.num_workers)
+
+        # the resident path: the split's uint8 canvases on the device (and
+        # the twin's: the few-shot split, or CMO's train split, the same
+        # canvases)
+        resident_data = resident_twin = None
         if (cfg.resident != "off" and cfg.aug_mode == "canvas"
                 and method in RESIDENT_METHODS):
-            est = len(samples) * CANVAS_SIZE * CANVAS_SIZE * 3
+            twin_samples = []
+            if method == "CMO":
+                twin_samples = samples
+            elif method in TWIN_METHODS:
+                twin_samples = self._samples(cfg.fewshot_data)
+            est = (len(samples) + len(twin_samples)) * CANVAS_SIZE \
+                * CANVAS_SIZE * 3
             if cfg.resident == "on" or est <= cfg.resident_budget_bytes:
                 resident_data = ResidentData.from_samples(
                     samples, self.device, num_workers=cfg.num_workers)
-                logger.info(f"Resident train data: {len(samples)} canvases "
-                            f"({est / 1e9:.2f} GB) on device; resident "
-                            "epochs.")
+                if method == "CMO":
+                    resident_twin = resident_data
+                elif twin_samples:
+                    resident_twin = ResidentData.from_samples(
+                        twin_samples, self.device,
+                        num_workers=cfg.num_workers)
+                logger.info(
+                    f"Resident train data: {len(samples)}"
+                    f"{' + ' + str(len(twin_samples)) if twin_samples else ''}"
+                    f" canvases ({est / 1e9:.2f} GB) on device; resident "
+                    "epochs.")
 
         steps_per_epoch = len(train_loader)
         total_iter = steps_per_epoch * max(cfg.epochs, 1)
@@ -375,19 +487,30 @@ class SwatPipeline:
         heatmap_fn = (self._heatmap_fn() if method == "attentivemix"
                       else None)
 
-        def make_step(aug_dtype):
+        def make_step(aug_dtype, accum):
             if frozen:
                 return make_probing_step(loss, cfg.pre_extracted, image_size)
-            if method == "finetune":
-                return make_ce_step(loss, image_size, aug_dtype)
+            if method in ("finetune", "finetune-mixed"):
+                return make_ce_step(loss, image_size, aug_dtype,
+                                    concat_fs=method == "finetune-mixed",
+                                    accum=accum)
             return make_mixing_step(method, loss, heatmap_fn=heatmap_fn,
                                     image_size=image_size,
-                                    aug_dtype=aug_dtype)
+                                    aug_dtype=aug_dtype, accum=accum)
 
         sample = make_sampler("probing" if frozen else method,
                               mixup_alpha=cfg.mixup_alpha,
                               cutmix_beta=cfg.cutmix_beta,
                               mix_prob=cfg.mix_prob, image_size=image_size)
+
+        if twin_loader is not None:
+            twin_cycler = CyclingLoader(twin_loader)
+
+            def train_batches():
+                return compose_twin(iter(train_loader), twin_cycler)
+        else:
+            def train_batches():
+                return iter(train_loader)
 
         if frozen:
             def validate_fn(state):
@@ -419,19 +542,34 @@ class SwatPipeline:
 
         epoch_runner = None
         if resident_data is not None:
+            if cfg.accum > 1:
+                logger.info(
+                    f"--accum {cfg.accum} applies to streaming epochs only: "
+                    "the resident epochs train whole batches, as swat_tpu's "
+                    "scan epoch does")
             # the resample follows the compute policy here, as in the JAX
             # package's resident epoch: bf16 under bf16, fp32 otherwise
             run_epoch = make_resident_epoch(
-                make_step(self.precision.compute_dtype), sample)
+                make_step(self.precision.compute_dtype, 1), sample)
             perm_rng = np.random.default_rng(cfg.training_seed)
+            cmo_probs = (WeightedSampler(samples, cfg.num_classes,
+                                         cfg.cmo_alpha).p
+                         if method == "CMO" else None)
 
             def epoch_runner(state, epoch, rng):
                 perm = epoch_permutation(perm_rng, resident_data.n, cfg.bsz)
-                return run_epoch(state, resident_data, perm, rng)
+                if resident_twin is None:
+                    return run_epoch(state, resident_data, perm, rng)
+                # drawn after the epoch's permutation, from the same
+                # generator (swat_tpu/train/stages.py:763-779)
+                tperm = twin_permutation(perm_rng, resident_twin.n,
+                                         perm.shape[0], twin_bsz, cmo_probs)
+                return run_epoch(state, resident_data, perm, rng,
+                                 resident_twin, tperm)
 
         return train_loop(
-            cfg=cfg, state=state, step_fn=make_step(torch.float32),
-            sample_fn=sample, train_batches=lambda: iter(train_loader),
+            cfg=cfg, state=state, step_fn=make_step(torch.float32, cfg.accum),
+            sample_fn=sample, train_batches=train_batches,
             steps_per_epoch=steps_per_epoch, validate_fn=validate_fn,
             test_fn=test_fn, logger=logger, loss_logger=self.loss_logger,
             epoch_runner=epoch_runner,
@@ -789,12 +927,6 @@ class SwatPipeline:
             return
         if not cfg.skip_stage1 and cfg.method not in STEP_METHODS:
             raise _not_ported(f"--method {cfg.method} training",
-                              "Queue A item 6")
-        if cfg.utrain:
-            raise _not_ported("--utrain pseudo-labeled data",
-                              "Queue A item 6")
-        if cfg.accum > 1 or cfg.remat:
-            raise _not_ported("--accum > 1 and --remat in training",
                               "Queue A item 6")
         if cfg.test_imagenet_ood:
             raise _not_ported("--test_imagenet_ood", "Queue A item 8")

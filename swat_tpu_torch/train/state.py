@@ -1,7 +1,8 @@
 """Train state (counterpart of ``swat_tpu/train/state.py:29-123``).
 
 The trainable set is the CLIP model, the classifier head and logit_scale;
-the state also holds the AdamW optimizer over them and the step count.
+the state also holds the optimizer over them (AdamW or SGD) and the step
+count.
 The JAX package keeps these as one immutable pytree; here the model is
 trained in place, and the head and logit_scale are the state's own
 parameters.  Frozen tensors have ``requires_grad`` off and sit in no
@@ -28,7 +29,7 @@ class TrainState:
     model: CLIPModel
     head: nn.Parameter            # [num_classes, embed_dim] fp32
     logit_scale: nn.Parameter     # scalar, the log of the scale
-    optimizer: torch.optim.AdamW
+    optimizer: torch.optim.Optimizer
     step: int = 0
 
     def apply_update(self) -> None:
@@ -64,8 +65,8 @@ def create_train_state(model: CLIPModel, head: torch.Tensor, method: str, *,
                        optim_type: str = "AdamW",
                        temperature: float = 0.07) -> TrainState:
     """Marks the model's frozen tensors (``requires_grad`` off), copies the
-    head and makes logit_scale on the model's device, and builds AdamW
-    over the labeled groups."""
+    head and makes logit_scale on the model's device, and builds the
+    optimizer (``optim_type``: AdamW or SGD) over the labeled groups."""
     labels = make_labels(model, method)
     groups = {"backbone": [], "head": []}
     for name, p in model.named_parameters():

@@ -1,21 +1,22 @@
-"""Train steps of the finetune and single-loader mixing families and of
-linear probing (counterpart of ``swat_tpu/train/steps.py:48-222,312-400``).
+"""Train steps of the finetune and mixing families and of linear probing
+(counterpart of ``swat_tpu/train/steps.py:48-222,254-400``).
 
 One step: on-device augmentation (random-resized-crop / flip / normalize
 from uint8 canvases, when the batch carries them), the method's mix, the
 image tower forward and backward through the attention kernels, the mixed
-cross-entropy, and one AdamW update.  The per-step body is split as in the
-JAX package: ``make_mix_fn`` (augment + mix) and ``make_encode_loss``
+cross-entropy, and one optimizer update.  The per-step body is split as in
+the JAX package: ``make_mix_fn`` (augment + mix) and ``make_encode_loss``
 (encode + loss), shared by the streaming steps here and the resident epoch
 (``train/resident.py``).
 
 Every random quantity comes in as explicit draws (``StepDraws``), made on
 the host by ``make_sampler`` from a ``numpy.random.Generator``; tests feed
 the JAX package's own draws instead.  Ported: ``finetune``, the
-single-loader mixes (``MIX_METHODS``) and ``probing``
+single-loader mixes, the twin-loader methods (``TWIN_METHODS``: the second
+loader's batch rides in the batch under ``_fs`` keys) and ``probing``
 (``make_probing_step``: the head alone on pre-extracted or freshly encoded
-features); the twin-loader mixes (mixup-fs, cutmix-fs, CMO,
-finetune-mixed) raise (ROADMAP Queue A item 6).
+features).  ``accum > 1`` mixes the whole batch, then encodes and
+differentiates it in that many microbatches, summing their gradients.
 """
 
 from __future__ import annotations
@@ -37,15 +38,20 @@ from swat_tpu_torch.train.state import TrainState
 
 MIX_METHODS = ("finetune", "cutmix", "mixup", "resizemix", "saliencymix",
                "attentivemix")
+# the methods that take a second loader's batch (the *_fs keys)
+TWIN_METHODS = ("finetune-mixed", "cutmix-fs", "mixup-fs", "CMO")
 # the methods whose epochs can run from device-resident canvases
-# (``swat_tpu``'s scan_loop.SCAN_METHODS; attentivemix streams there too)
+# (``swat_tpu``'s scan_loop.SCAN_METHODS | SCAN_TWIN_METHODS; attentivemix
+# streams there too)
 RESIDENT_METHODS = ("finetune", "cutmix", "mixup", "resizemix",
-                    "saliencymix")
+                    "saliencymix") + TWIN_METHODS
+# the methods whose gradient decomposes over microbatches (--accum)
+ACCUM_METHODS = MIX_METHODS + TWIN_METHODS
 # every method whose step is ported
-STEP_METHODS = MIX_METHODS + ("probing",)
+STEP_METHODS = ACCUM_METHODS + ("probing",)
 
-MixDraws = Union[aug.CutmixDraws, aug.MixupDraws, aug.ResizemixDraws,
-                 aug.PeakMixDraws]
+MixDraws = Union[aug.CutmixDraws, aug.CutmixFromDraws, aug.MixupDraws,
+                 aug.MixupFsDraws, aug.ResizemixDraws, aug.PeakMixDraws]
 # (model, images [B, H, W, 3], labels [B]) -> heatmaps [B, gh, gw]
 HeatmapFn = Callable[..., torch.Tensor]
 
@@ -53,52 +59,68 @@ HeatmapFn = Callable[..., torch.Tensor]
 @dataclasses.dataclass
 class StepDraws:
     """The random inputs of one step: crop boxes and flips (for canvas
-    batches), and the method's mix draws."""
+    batches) of the batch and of its twin, and the method's mix draws."""
     crops: Optional[aug.CropDraws] = None
     mix: Optional[MixDraws] = None
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to swat_tpu_torch yet (see ROADMAP, Queue A "
-        "item 6); run it with swat_tpu")
+    twin_crops: Optional[aug.CropDraws] = None
 
 
 def _check_method(method: str) -> None:
-    if method not in MIX_METHODS:
-        raise _not_ported(f"--method {method} training")
+    if method not in ACCUM_METHODS:
+        raise ValueError(f"no train step for --method {method}")
+
+
+def _sample_crops(rng: np.random.Generator, batch: Mapping,
+                  suffix: str = "") -> Optional[aug.CropDraws]:
+    if f"canvases{suffix}" not in batch:
+        return None
+    valid_hw = np.asarray(batch[f"valid_hw{suffix}"])
+    return aug.CropDraws(aug.sample_crops(rng, valid_hw),
+                         aug.sample_flips(rng, len(valid_hw)))
 
 
 def make_sampler(method: str, *, mixup_alpha: float = 1.0,
                  cutmix_beta: float = 1.0, mix_prob: float = 0.5,
                  image_size: int = 224):
     """sample(rng, batch) -> StepDraws for a batch whose ``valid_hw`` (if
-    it carries canvases) is a host array.  Draw order: crops, flips, mix
-    (probing draws no mix)."""
+    it carries canvases) is a host array.  Draw order: crops, flips, the
+    twin's crops and flips, mix (probing draws no mix).  cutmix-fs's
+    permutation spans the batch and its twin joined."""
     if method != "probing":
         _check_method(method)
 
     def sample(rng: np.random.Generator, batch: Mapping) -> StepDraws:
-        crops = None
-        if "canvases" in batch:
-            valid_hw = np.asarray(batch["valid_hw"])
-            crops = aug.CropDraws(aug.sample_crops(rng, valid_hw),
-                                  aug.sample_flips(rng, len(valid_hw)))
+        crops = _sample_crops(rng, batch)
+        twin_crops = _sample_crops(rng, batch, "_fs")
         mix = None
         n = len(batch["labels"])
-        if method == "cutmix":
+        if method == "cutmix-fs":
+            n += len(batch["labels_fs"])
+        if method in ("cutmix", "cutmix-fs"):
             mix = aug.sample_cutmix(rng, n, image_size, image_size,
                                     cutmix_beta, mix_prob)
+        elif method == "CMO":
+            mix = aug.sample_cutmix_from(rng, image_size, image_size,
+                                         cutmix_beta, mix_prob)
         elif method == "mixup":
             mix = aug.sample_mixup(rng, n, mixup_alpha, mix_prob)
+        elif method == "mixup-fs":
+            mix = aug.sample_mixup_fs(rng, mix_prob)
         elif method == "resizemix":
             mix = aug.sample_resizemix(rng, n, image_size, image_size,
                                        mix_prob)
         elif method in ("saliencymix", "attentivemix"):
             mix = aug.sample_peak_mix(rng, n, cutmix_beta, mix_prob)
-        return StepDraws(crops, mix)
+        return StepDraws(crops, mix, twin_crops)
 
     return sample
+
+
+def _twin_of(batch: Mapping) -> Optional[dict]:
+    """The second loader's sub-batch, carried as *_fs keys (the
+    reference's tuple of loaders flattened into one dict)."""
+    twin = {k[:-3]: v for k, v in batch.items() if k.endswith("_fs")}
+    return twin or None
 
 
 def make_mix_fn(method: str, *, heatmap_fn: Optional[HeatmapFn] = None,
@@ -108,29 +130,51 @@ def make_mix_fn(method: str, *, heatmap_fn: Optional[HeatmapFn] = None,
     the resident epoch.  mix(state, batch, draws) -> (images, y_a, y_b,
     lam, lam_vec, source), batch tensors on the device; ``lam`` is the
     batch's one lambda and ``lam_vec`` None, or the reverse for the
-    per-image lambdas of saliencymix and attentivemix.  ``aug_dtype`` is
-    the resample's type: fp32 for the streaming steps, the compute dtype in
-    the resident epoch (as the JAX package picks it).  ``heatmap_fn`` is
-    attentivemix's; no gradient flows into it."""
+    per-image lambdas of saliencymix and attentivemix.  A twin method's
+    batch carries its twin under *_fs keys: finetune-mixed and cutmix-fs
+    join the two batches (primary first), CMO pastes its box from the twin,
+    mixup-fs takes one of the two whole.  ``aug_dtype`` is the resample's
+    type: fp32 for the streaming steps, the compute dtype in the resident
+    epoch (as the JAX package picks it).  ``heatmap_fn`` is attentivemix's;
+    no gradient flows into it."""
     _check_method(method)
     if method == "attentivemix" and heatmap_fn is None:
         raise ValueError("attentivemix needs a heatmap_fn")
 
-    def mix(state: TrainState, batch, draws: StepDraws):
+    def images_of(batch, draws, crops="crops"):
+        """The batch's augmented canvases (its draws' ``crops`` field) or
+        its images; an image batch needs no draws."""
         if "canvases" in batch:
-            images = aug.train_augment(batch["canvases"], draws.crops,
-                                       image_size, aug_dtype)
-        else:
-            images = batch["images"]
+            return aug.train_augment(batch["canvases"],
+                                     getattr(draws, crops), image_size,
+                                     aug_dtype)
+        return batch["images"]
+
+    def mix(state: TrainState, batch, draws: StepDraws):
+        images = images_of(batch, draws)
         labels, source = batch["labels"], batch["source"]
+        twin = _twin_of(batch)
+        if twin is not None:
+            images2 = images_of(twin, draws, "twin_crops")
+            labels2 = twin["labels"]
+        if method in ("finetune-mixed", "cutmix-fs"):
+            images = torch.cat([images, images2])
+            labels = torch.cat([labels, labels2])
+            source = torch.cat([source, twin["source"]])
         lam, lam_vec = None, None
-        if method == "finetune":
+        if method in ("finetune", "finetune-mixed"):
             y_a = y_b = labels
             lam = 1.0
-        elif method == "cutmix":
+        elif method in ("cutmix", "cutmix-fs"):
             images, y_a, y_b, lam = aug.cutmix(images, labels, draws.mix)
+        elif method == "CMO":
+            images, y_a, y_b, lam = aug.cutmix_from(images, labels, images2,
+                                                    labels2, draws.mix)
         elif method == "mixup":
             images, y_a, y_b, lam = aug.mixup(images, labels, draws.mix)
+        elif method == "mixup-fs":
+            images, y_a, y_b, lam = aug.mixup_fs(images, labels, images2,
+                                                 labels2, draws.mix)
         elif method == "resizemix":
             images, y_a, y_b, lam = aug.resizemix(images, labels, draws.mix)
         elif method == "saliencymix":
@@ -178,28 +222,76 @@ def make_encode_loss(loss: LossFn, attention: Attention = mha_qkv,
 
 
 def batch_to_device(batch: Mapping, device: torch.device) -> dict:
-    """The arrays a step reads, as tensors on ``device`` (labels as int64);
-    tensors already there pass through."""
+    """The arrays a step reads, the twin's *_fs keys included, as tensors
+    on ``device`` (labels as int64); tensors already there pass through."""
     out = {}
-    for key in ("canvases", "images", "features", "labels", "source"):
-        if key in batch:
-            t = torch.as_tensor(batch[key])
-            out[key] = t.to(device, torch.long if key == "labels" else None,
-                            non_blocking=True)
+    for suffix in ("", "_fs"):
+        for key in ("canvases", "images", "features", "labels", "source"):
+            if key + suffix in batch:
+                t = torch.as_tensor(batch[key + suffix])
+                out[key + suffix] = t.to(
+                    device, torch.long if key == "labels" else None,
+                    non_blocking=True)
     return out
 
 
-def _make_step(loss: LossFn, mix, attention: Attention,
-               use_mega: bool) -> Callable:
+def accum_backward(state: TrainState, encode_loss: Callable, mixed,
+                   accum: int) -> torch.Tensor:
+    """Gradient accumulation (``steps._accum_value_and_grad``): the mixed
+    batch, already made whole, is encoded and differentiated in ``accum``
+    equal microbatches in order; .grad sums their unscaled gradients.  The
+    registry losses reduce by the mean, so the sum and the summed loss are
+    scaled by 1/accum once at the end; the per-image-lambda criterion
+    (saliencymix, attentivemix) sums, so nothing is scaled.  -> the
+    step's loss, summed in fp32 from 0."""
+    images, y_a, y_b, lam, lam_vec, source = mixed
+    n = images.shape[0]
+    if n % accum:
+        raise ValueError(
+            f"batch size {n} is not divisible by accum={accum}")
+    per_sample = [images, y_a, y_b, source]
+    if lam_vec is not None:
+        per_sample.append(lam_vec)
+    chunks = [t.chunk(accum) for t in per_sample]
+    val_sum = torch.zeros((), dtype=torch.float32, device=images.device)
+    for i in range(accum):
+        mb = [c[i] for c in chunks]
+        val = encode_loss(state, (mb[0], mb[1], mb[2], lam,
+                                  mb[4] if lam_vec is not None else None,
+                                  mb[3]))
+        val.backward()
+        val_sum = val_sum + val.detach()
+    if lam_vec is not None:
+        return val_sum
+    inv = 1.0 / accum
+    for group in state.optimizer.param_groups:
+        for p in group["params"]:
+            if p.grad is not None:
+                p.grad.mul_(inv)
+    return val_sum * inv
+
+
+def _make_step(loss: LossFn, mix, attention: Attention, use_mega: bool,
+               accum: int = 1) -> Callable:
+    if accum < 1:
+        raise ValueError(f"accum must be >= 1; got {accum}")
     encode_loss = make_encode_loss(loss, attention, use_mega)
 
     def step(state: TrainState, batch, draws: StepDraws) -> torch.Tensor:
         """One update of ``state`` in place -> the step's loss (a 0-d
         tensor on the device, not synchronized)."""
         batch = batch_to_device(batch, state.head.device)
-        val = encode_loss(state, mix(state, batch, draws))
         state.optimizer.zero_grad(set_to_none=True)
-        val.backward()
+        if accum > 1:
+            # the whole batch is mixed outside the gradient: the pairing
+            # permutation spans the batch, and no gradient flows through
+            # the mix (attentivemix's heatmaps are taken without one)
+            with torch.no_grad():
+                mixed = mix(state, batch, draws)
+            val = accum_backward(state, encode_loss, mixed, accum)
+        else:
+            val = encode_loss(state, mix(state, batch, draws))
+            val.backward()
         state.apply_update()
         return val.detach()
 
@@ -208,34 +300,46 @@ def _make_step(loss: LossFn, mix, attention: Attention,
 
 def make_ce_step(loss: LossFn = cross_entropy, image_size: int = 224,
                  aug_dtype: torch.dtype = torch.float32,
-                 attention: Attention = mha_qkv, use_mega: bool = False):
-    """Standard finetune CE (reference train_ce, utils/training.py:296-412)."""
-    return _make_step(loss, make_mix_fn("finetune", image_size=image_size,
-                                        aug_dtype=aug_dtype), attention,
-                      use_mega)
+                 attention: Attention = mha_qkv, use_mega: bool = False,
+                 concat_fs: bool = False, accum: int = 1):
+    """Standard finetune CE (reference train_ce, utils/training.py:296-412);
+    ``concat_fs``: the few-shot twin batch joined after the batch
+    (reference train_ce_mixed, :692-816, ``--method finetune-mixed``).
+    ``accum``: microbatches a step."""
+    return _make_step(loss, make_mix_fn(
+        "finetune-mixed" if concat_fs else "finetune",
+        image_size=image_size, aug_dtype=aug_dtype), attention, use_mega,
+        accum)
 
 
 def make_mixing_step(method: str, loss: LossFn = cross_entropy, *,
                      heatmap_fn: Optional[HeatmapFn] = None,
                      image_size: int = 224,
                      aug_dtype: torch.dtype = torch.float32,
-                     attention: Attention = mha_qkv, use_mega: bool = False):
-    """One factory for the single-loader mixing family (``use_mega``: the
-    image tower through the block-fused layer kernels):
+                     attention: Attention = mha_qkv, use_mega: bool = False,
+                     accum: int = 1):
+    """One factory for the mixing family (``use_mega``: the image tower
+    through the block-fused layer kernels; ``accum``: microbatches a
+    step, the mix made on the whole batch first):
 
     cutmix       reference train_cutmix        utils/training.py:1422-1556
+    cutmix-fs    reference train_cutmix_fs2    :1701-1862 (the few-shot
+                 twin joined, then cutmix over the joined batch)
     mixup        reference train_mixup         :1164-1278
+    mixup-fs     reference train_mixup_fs      :1281-1401
     resizemix    reference train_resizemix     :2309-2455
     saliencymix  reference train_saliencymix2  :2169-2306 (per-image
                  lambdas, summed loss)
     attentivemix reference train_attentivemix2 :2672-2831 (model heatmap)
+    CMO          reference train_CMO           :1865-2005 (the box from an
+                 inverse-frequency twin batch)
     """
-    if method == "finetune":
-        raise ValueError("finetune is make_ce_step")
+    if method in ("finetune", "finetune-mixed"):
+        raise ValueError(f"{method} is make_ce_step")
     return _make_step(loss, make_mix_fn(method, heatmap_fn=heatmap_fn,
                                         image_size=image_size,
                                         aug_dtype=aug_dtype), attention,
-                      use_mega)
+                      use_mega, accum)
 
 
 def make_probing_step(loss: LossFn = cross_entropy,

@@ -68,6 +68,17 @@ def try_resume(state: TrainState, ckpt_dir: str, logger):
     return epoch
 
 
+def compose_twin(primary: Iterable[dict], twin_cycler, suffix: str = "_fs"):
+    """Merges each primary batch with the next batch of the cycled second
+    loader, its keys under ``suffix`` (the reference two-loader pattern,
+    utils/training.py:724-737)."""
+    for batch in primary:
+        twin = twin_cycler.next()
+        merged = dict(batch)
+        merged.update({f"{k}{suffix}": v for k, v in twin.items()})
+        yield merged
+
+
 def train_loop(*, cfg, state: TrainState, step_fn: Callable,
                sample_fn: Callable,
                train_batches: Callable[[], Iterable[dict]],

@@ -83,8 +83,6 @@ def test_unported_optimizer_options_raise():
     model = CLIPModel(cfg)
     head = torch.zeros(3, cfg.embed_dim)
     with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        create_train_state(model, head, "cutmix", optim_type="SGD")
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
         create_train_state(model, head, "FLYP")
 
 

@@ -187,9 +187,6 @@ def test_stage1_epochs0_matches_swat_tpu(setup, tmp_path):
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"accum": 2}, "--accum .*Queue A item 6"),
-    ({"remat": True}, "--remat .*Queue A item 6"),
-    ({"optim": "SGD"}, "--optim SGD .*Queue A item 6"),
     ({"test_imagenet_ood": True}, "--test_imagenet_ood .*Queue A item 8"),
 ])
 def test_unported_stage1_options_raise(setup, tmp_path, kw, match):

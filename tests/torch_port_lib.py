@@ -149,53 +149,82 @@ def cosine(a, b) -> np.ndarray:
                               * np.linalg.norm(b, axis=-1))
 
 
-def jax_step_draws(key, valid_hw, image_size: int, beta: float = 1.0,
-                   mix_prob: float = 0.5, crops: bool = True,
-                   method: str = "cutmix"):
-    """The random inputs the JAX package's step draws from ``key``, as the
-    port's StepDraws, mirroring make_mix_fn's key splits: key -> (k_aug,
-    _, k_mix); train_augment's (k_crop, k_flip); random_resized_crop's
-    per-sample keys into aug._sample_crop; then the method's own splits of
-    k_mix (``jax_mix_draws``).  ``beta`` is the method's Beta parameter
-    (cutmix_beta, or mixup_alpha for mixup)."""
+def _jax_crops(k_aug, valid_hw):
+    """The crop boxes and flips train_augment draws from ``k_aug``: its
+    (k_crop, k_flip) split and random_resized_crop's per-sample keys into
+    aug._sample_crop."""
     import jax
     import jax.numpy as jnp
 
     from swat_tpu.kernels import augment as jaug
     from swat_tpu_torch.kernels import augment as aug
+
+    b = valid_hw.shape[0]
+    k_crop, k_flip = jax.random.split(k_aug)
+    keys = jax.random.split(k_crop, b)
+    boxes = np.asarray([[int(x) for x in jaug._sample_crop(
+        keys[n], jnp.int32(valid_hw[n, 0]), jnp.int32(valid_hw[n, 1]),
+        aug.CROP_SCALE, aug.CROP_RATIO)] for n in range(b)])
+    flips = np.array(jax.random.bernoulli(k_flip, 0.5, (b, 1, 1, 1))
+                     ).reshape(b)
+    return aug.CropDraws(boxes, flips)
+
+
+def jax_step_draws(key, valid_hw, image_size: int, beta: float = 1.0,
+                   mix_prob: float = 0.5, crops: bool = True,
+                   method: str = "cutmix", twin_valid_hw=None):
+    """The random inputs the JAX package's step draws from ``key``, as the
+    port's StepDraws, mirroring make_mix_fn's key splits: key -> (k_aug,
+    k_aug2, k_mix); the batch's crops from k_aug and, when
+    ``twin_valid_hw`` (the twin batch's valid_hw) is given, the twin's
+    from k_aug2 (``_jax_crops``); then the method's own splits of k_mix
+    (``jax_mix_draws``), cutmix-fs's over the batch and its twin joined.
+    ``beta`` is the method's Beta parameter (cutmix_beta, or mixup_alpha
+    for mixup)."""
+    import jax
+
     from swat_tpu_torch.train.steps import StepDraws
 
     valid_hw = np.asarray(valid_hw)
     b = valid_hw.shape[0]
-    k_aug, _, k_mix = jax.random.split(key, 3)
-    crop_draws = None
+    k_aug, k_aug2, k_mix = jax.random.split(key, 3)
+    crop_draws = twin_crops = None
     if crops:
-        k_crop, k_flip = jax.random.split(k_aug)
-        keys = jax.random.split(k_crop, b)
-        boxes = np.asarray([[int(x) for x in jaug._sample_crop(
-            keys[n], jnp.int32(valid_hw[n, 0]), jnp.int32(valid_hw[n, 1]),
-            aug.CROP_SCALE, aug.CROP_RATIO)] for n in range(b)])
-        flips = np.array(jax.random.bernoulli(k_flip, 0.5, (b, 1, 1, 1))
-                         ).reshape(b)
-        crop_draws = aug.CropDraws(boxes, flips)
+        crop_draws = _jax_crops(k_aug, valid_hw)
+        if twin_valid_hw is not None:
+            twin_crops = _jax_crops(k_aug2, np.asarray(twin_valid_hw))
+    if method == "cutmix-fs":
+        b += len(twin_valid_hw)
     return StepDraws(crop_draws, jax_mix_draws(method, k_mix, b, image_size,
-                                               beta, mix_prob))
+                                               beta, mix_prob), twin_crops)
 
 
 def jax_mix_draws(method, k_mix, b, image_size, beta=1.0, mix_prob=0.5,
                   tau_range=(0.1, 0.8)):
     """The draws swat_tpu.kernels.augment.<method> makes from ``k_mix``, as
     the port's draws dataclass, each made with the same jax.random call on
-    the same sub-key."""
+    the same sub-key (cutmix-fs: cutmix's over the joined batch of ``b``;
+    CMO: cutmix_from's; mixup-fs: mixup_fs's)."""
     import jax
     import jax.numpy as jnp
 
     from swat_tpu.kernels import augment as jaug
     from swat_tpu_torch.kernels import augment as aug
 
-    if method == "finetune":
+    if method in ("finetune", "finetune-mixed"):
         return None
-    if method == "cutmix":
+    if method == "CMO":
+        k_gate, k_lam, k_box = jax.random.split(k_mix, 3)
+        gate = bool(jax.random.uniform(k_gate) < mix_prob)
+        lam0 = float(jaug._safe_beta(k_lam, beta))
+        box = tuple(int(x) for x in jaug._rand_bbox(
+            k_box, image_size, image_size, jnp.float32(lam0)))
+        return aug.CutmixFromDraws(gate, lam0, box)
+    if method == "mixup-fs":
+        k_gate, _ = jax.random.split(k_mix)
+        return aug.MixupFsDraws(
+            0.0 if bool(jax.random.uniform(k_gate) <= mix_prob) else 1.0)
+    if method in ("cutmix", "cutmix-fs"):
         k_gate, k_lam, k_perm, k_box = jax.random.split(k_mix, 4)
         gate = bool(jax.random.uniform(k_gate) < mix_prob)
         lam0 = float(jaug._safe_beta(k_lam, beta))
