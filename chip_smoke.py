@@ -22,8 +22,14 @@ PIL transform), attentivemix and mixup; stage 1 of the twin-loader methods
 through the CLI (cutmix-fs resident, mixup-fs, CMO resident with
 ``--utrain``, finetune-mixed with ``--optim SGD``) and cutmix with
 ``--accum 4`` and with ``--remat full``, each run's training launches
-counted exactly; one full-width step of each twin-loader method, kernel
-against plain attention; the cutmix step under every remat policy and
+counted exactly; stage 1 of REAL-Linear (streaming), CMLP (on a
+train-transform snapshot's features, and streaming with
+``--use_attribute``) and FLYP (on into stage 2, and with ``--locked_text
+--lr_projector``) through the CLI, their training launches counted exactly;
+one full-width step of each twin-loader method, kernel against plain
+attention; one full-width FLYP step (both towers, the text tower's causal
+attention through the kernels with a gradient), kernel against plain
+attention, timed, profiled and its peak memory; the cutmix step under every remat policy and
 gradient accumulation, its peak memory, time and launches, its gradients
 against no remat; then the three block-fused layer
 kernels (block
@@ -1328,6 +1334,117 @@ def phase_twin_step(ckpt, smi):
     return results
 
 
+def _prompt_tokens(rng, n, text_cfg):
+    """``n`` seeded token rows as the tokenizer makes them: the start
+    token, 3-40 word ids, the end token (the largest id, where the text
+    tower pools), zeros to the context length."""
+    import numpy as np
+
+    ctx, vocab = text_cfg.context_length, text_cfg.vocab_size
+    tokens = np.zeros((n, ctx), np.int64)
+    for i, length in enumerate(rng.integers(4, 42, n)):
+        tokens[i, 0] = vocab - 2
+        tokens[i, 1:length] = rng.integers(1, vocab - 2, length - 1)
+        tokens[i, length] = vocab - 1
+    return tokens
+
+
+def phase_flyp_step(ckpt, smi):
+    """One full-width ViT-B/32 FLYP step at bsz 256 (seeded canvases and
+    prompt rows on the card: augment, both towers forward and backward, the
+    [256, 256] contrastive loss both ways, AdamW over both towers), fp32
+    and bf16: the loss and the gradients of both towers, both projections
+    and logit_scale with the kernels against plain attention; one step with
+    the counts set to 0 just before it and read just after (12 image + 12
+    text causal launches of each packed-head kernel); after a warm-up step,
+    3 steps timed with the peak allocated memory over them, and 2 steps
+    profiled (busy time by kernel family, idle share of the window)."""
+    import numpy as np
+    import torch
+
+    from swat_tpu_torch.core.precision import DEFAULT_PRECISION, FP32_PRECISION
+    from swat_tpu_torch.kernels import flash_attention as FA
+    from swat_tpu_torch.train.losses import cross_entropy
+    from swat_tpu_torch.train.state import create_train_state
+    from swat_tpu_torch.train.steps import (make_flyp_loss, make_flyp_step,
+                                            make_sampler)
+
+    cfg, model, batch, head, rng = _train_setup(ckpt)
+    n_px = cfg.vision.image_size
+    layers = cfg.vision.layers + cfg.text.layers
+    batch["prompt_tokens"] = torch.from_numpy(
+        _prompt_tokens(rng, TRAIN_BSZ, cfg.text)).cuda()
+    draws = make_sampler("FLYP", image_size=n_px)(rng, batch)
+    results = {}
+    for dname, precision in (("float32", FP32_PRECISION),
+                             ("bfloat16", DEFAULT_PRECISION)):
+        precision.apply_backend_flags()
+        model.precision = precision
+        state = create_train_state(model, head, "FLYP", total_iter=100)
+        grads = {}
+        for attn_name, attn in (("kernel", FA.mha_qkv),
+                                ("plain", FA.mha_qkv_reference)):
+            state.optimizer.zero_grad(set_to_none=True)
+            loss = make_flyp_loss(cross_entropy, n_px, attn)(state, batch,
+                                                             draws)
+            loss.backward()
+            g = _visual_grads(model)
+            g["logit_scale"] = state.logit_scale.grad.detach().flatten()
+            grads[attn_name] = (loss.item(), g)
+        (lk, gk), (lp, gp) = grads["kernel"], grads["plain"]
+        n_text = sum(not n.startswith("visual.") for n in gk) - 1
+        cos, worst, share = _compare_grads(gk, gp)
+        del grads, gk, gp
+        state.optimizer.zero_grad(set_to_none=True)
+        step = make_flyp_step(image_size=n_px)
+        _reset_counts(FA)
+        val = float(step(state, batch, draws))
+        torch.cuda.synchronize()
+        counts = _counts(FA)
+        torch.cuda.reset_peak_memory_stats()
+        resting = torch.cuda.memory_allocated()
+        ms = _time_ms(lambda: step(state, batch, draws), iters=3, warmup=1)
+        peak = torch.cuda.max_memory_allocated()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            start.record()
+            for _ in range(2):
+                step(state, batch, draws)
+            end.record()
+            torch.cuda.synchronize()
+        window = start.elapsed_time(end) / 2
+        split, others = _device_split(prof, 2)
+        busy = sum(split.values())
+        need = (layers, layers, 0, 0)
+        ok = (np.isfinite(lk) and np.isfinite(val) and n_text > 0
+              and cos >= GRAD_MIN_COS[dname] and counts == need)
+        log(f"[flyp-step] {MODEL_CFG} FLYP bsz {TRAIN_BSZ} {dname}: loss "
+            f"kernel {lk:.6f} / plain {lp:.6f}; min cosine of the gradients "
+            f"of both towers ({n_text} text tensors), both projections and "
+            f"logit_scale kernel vs plain = {cos:.8f} ({worst}; bound "
+            f"{GRAD_MIN_COS[dname]}), bit-equal share {share:.4f}; launches "
+            f"fwd {counts[0]} bwd {counts[1]} heads-first "
+            f"{counts[2]}/{counts[3]} (need {need}); {ms:.2f} ms/step "
+            f"({TRAIN_BSZ * 1e3 / ms:.1f} image-text pairs/s), peak "
+            f"{peak / 2 ** 30:.3f} GiB allocated (at rest "
+            f"{resting / 2 ** 30:.3f}); profiled: {busy:.2f} ms busy of a "
+            f"{window:.2f} ms window (idle {100 * (1 - busy / window):.1f} %; "
+            + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+            + "; largest 'other': "
+            + "; ".join(f"{t:.2f} {n}" for t, n in others[:3])
+            + f") on {smi} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"FLYP step failed ({dname}): {counts}")
+        results[dname] = (ms, peak, busy, window)
+        del state, step
+    del model
+    torch.cuda.empty_cache()
+    return results
+
+
 # the remat / accum policies of the [memory] phase: (name, remat, accum)
 MEMORY_POLICIES = (("none", False, 1), ("full", "full", 1),
                    ("first4", "first4", 1), ("dots", "dots", 1),
@@ -1832,6 +1949,85 @@ def phase_twin_cli(workdir, ckpt, dataset, smi):
                                  f"{want_resident}")
         if method == "CMO" and f"({N_PSEUDO} samples)" not in run["out"]:
             raise AssertionError("--utrain samples were not loaded")
+        total = [t + c for t, c in zip(total, run["counts"])]
+    return total
+
+
+# the attribute corpus of CMLP --use_attribute, each class's
+ATTRIBUTES = ("Has a smooth surface", "round shape", "bright color")
+# the frozen methods and FLYP through the CLI: (method, bsz, extra flags,
+# tag, through stage 2).  CMLP halves its batch; the bank of 10 class
+# prompts (one template) gives a batch of 8 text rows, the attribute bank's
+# 40 a batch of 16
+METHOD_CLI_RUNS = (
+    ("REAL-Linear", FLAGSHIP_BSZ, (), "", False),
+    ("CMLP", 16, ("--pre_extracted",), "_pre_extracted", False),
+    ("CMLP", FLAGSHIP_BSZ, ("--use_attribute", "True"), "_use_attribute",
+     False),
+    ("FLYP", FLAGSHIP_BSZ, (), "_stage2", True),
+    ("FLYP", FLAGSHIP_BSZ, ("--locked_text", "--lr_projector", "1e-5"),
+     "_locked_text", False))
+
+
+def _method_need(method, extra, steps, cfg, n_prompts):
+    """The exact launch counts (mha_fwd, mha_bwd, heads-first) of stage
+    1's training steps: the probes encode without a graph when they stream
+    (none on a snapshot's features); FLYP encodes and differentiates both
+    towers, the text tower only where it trains (not under --locked_text:
+    text_projection's gradient needs no backward through the tower), and
+    rebuilds its head from the prompts, in batches of 1024, once (its one
+    validating epoch)."""
+    import math
+
+    lv, lt = cfg.vision.layers, cfg.text.layers
+    if method == "FLYP":
+        bwd_text = 0 if "--locked_text" in extra else lt
+        return ((lv + lt) * steps + lt * math.ceil(n_prompts / 1024),
+                (lv + bwd_text) * steps, 0, 0)
+    if "--pre_extracted" in extra:
+        return (0, 0, 0, 0)
+    return (lv * steps, 0, 0, 0)
+
+
+def phase_method_cli(workdir, ckpt, dataset, smi):
+    """Stage 1 of REAL-Linear (streaming), CMLP (a snapshot's features;
+    streaming with --use_attribute over an attribute file written into the
+    dataset) and FLYP (on into stage 2; --locked_text --lr_projector 1e-5)
+    through swat_tpu_torch.cli.main at full width, fp32, 2 epochs.  Each
+    run's summary line, loss.csv rows and output files are checked, its
+    training steps' launches exactly (_method_need).  -> the four counts
+    summed over the runs."""
+    import os
+
+    from swat_tpu_torch.models.configs import get_model_config
+
+    cfg = get_model_config(MODEL_CFG)
+    n_classes = 10
+    attrs = {str(c): {"corpus": list(ATTRIBUTES)} for c in range(n_classes)}
+    os.makedirs(f"{workdir}/{dataset}/prompts", exist_ok=True)
+    with open(f"{workdir}/{dataset}/prompts/visual-attrs-{dataset}.json",
+              "w") as f:
+        json.dump(attrs, f)
+    total = [0, 0, 0, 0]
+    for method, bsz, extra, tag, stage2 in METHOD_CLI_RUNS:
+        run = _train_cli_run(workdir, ckpt, dataset, method, "float32",
+                             "auto", smi, extra, bsz=bsz, tag=tag,
+                             rows_want=22 if stage2 else 2, stage2=stage2)
+        step_bsz = bsz // 2 if method == "CMLP" else bsz
+        steps = 2 * ((N_FEWSHOT + N_RETRIEVED) // step_bsz)
+        need = _method_need(method, extra, steps, cfg, n_classes)
+        train = run["loops"][0]
+        ok = train == need and all(c >= n for c, n in
+                                   zip(run["counts"], need))
+        if method == "CMLP" and "--use_attribute" in extra:
+            ok = ok and "CMLP: attribute prompts from" in run["out"]
+        log(f"[train-cli] {method}{tag}: stage-1 steps launched {train} "
+            f"(need {need}: {steps} steps at bsz {step_bsz}); the whole run "
+            f"{run['counts']} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{method}{tag} did not go through the "
+                                 f"attention kernels as counted: {train}, "
+                                 f"{run['counts']}")
         total = [t + c for t, c in zip(total, run["counts"])]
     return total
 
@@ -2394,8 +2590,11 @@ def main() -> int:
         cli_counts, stage2_counts = phase_train_cli(workdir, ckpt,
                                                     "smoke10", smi)
         twin_counts = phase_twin_cli(workdir, ckpt, "smoke10", smi)
-        cli_counts = [c + t for c, t in zip(cli_counts, twin_counts)]
+        method_counts = phase_method_cli(workdir, ckpt, "smoke10", smi)
+        cli_counts = [c + t + m for c, t, m in zip(cli_counts, twin_counts,
+                                                   method_counts)]
         phase_twin_step(ckpt, smi)
+        phase_flyp_step(ckpt, smi)
         phase_memory(ckpt, smi)
         worst_mega = phase_mega_kernels()
         times_mega = phase_mega_timing(smi)

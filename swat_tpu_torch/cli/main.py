@@ -14,9 +14,10 @@ does nothing (the kernels always run on the card); ``--remat`` and
 in ``swat_tpu``); a mesh other than one device raises.  Ported so far:
 ``--method zeroshot``; stage 1 of ``--method finetune`` / ``cutmix`` /
 ``mixup`` / ``resizemix`` / ``saliencymix`` / ``attentivemix`` /
-``finetune-mixed`` / ``cutmix-fs`` / ``mixup-fs`` / ``CMO`` / ``probing``
-(``--aug_mode canvas | host | eval``), with ``--optim AdamW | SGD`` and
-``--utrain``; stage 2 (probing, then few-shot finetuning), or
+``finetune-mixed`` / ``cutmix-fs`` / ``mixup-fs`` / ``CMO`` / ``probing`` /
+``REAL-Linear`` / ``CMLP`` (``--use_attribute``) / ``FLYP``
+(``--locked_text``, ``--lr_projector``) (``--aug_mode canvas | host |
+eval``), with ``--optim AdamW | SGD`` and ``--utrain``; stage 2 (probing, then few-shot finetuning), or
 ``--skip_stage2``; ``--skip_stage1 --stage1_model_path``, ``--model_path``,
 ``--save_ckpt`` / ``--resume``.  The ``.msgpack`` bundles are those of
 ``swat_tpu``: either package reads the other's.

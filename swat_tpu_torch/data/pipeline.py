@@ -22,7 +22,7 @@ import concurrent.futures as cf
 import queue
 import threading
 import zlib
-from typing import Dict, Iterator, List, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -186,11 +186,16 @@ class TrainLoader:
     (``host_train_preprocess``), one generator an image, seeded from the
     loader's own draws after each batch's order, as in ``swat_tpu``.
     mode='eval': the deterministic eval preprocess applied to train batches
-    (the lock-step harness)."""
+    (the lock-step harness).
+    ``tokenized_prompts`` (class id -> [n, context] token rows; FLYP): each
+    batch also carries ``prompt_tokens`` [B, context] int32, one row of its
+    class's prompts a sample, drawn from the loader's own generator after
+    the batch's images and host-aug seeds, as in ``swat_tpu``."""
 
     def __init__(self, samples: Sequence[Sample], batch_size: int = 32,
                  seed: int = 1, mode: str = "canvas", n_px: int = 224,
-                 num_workers: int = 16):
+                 num_workers: int = 16,
+                 tokenized_prompts: Optional[Dict[str, np.ndarray]] = None):
         if mode not in ("canvas", "host", "eval"):
             raise ValueError(f"unknown --aug_mode {mode!r}")
         if batch_size > len(samples):
@@ -202,6 +207,7 @@ class TrainLoader:
         self.mode = mode
         self.n_px = n_px
         self.num_workers = max(1, num_workers)
+        self.tokenized_prompts = tokenized_prompts
         self._rng = np.random.default_rng(seed)
 
     def __len__(self):
@@ -235,6 +241,12 @@ class TrainLoader:
                             load_image(task[0].path),
                             np.random.default_rng(task[1]), self.n_px),
                         zip(chunk, seeds)))).astype(np.float32)
+                if self.tokenized_prompts is not None:
+                    rows = [self.tokenized_prompts[str(s.label)]
+                            for s in chunk]
+                    batch["prompt_tokens"] = np.stack(
+                        [r[self._rng.integers(r.shape[0])] for r in rows]
+                    ).astype(np.int32)
                 yield batch
 
     def __iter__(self):

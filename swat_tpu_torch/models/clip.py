@@ -31,8 +31,9 @@ On the CPU the same Function runs the kernels' plain PyTorch twins.
 heatmaps' forward, takes the heads-first route
 (``kernels.attention.heads_first_attention``), the counterpart of the Flax
 towers' ``use_pallas=True`` attention: the heads-first forward kernel on
-the card, in both precision policies too.  Training differentiates the image
-tower only: the train state turns ``requires_grad`` off for the text tower.
+the card, in both precision policies too.  Training differentiates what the
+train state leaves ``requires_grad`` on: the image tower, and for FLYP the
+text tower too (its causal attention's gradient is the backward kernel's).
 
 Remat (``CLIPModel(remat=...)``, ``--remat``; ``resolve_remat_policy``)
 recomputes blocks in the backward through ``torch.utils.checkpoint``

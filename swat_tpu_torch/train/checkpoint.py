@@ -201,8 +201,11 @@ def load_train_ckpt(path: str, state):
     opt = arrays.get("opt_state")
     kind = type(state.optimizer).__name__
     slot = "momentum_buffer" if kind == "SGD" else "exp_avg"
-    if not isinstance(opt, dict) or not isinstance(opt.get("head"), dict) \
-            or slot not in opt["head"]:
+    # the head or, for FLYP (whose head is rebuilt, not trained),
+    # logit_scale is in every port optimizer
+    if not isinstance(opt, dict) or not any(
+            isinstance(opt.get(k), dict) and slot in opt[k]
+            for k in ("head", "logit_scale")):
         raise ValueError(
             f"{path} does not hold the port's {kind} state (a checkpoint of "
             "swat_tpu, or of a run with the other --optim?); train "

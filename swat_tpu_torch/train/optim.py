@@ -18,17 +18,15 @@ utils/optimizers.py:
   decay added to the gradient before the momentum (optax's
   ``add_decayed_weights`` -> ``trace(0.9)`` -> the learning rate);
 * groups by label: the visual tower at lr_backbone, head and logit_scale at
-  lr_classifier.  Frozen tensors (the text tower) are in no group, so they
-  get neither update nor decay (optax's ``set_to_zero``).
-
-The labeling of FLYP is not ported yet (ROADMAP Queue A item 6b):
-``label_params`` knows the finetune family (every mix among them) and the
-frozen methods, and raises for the rest.
+  lr_classifier, FLYP's two projections (``visual.proj``,
+  ``text_projection``) at lr_projector, or lr_backbone when it is None.
+  Frozen tensors (the text tower of the finetune family) are in no group,
+  so they get neither update nor decay (optax's ``set_to_zero``).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -71,37 +69,56 @@ def default_warmup_lr(lr_backbone: float) -> float:
     return 1e-5 if lr_backbone > 5e-5 else 1e-6
 
 
-def label_params(model: nn.Module, method: str) -> Dict[str, str]:
-    """Parameter name -> 'backbone' | 'frozen' for the model's own tensors
-    (reference set_params, utils/optimizers.py:38-81): finetune methods
-    train the visual tower and lock the text tower; frozen methods lock
-    both.  The CLIP module's own logit_scale is never trained: the train
-    state carries its own (``state.init_logit_scale``)."""
+def label_params(model: nn.Module, method: str,
+                 locked_text: bool = False) -> Dict[str, str]:
+    """Parameter name -> 'backbone' | 'projector' | 'frozen' for the
+    model's own tensors (reference set_params, utils/optimizers.py:38-120):
+    finetune methods train the visual tower and lock the text tower; frozen
+    methods lock both; FLYP trains both towers, its two projections as
+    'projector', and under ``locked_text`` locks the text tower but for
+    ``text_projection`` (the reference's lock_text_tower freezes it too,
+    then its FLYP branch re-enables both projections, :103-120).  The CLIP
+    module's own logit_scale is never trained: the train state carries its
+    own (``state.init_logit_scale``)."""
+    names = [n for n, _ in model.named_parameters()]
     if method in FROZEN_METHODS:
-        return {n: "frozen" for n, _ in model.named_parameters()}
+        return {n: "frozen" for n in names}
     if method in FINETUNE_METHODS:
         return {n: "backbone" if n.startswith("visual.") else "frozen"
-                for n, _ in model.named_parameters()}
-    raise NotImplementedError(
-        f"--method {method}: its parameter groups are not ported to "
-        "swat_tpu_torch yet (see ROADMAP, Queue A item 6); run it with "
-        "swat_tpu")
+                for n in names}
+    if method == "FLYP":
+        def label(n):
+            if n in ("visual.proj", "text_projection"):
+                return "projector"
+            if n.startswith("visual."):
+                return "backbone"
+            if n == "logit_scale" or locked_text:
+                return "frozen"
+            return "backbone"
+
+        return {n: label(n) for n in names}
+    raise NotImplementedError(f"Method {method} not implemented.")
 
 
 def build_optimizer(groups: Dict[str, List[torch.Tensor]], *,
                     lr_classifier: float, lr_backbone: float,
                     total_iter: int, wd: float = 1e-2,
-                    optim_type: str = "AdamW") -> torch.optim.Optimizer:
+                    optim_type: str = "AdamW",
+                    lr_projector: Optional[float] = None
+                    ) -> torch.optim.Optimizer:
     """AdamW (or, for ``optim_type`` 'SGD', SGD with momentum) over the
-    labeled groups {'backbone': [...], 'head': [...]} (empty groups are
-    left out); each param group carries its ``schedule``, applied by
-    ``set_lr`` before every step."""
+    labeled groups {'backbone': [...], 'projector': [...], 'head': [...]}
+    (empty groups are left out); each param group carries its
+    ``schedule``, applied by ``set_lr`` before every step.  Every group
+    warms up from ``default_warmup_lr(lr_backbone)``."""
     if optim_type not in ("AdamW", "SGD"):
         raise ValueError(f"--optim must be AdamW or SGD; got {optim_type!r}")
     warmup_lr = default_warmup_lr(lr_backbone)
-    base = {"backbone": lr_backbone, "head": lr_classifier}
+    base = {"backbone": lr_backbone, "head": lr_classifier,
+            "projector": (lr_projector if lr_projector is not None
+                          else lr_backbone)}
     param_groups = []
-    for label in ("backbone", "head"):
+    for label in ("backbone", "projector", "head"):
         if groups.get(label):
             schedule = make_lr_schedule(base[label], total_iter,
                                         warmup_lr=warmup_lr)

@@ -6,24 +6,29 @@ class prompts with the text tower and makes the zero-shot head from the
 prompt means.  ``--method zeroshot`` validates the test split and prints
 the reference's zero-shot summary line.  ``--method finetune``, the
 single-loader mixes (cutmix, mixup, resizemix, saliencymix, attentivemix),
-the twin-loader methods (finetune-mixed, cutmix-fs, mixup-fs, CMO) and
-linear probing (on pre-extracted features or streamed) run stage 1: the
-epochs (streaming or resident), WiSE-FT, feature re-extraction with the
-best weights, test scores, tau-normalization and the stage-1 bundle.
+the twin-loader methods (finetune-mixed, cutmix-fs, mixup-fs, CMO), the
+linear probes (probing, REAL-Linear and CMLP, on pre-extracted features or
+streamed; CMLP joins a batch of prompt embeddings to each, ``--use_attribute``
+adds the attribute prompts) and FLYP (both towers, streaming; its head
+rebuilt from the text tower on each validating epoch; ``--locked_text``,
+``--lr_projector``) run stage 1: the epochs (streaming or resident),
+WiSE-FT, feature re-extraction with the best weights, test scores,
+tau-normalization and the stage-1 bundle.
 ``--accum``, ``--remat``, ``--optim SGD`` and ``--utrain`` (pseudo-labeled
 samples appended to the train split) apply as in ``swat_tpu``.
 Stage 2 starts from that bundle (or from ``--stage1_model_path`` with
 ``--skip_stage1``): probing on the few-shot train-transform snapshot's
 features, then few-shot finetuning; the 11-field summary line follows.  ``--model_path`` warm-starts stage 1,
 ``--save_ckpt`` / ``--resume`` write and restore train checkpoints.  The
-other methods (FLYP, CMLP, REAL-Linear, fixmatch, multitask, dataset-cls)
-and options raise NotImplementedError naming their ROADMAP item.
+other methods (fixmatch, multitask, dataset-cls) and options raise
+NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import json
 import os
 import time
 from typing import Dict, Optional, Tuple
@@ -71,10 +76,12 @@ from swat_tpu_torch.train.resident import (ResidentData, epoch_permutation,
                                            make_resident_epoch,
                                            twin_permutation)
 from swat_tpu_torch.train.state import create_train_state
-from swat_tpu_torch.train.steps import (ACCUM_METHODS, RESIDENT_METHODS,
-                                        STEP_METHODS, TWIN_METHODS,
-                                        make_ce_step, make_mixing_step,
-                                        make_probing_step, make_sampler)
+from swat_tpu_torch.train.steps import (ACCUM_METHODS, FROZEN_STEP_METHODS,
+                                        RESIDENT_METHODS, STEP_METHODS,
+                                        TWIN_METHODS, make_ce_step,
+                                        make_cmlp_step, make_flyp_step,
+                                        make_mixing_step, make_probing_step,
+                                        make_sampler)
 from swat_tpu_torch.train.trainer import compose_twin, train_loop
 
 
@@ -189,6 +196,11 @@ class SwatPipeline:
 
         # ---- prompts (reference set_prompt, utils/prompt.py:71-80)
         self.prompt_tensors = self._build_prompts()
+        # CMLP --use_attribute's text bank, encoded by the pretrained text
+        # tower whatever --model_path loads later, as swat_tpu encodes it
+        self.attribute_tensors = (
+            self._encode_attribute_prompts()
+            if cfg.method == "CMLP" and cfg.use_attribute else None)
 
         # ---- classifier head (reference set_classifier,
         # utils/models.py:22-43)
@@ -227,6 +239,8 @@ class SwatPipeline:
                         cls_num_list=cls_num_list)
 
     def _build_prompts(self):
+        """The class prompts' embeddings (cached); their token rows stay on
+        the pipeline as ``tokenized_prompts`` (FLYP's batches and head)."""
         cfg = self.cfg
         metrics = P.load_class_metrics(cfg.metrics_file)
         self.logger.info(f"Loaded metrics from: {cfg.metrics_file}")
@@ -234,6 +248,7 @@ class SwatPipeline:
         tokenized = P.tokenize_prompts(
             text_prompts, self.tokenizer,
             self.model_cfg.text.context_length)
+        self.tokenized_prompts = tokenized
         # the JAX package's cache path: the two packages read each other's
         # prompt tensors unless --recal_prompt
         cache = os.path.join(
@@ -371,14 +386,14 @@ class SwatPipeline:
 
     def train_method(self, cfg: RunConfig, head: torch.Tensor):
         """The epochs of ``cfg.method`` (finetune, a mix, a twin-loader
-        method or a probe) from the model's current weights and ``head``
-        -> (final state, BestSnapshot)."""
+        method, a probe or FLYP) from the model's current weights and
+        ``head`` -> (final state, BestSnapshot)."""
         method = cfg.method
         logger = self.logger
         loss = self._loss(cfg)
         image_size = self.model_cfg.vision.image_size
         samples = self._train_samples(cfg)
-        frozen = method == "probing"
+        frozen = method in FROZEN_STEP_METHODS
         if cfg.accum > 1 and method not in ACCUM_METHODS:
             raise ValueError(
                 f"--accum only supports the CE/mixing methods, not "
@@ -427,7 +442,9 @@ class SwatPipeline:
             train_loader = TrainLoader(
                 samples, batch_size=cfg.bsz, seed=cfg.training_seed,
                 mode=cfg.aug_mode, n_px=image_size,
-                num_workers=cfg.num_workers)
+                num_workers=cfg.num_workers,
+                tokenized_prompts=(self.tokenized_prompts
+                                   if method == "FLYP" else None))
 
         # the twin-loader methods' second batch: for CMO the train split
         # drawn with inverse class frequencies, else the few-shot split
@@ -482,14 +499,19 @@ class SwatPipeline:
         state = create_train_state(
             self.model, head, method, lr_classifier=cfg.lr_classifier,
             lr_backbone=cfg.lr_backbone, total_iter=total_iter, wd=cfg.wd,
-            optim_type=cfg.optim, temperature=cfg.temperature)
+            optim_type=cfg.optim, lr_projector=cfg.lr_projector,
+            temperature=cfg.temperature, locked_text=cfg.locked_text)
 
         heatmap_fn = (self._heatmap_fn() if method == "attentivemix"
                       else None)
 
         def make_step(aug_dtype, accum):
+            if method == "CMLP":
+                return make_cmlp_step(loss, cfg.pre_extracted, image_size)
             if frozen:
                 return make_probing_step(loss, cfg.pre_extracted, image_size)
+            if method == "FLYP":
+                return make_flyp_step(loss, image_size)
             if method in ("finetune", "finetune-mixed"):
                 return make_ce_step(loss, image_size, aug_dtype,
                                     concat_fs=method == "finetune-mixed",
@@ -498,7 +520,7 @@ class SwatPipeline:
                                     image_size=image_size,
                                     aug_dtype=aug_dtype, accum=accum)
 
-        sample = make_sampler("probing" if frozen else method,
+        sample = make_sampler(method,
                               mixup_alpha=cfg.mixup_alpha,
                               cutmix_beta=cfg.cutmix_beta,
                               mix_prob=cfg.mix_prob, image_size=image_size)
@@ -508,6 +530,20 @@ class SwatPipeline:
 
             def train_batches():
                 return compose_twin(iter(train_loader), twin_cycler)
+        elif method == "CMLP":
+            # a batch of the flattened prompt bank joins each batch
+            # (swat_tpu/train/stages.py:546-567, :634-641)
+            bank = (self.attribute_tensors if cfg.use_attribute
+                    else self.prompt_tensors)
+            text_cycler = CyclingLoader(FeatureBatches(
+                *flatten_prompt_bank(bank), batch_size=cfg.bsz,
+                shuffle=True, drop_last=True, seed=cfg.training_seed))
+
+            def train_batches():
+                for batch in train_loader:
+                    text = text_cycler.next()
+                    yield dict(batch, text_features=text["features"],
+                               text_labels=text["labels"])
         else:
             def train_batches():
                 return iter(train_loader)
@@ -573,7 +609,36 @@ class SwatPipeline:
             steps_per_epoch=steps_per_epoch, validate_fn=validate_fn,
             test_fn=test_fn, logger=logger, loss_logger=self.loss_logger,
             epoch_runner=epoch_runner,
-            ckpt_dir=os.path.join(cfg.output_dir, "model_ckpts"))
+            ckpt_dir=os.path.join(cfg.output_dir, "model_ckpts"),
+            post_epoch=self._flyp_post_epoch if method == "FLYP" else None)
+
+    def _encode_attribute_prompts(self):
+        """The attribute-augmented class prompts of
+        ``<dataset_root>/prompts/visual-attrs-<dataset>.json`` (reference
+        set_text_dataloader, utils/dataloader.py:257-266), encoded by the
+        model's text tower -> class id -> {'all', 'mean'}."""
+        cfg = self.cfg
+        path = os.path.join(cfg.dataset_root, "prompts",
+                            f"visual-attrs-{cfg.dataset}.json")
+        with open(path) as f:
+            attributes = json.load(f)
+        prompts = P.make_attribute_prompts(
+            P.load_class_metrics(cfg.metrics_file), cfg.dataset, attributes,
+            cfg.prompt_name)
+        tokenized = P.tokenize_prompts(prompts, self.tokenizer,
+                                       self.model_cfg.text.context_length)
+        self.logger.info(f"CMLP: attribute prompts from {path}")
+        return encode_prompts(make_text_encoder(self.model), tokenized)
+
+    def _flyp_post_epoch(self, state, epoch: int) -> None:
+        """FLYP's head, rebuilt in place from the trained text tower
+        (reference build_classifier_head, utils/models.py:75-82;
+        ``swat_tpu``'s ``_flyp_post_epoch``)."""
+        tensors = encode_prompts(make_text_encoder(state.model),
+                                 self.tokenized_prompts)
+        with torch.no_grad():
+            state.head.copy_(torch.from_numpy(
+                P.class_embedding_matrix(tensors)))
 
     def _heatmap_fn(self):
         """CLIP heatmap for attentivemix, the replacement for the
@@ -921,13 +986,19 @@ class SwatPipeline:
 
     def _check_ported(self) -> None:
         """Raise before any work for the parts of a run that are not
-        ported yet."""
+        ported yet, or that cannot run."""
         cfg = self.cfg
         if cfg.method == "zeroshot" or cfg.zeroshot_only:
             return
         if not cfg.skip_stage1 and cfg.method not in STEP_METHODS:
             raise _not_ported(f"--method {cfg.method} training",
                               "Queue A item 6")
+        if (not cfg.skip_stage1 and cfg.method == "CMLP"
+                and cfg.loss_name == "WeightedCE"):
+            # swat_tpu fails inside its first step there (ROADMAP Queue C)
+            raise ValueError(
+                "--method CMLP cannot take --loss_name WeightedCE: its "
+                "text rows carry no source flag to weight by")
         if cfg.test_imagenet_ood:
             raise _not_ported("--test_imagenet_ood", "Queue A item 8")
 
@@ -963,3 +1034,16 @@ class SwatPipeline:
         logger.info(summary)
         print(summary)
         return summary
+
+
+def flatten_prompt_bank(prompt_tensors) -> Tuple[np.ndarray, np.ndarray]:
+    """Every prompt embedding and its class label, the classes in integer
+    order (reference TextTensorDataset,
+    utils/datasets/dataset_utils.py:258-279; ``swat_tpu``'s
+    ``_flatten_prompt_bank``)."""
+    feats, labels = [], []
+    for cid in sorted(prompt_tensors, key=int):
+        f = np.asarray(prompt_tensors[cid]["all"])
+        feats.append(f)
+        labels.append(np.full(f.shape[0], int(cid), np.int32))
+    return np.concatenate(feats, 0), np.concatenate(labels, 0)

@@ -12,6 +12,7 @@ optimizer group.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -48,13 +49,19 @@ def init_logit_scale(method: str, temperature: float = 0.07) -> float:
     return LOG100
 
 
-def make_labels(model: CLIPModel, method: str) -> dict:
+def make_labels(model: CLIPModel, method: str,
+                locked_text: bool = False) -> dict:
     """Labels of the trainable set: {'model': {name: label}, 'head':
-    'head', 'logit_scale': 'head' | 'frozen'}.  fixmatch's loss never
-    reads logit_scale, so it stays out of the optimizer (no phantom
-    decay), as in the JAX package."""
+    'head' | 'frozen', 'logit_scale': 'head' | 'frozen'}.  FLYP's head is
+    rebuilt from the text tower (``stages._flyp_post_epoch``), not
+    trained: it is in no optimizer group, so AdamW does not decay it with
+    zero gradients (the reference's optimizer holds no head there,
+    utils/optimizers.py:83-120).  fixmatch's loss never reads logit_scale,
+    so it stays out of the optimizer (no phantom decay) too, as in the JAX
+    package."""
     trains = trains_logit_scale(method) and method != "fixmatch"
-    return {"model": label_params(model, method), "head": "head",
+    return {"model": label_params(model, method, locked_text),
+            "head": "frozen" if method == "FLYP" else "head",
             "logit_scale": "head" if trains else "frozen"}
 
 
@@ -63,28 +70,32 @@ def create_train_state(model: CLIPModel, head: torch.Tensor, method: str, *,
                        lr_backbone: float = 1e-6,
                        total_iter: int = 1000, wd: float = 1e-2,
                        optim_type: str = "AdamW",
-                       temperature: float = 0.07) -> TrainState:
+                       lr_projector: Optional[float] = None,
+                       temperature: float = 0.07,
+                       locked_text: bool = False) -> TrainState:
     """Marks the model's frozen tensors (``requires_grad`` off), copies the
     head and makes logit_scale on the model's device, and builds the
     optimizer (``optim_type``: AdamW or SGD) over the labeled groups."""
-    labels = make_labels(model, method)
-    groups = {"backbone": [], "head": []}
+    labels = make_labels(model, method, locked_text)
+    groups = {"backbone": [], "projector": [], "head": []}
     for name, p in model.named_parameters():
-        trained = labels["model"][name] == "backbone"
-        p.requires_grad_(trained)
-        if trained:
-            groups["backbone"].append(p)
+        label = labels["model"][name]
+        p.requires_grad_(label != "frozen")
+        if label != "frozen":
+            groups[label].append(p)
     device = model.logit_scale.device
     head_p = nn.Parameter(torch.as_tensor(head).detach().to(
-        device=device, dtype=torch.float32).clone())
+        device=device, dtype=torch.float32).clone(),
+        requires_grad=labels["head"] == "head")
     scale_p = nn.Parameter(torch.tensor(init_logit_scale(method, temperature),
                                         dtype=torch.float32, device=device),
                            requires_grad=labels["logit_scale"] == "head")
-    groups["head"].append(head_p)
-    if scale_p.requires_grad:
-        groups["head"].append(scale_p)
+    for p in (head_p, scale_p):
+        if p.requires_grad:
+            groups["head"].append(p)
     optimizer = build_optimizer(groups, lr_classifier=lr_classifier,
                                 lr_backbone=lr_backbone,
                                 total_iter=total_iter, wd=wd,
-                                optim_type=optim_type)
+                                optim_type=optim_type,
+                                lr_projector=lr_projector)
     return TrainState(model, head_p, scale_p, optimizer)

@@ -1,5 +1,6 @@
-"""Train steps of the finetune and mixing families and of linear probing
-(counterpart of ``swat_tpu/train/steps.py:48-222,254-400``).
+"""Train steps of the finetune and mixing families, of linear probing
+(probing, REAL-Linear), cross-modal probing (CMLP) and FLYP (counterpart
+of ``swat_tpu/train/steps.py:48-251,254-434``).
 
 One step: on-device augmentation (random-resized-crop / flip / normalize
 from uint8 canvases, when the batch carries them), the method's mix, the
@@ -13,9 +14,12 @@ Every random quantity comes in as explicit draws (``StepDraws``), made on
 the host by ``make_sampler`` from a ``numpy.random.Generator``; tests feed
 the JAX package's own draws instead.  Ported: ``finetune``, the
 single-loader mixes, the twin-loader methods (``TWIN_METHODS``: the second
-loader's batch rides in the batch under ``_fs`` keys) and ``probing``
-(``make_probing_step``: the head alone on pre-extracted or freshly encoded
-features).  ``accum > 1`` mixes the whole batch, then encodes and
+loader's batch rides in the batch under ``_fs`` keys), ``probing`` and
+REAL-Linear (``make_probing_step``: the head alone on pre-extracted or
+freshly encoded features), CMLP (``make_cmlp_step``: the same with a batch
+of prompt embeddings joined to the image features) and FLYP
+(``make_flyp_step``: both towers trained by the batch's [B, B] image-text
+contrastive loss).  ``accum > 1`` mixes the whole batch, then encodes and
 differentiates it in that many microbatches, summing their gradients.
 """
 
@@ -47,8 +51,10 @@ RESIDENT_METHODS = ("finetune", "cutmix", "mixup", "resizemix",
                     "saliencymix") + TWIN_METHODS
 # the methods whose gradient decomposes over microbatches (--accum)
 ACCUM_METHODS = MIX_METHODS + TWIN_METHODS
+# the methods that train the head alone on frozen towers
+FROZEN_STEP_METHODS = ("probing", "REAL-Linear", "CMLP")
 # every method whose step is ported
-STEP_METHODS = ACCUM_METHODS + ("probing",)
+STEP_METHODS = ACCUM_METHODS + FROZEN_STEP_METHODS + ("FLYP",)
 
 MixDraws = Union[aug.CutmixDraws, aug.CutmixFromDraws, aug.MixupDraws,
                  aug.MixupFsDraws, aug.ResizemixDraws, aug.PeakMixDraws]
@@ -84,9 +90,9 @@ def make_sampler(method: str, *, mixup_alpha: float = 1.0,
                  image_size: int = 224):
     """sample(rng, batch) -> StepDraws for a batch whose ``valid_hw`` (if
     it carries canvases) is a host array.  Draw order: crops, flips, the
-    twin's crops and flips, mix (probing draws no mix).  cutmix-fs's
-    permutation spans the batch and its twin joined."""
-    if method != "probing":
+    twin's crops and flips, mix (the frozen methods and FLYP draw no mix).
+    cutmix-fs's permutation spans the batch and its twin joined."""
+    if method not in FROZEN_STEP_METHODS + ("FLYP",):
         _check_method(method)
 
     def sample(rng: np.random.Generator, batch: Mapping) -> StepDraws:
@@ -221,16 +227,23 @@ def make_encode_loss(loss: LossFn, attention: Attention = mha_qkv,
     return encode_loss
 
 
+# the batch keys a step reads; the integer ones go to the device as int64
+_STEP_KEYS = ("canvases", "images", "features", "labels", "source",
+              "prompt_tokens", "text_features", "text_labels")
+_LONG_KEYS = ("labels", "prompt_tokens", "text_labels")
+
+
 def batch_to_device(batch: Mapping, device: torch.device) -> dict:
     """The arrays a step reads, the twin's *_fs keys included, as tensors
-    on ``device`` (labels as int64); tensors already there pass through."""
+    on ``device`` (labels and tokens as int64); tensors already there pass
+    through."""
     out = {}
     for suffix in ("", "_fs"):
-        for key in ("canvases", "images", "features", "labels", "source"):
+        for key in _STEP_KEYS:
             if key + suffix in batch:
                 t = torch.as_tensor(batch[key + suffix])
                 out[key + suffix] = t.to(
-                    device, torch.long if key == "labels" else None,
+                    device, torch.long if key in _LONG_KEYS else None,
                     non_blocking=True)
     return out
 
@@ -342,35 +355,115 @@ def make_mixing_step(method: str, loss: LossFn = cross_entropy, *,
                       use_mega, accum)
 
 
+def _train_images(batch, draws: StepDraws, image_size: int):
+    """The batch's canvases augmented on the device with its crop draws,
+    or its host-augmented images."""
+    if "canvases" in batch:
+        return aug.train_augment(batch["canvases"], draws.crops, image_size)
+    return batch["images"]
+
+
+def _frozen_features(state: TrainState, batch, draws: StepDraws,
+                     pre_extracted: bool, image_size: int,
+                     attention: Attention) -> torch.Tensor:
+    """The frozen image tower's normalized features of a batch: its
+    pre-extracted 'features', or its images encoded without a graph."""
+    if pre_extracted:
+        return batch["features"]
+    with torch.no_grad():
+        return state.model.encode_image(
+            _train_images(batch, draws, image_size), normalize=True,
+            attention=attention)
+
+
+def _update(state: TrainState, val: torch.Tensor) -> torch.Tensor:
+    """Backward of the step's loss, one optimizer update -> the loss."""
+    state.optimizer.zero_grad(set_to_none=True)
+    val.backward()
+    state.apply_update()
+    return val.detach()
+
+
 def make_probing_step(loss: LossFn = cross_entropy,
                       pre_extracted: bool = True, image_size: int = 224,
                       attention: Attention = mha_qkv):
     """Linear probe (reference train_probing, utils/training.py:47-161;
-    ``swat_tpu.train.steps.make_probing_step``): the model frozen, CE of
-    the head's logits at the state's fixed logit_scale.  Pre-extracted
-    batches carry 'features'; otherwise (the parser's default,
-    pre_extracted=False) each step augments the batch's canvases on the
-    device (or takes its host-augmented images) and encodes them without
-    a graph, through the attention kernels on the card."""
+    ``swat_tpu.train.steps.make_probing_step``; REAL-Linear trains through
+    it too): the model frozen, CE of the head's logits at the state's fixed
+    logit_scale.  Pre-extracted batches carry 'features'; otherwise (the
+    parser's default, pre_extracted=False) each step augments the batch's
+    canvases on the device (or takes its host-augmented images) and
+    encodes them without a graph, through the attention kernels on the
+    card."""
 
     def step(state: TrainState, batch, draws: StepDraws) -> torch.Tensor:
         batch = batch_to_device(batch, state.head.device)
-        if pre_extracted:
-            feats = batch["features"]
-        else:
-            if "canvases" in batch:
-                images = aug.train_augment(batch["canvases"], draws.crops,
-                                           image_size)
-            else:
-                images = batch["images"]
-            with torch.no_grad():
-                feats = state.model.encode_image(images, normalize=True,
-                                                 attention=attention)
+        feats = _frozen_features(state, batch, draws, pre_extracted,
+                                 image_size, attention)
         logits = head_logits(state.head, feats) * torch.exp(state.logit_scale)
-        val = loss(logits, batch["labels"], batch["source"])
-        state.optimizer.zero_grad(set_to_none=True)
-        val.backward()
-        state.apply_update()
-        return val.detach()
+        return _update(state, loss(logits, batch["labels"], batch["source"]))
+
+    return step
+
+
+def make_cmlp_step(loss: LossFn = cross_entropy,
+                   pre_extracted: bool = True, image_size: int = 224,
+                   attention: Attention = mha_qkv):
+    """Cross-modal linear probe (reference train_CMLP,
+    utils/training.py:164-293; ``swat_tpu.train.steps.make_cmlp_step``):
+    the probe's image features, as ``make_probing_step`` makes them, joined
+    by the batch's 'text_features' (prompt embeddings) and their
+    'text_labels'; the loss takes no source flag (the text rows have
+    none)."""
+
+    def step(state: TrainState, batch, draws: StepDraws) -> torch.Tensor:
+        batch = batch_to_device(batch, state.head.device)
+        feats = torch.cat([_frozen_features(state, batch, draws,
+                                            pre_extracted, image_size,
+                                            attention),
+                           batch["text_features"]])
+        labels = torch.cat([batch["labels"], batch["text_labels"]])
+        logits = head_logits(state.head, feats) * torch.exp(state.logit_scale)
+        return _update(state, loss(logits, labels, None))
+
+    return step
+
+
+def make_flyp_loss(loss: LossFn = cross_entropy, image_size: int = 224,
+                   attention: Attention = mha_qkv):
+    """flyp_loss(state, batch, draws) -> FLYP's loss on a batch already on
+    the device (reference train_flyp, utils/training.py:415-552;
+    ``swat_tpu.train.steps.make_flyp_step``'s loss): the batch's augmented
+    images through the image tower and its 'prompt_tokens' (one prompt of
+    each sample's class) through the text tower, causal, both with a graph
+    and through the attention kernels; logits exp(logit_scale) * img .
+    txt^T in fp32 (no TF32, the JAX package's precision="highest"); the
+    mean of the image->text and text->image losses against the
+    diagonal."""
+
+    def flyp_loss(state: TrainState, batch, draws: StepDraws):
+        img = state.model.encode_image(
+            _train_images(batch, draws, image_size), normalize=True,
+            attention=attention)
+        txt = state.model.encode_text(batch["prompt_tokens"],
+                                      normalize=True, attention=attention)
+        logits = torch.exp(state.logit_scale) * (img @ txt.t())
+        labels = torch.arange(logits.shape[0], device=logits.device)
+        source = batch["source"]
+        return 0.5 * (loss(logits, labels, source)
+                      + loss(logits.t(), labels, source))
+
+    return flyp_loss
+
+
+def make_flyp_step(loss: LossFn = cross_entropy, image_size: int = 224,
+                   attention: Attention = mha_qkv):
+    """FLYP contrastive finetuning of both towers: ``make_flyp_loss``'s
+    loss, its backward, one update."""
+    flyp_loss = make_flyp_loss(loss, image_size, attention)
+
+    def step(state: TrainState, batch, draws: StepDraws) -> torch.Tensor:
+        batch = batch_to_device(batch, state.head.device)
+        return _update(state, flyp_loss(state, batch, draws))
 
     return step

@@ -85,14 +85,18 @@ def train_loop(*, cfg, state: TrainState, step_fn: Callable,
                steps_per_epoch: int, validate_fn: Callable,
                test_fn: Callable, logger, loss_logger=None,
                epoch_runner: Optional[Callable] = None,
-               ckpt_dir: Optional[str] = None):
+               ckpt_dir: Optional[str] = None,
+               post_epoch: Optional[Callable] = None):
     """Runs cfg.epochs epochs -> (final state, BestSnapshot).
 
     ``step_fn(state, batch, draws)`` updates the state in place;
     ``sample_fn(rng, batch)`` draws each step's random inputs from one
     generator seeded from ``--training_seed``.  ``epoch_runner(state,
     epoch, rng) -> mean loss`` replaces the per-batch loop for resident
-    data.  ``ckpt_dir``: where --save_ckpt writes and --resume reads."""
+    data.  ``ckpt_dir``: where --save_ckpt writes and --resume reads.
+    ``post_epoch(state, epoch)`` (FLYP's head rebuild) updates the state in
+    place on the validating epochs only, before the validation, as the
+    reference's train_flyp does (utils/training.py:488-490)."""
     every_epoch = cfg.method in VALIDATE_EVERY_EPOCH
     # the draws' own stream: the loaders shuffle with default_rng(seed)
     rng = np.random.default_rng([cfg.training_seed, 1])
@@ -126,6 +130,8 @@ def train_loop(*, cfg, state: TrainState, step_fn: Callable,
 
         snapshot_epoch = cfg.early_stop or epoch == cfg.epochs
         if every_epoch or snapshot_epoch:
+            if post_epoch is not None:
+                post_epoch(state, epoch)
             val_acc, val_loss, cm = validate_fn(state)
             scores = calculate_scores(cm) if cm is not None else {}
             if snapshot_epoch and val_acc >= best.val_acc:

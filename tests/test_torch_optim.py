@@ -79,11 +79,55 @@ def test_param_groups_match_create_train_state_labels(method):
 
 
 def test_unported_optimizer_options_raise():
+    """A method no package knows raises, as swat_tpu's label_params does."""
     cfg = get_model_config("test_tiny")
     model = CLIPModel(cfg)
     head = torch.zeros(3, cfg.embed_dim)
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        create_train_state(model, head, "FLYP")
+    with pytest.raises(NotImplementedError, match="not implemented"):
+        create_train_state(model, head, "no-such-method")
+    with pytest.raises(NotImplementedError, match="not implemented"):
+        JO.label_params({"visual": {}, "text": {}}, "no-such-method")
+
+
+@pytest.mark.parametrize("lr_projector", [None, 3e-5])
+@pytest.mark.parametrize("locked_text", [False, True])
+def test_flyp_groups_and_rates(locked_text, lr_projector):
+    """FLYP's groups: both towers at lr_backbone (the text tower frozen
+    under --locked_text), both projections at lr_projector (lr_backbone
+    when None) even when the text tower is locked, logit_scale at
+    lr_classifier, the head in none; each group's rate over 120 steps
+    equals swat_tpu's schedule for its label, the warmup from
+    lr_backbone."""
+    cfg = get_model_config("test_tiny")
+    model = CLIPModel(cfg)
+    kw = dict(lr_classifier=1e-3, lr_backbone=1e-4, total_iter=40)
+    state = create_train_state(model, torch.zeros(3, cfg.embed_dim), "FLYP",
+                               lr_projector=lr_projector,
+                               locked_text=locked_text, **kw)
+    groups = {g["label"]: g for g in state.optimizer.param_groups}
+    assert sorted(groups) == ["backbone", "head", "projector"]
+    assert {id(p) for p in groups["projector"]["params"]} == {
+        id(model.visual.proj), id(model.text_projection)}
+    assert [id(p) for p in groups["head"]["params"]] == [
+        id(state.logit_scale)]
+    assert not state.head.requires_grad
+    text = [p for n, p in model.named_parameters()
+            if not n.startswith("visual.") and n not in
+            ("text_projection", "logit_scale")]
+    in_backbone = {id(p) for p in groups["backbone"]["params"]}
+    assert all((id(p) in in_backbone) != locked_text for p in text)
+    assert all(p.requires_grad != locked_text for p in text)
+    assert all(id(p) in in_backbone for n, p in model.named_parameters()
+               if n.startswith("visual.") and n != "visual.proj")
+    base = {"backbone": kw["lr_backbone"], "head": kw["lr_classifier"],
+            "projector": kw["lr_backbone"] if lr_projector is None
+            else lr_projector}
+    for label, group in groups.items():
+        ref = JO.make_lr_schedule(base[label], kw["total_iter"],
+                                  warmup_lr=JO.default_warmup_lr(1e-4))
+        got = [group["schedule"](i) for i in range(120)]
+        np.testing.assert_allclose(got, [float(ref(i)) for i in range(120)],
+                                   rtol=1e-6, err_msg=label)
 
 
 def test_adamw_matches_optax_over_60_steps():

@@ -170,6 +170,16 @@ def _jax_crops(k_aug, valid_hw):
     return aug.CropDraws(boxes, flips)
 
 
+def jax_crop_draws(key, valid_hw):
+    """The random inputs of a JAX step that augments with its step key
+    itself (swat_tpu's make_probing_step, make_cmlp_step and
+    make_flyp_step pass the key straight to train_augment), as the port's
+    StepDraws: crops and flips only."""
+    from swat_tpu_torch.train.steps import StepDraws
+
+    return StepDraws(_jax_crops(key, np.asarray(valid_hw)))
+
+
 def jax_step_draws(key, valid_hw, image_size: int, beta: float = 1.0,
                    mix_prob: float = 0.5, crops: bool = True,
                    method: str = "cutmix", twin_valid_hw=None):
@@ -458,9 +468,10 @@ def mega_pallas_reference(out_path: str) -> None:
     np.savez(out_path, **out)
 
 
-def mega_reference_subprocess(out_path: str) -> dict:
-    """``mega_pallas_reference`` in a fresh interpreter with
-    ``--xla_allow_excess_precision=false`` -> the arrays it saved."""
+def excess_precision_subprocess(call: str, out_path: str) -> dict:
+    """``torch_port_lib.<call>`` (a Python call expression) in a fresh
+    interpreter with ``--xla_allow_excess_precision=false``, on the CPU ->
+    the arrays it saved to ``out_path``."""
     import subprocess
     import sys
 
@@ -470,13 +481,73 @@ def mega_reference_subprocess(out_path: str) -> dict:
     env["JAX_PLATFORMS"] = "cpu"
     here = os.path.dirname(os.path.abspath(__file__))
     code = ("import sys; sys.path[:0] = [%r, %r]; import torch_port_lib; "
-            "torch_port_lib.mega_pallas_reference(%r)"
-            % (here, os.path.dirname(here), str(out_path)))
+            "torch_port_lib.%s" % (here, os.path.dirname(here), call))
     done = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=900)
     assert done.returncode == 0, done.stderr[-4000:]
     with np.load(out_path) as data:
         return {k: data[k] for k in data.files}
+
+
+def mega_reference_subprocess(out_path: str) -> dict:
+    """``mega_pallas_reference`` in a fresh interpreter with
+    ``--xla_allow_excess_precision=false`` -> the arrays it saved."""
+    return excess_precision_subprocess(
+        f"mega_pallas_reference({str(out_path)!r})", out_path)
+
+
+def flyp_bf16_reference(inputs_path: str, out_path: str) -> None:
+    """One swat_tpu FLYP step (``train.steps.make_flyp_step``) in bf16, the
+    DEFAULT policy, its towers through the Pallas attention kernels in
+    interpret mode (``use_pallas=True``: the forward and its custom-VJP
+    backward kernel, the rounding points of the port's kernels).  The
+    inputs are the npz ``inputs_path``: 'sd/<name>' (an OpenCLIP state
+    dict), 'head', 'canvases', 'valid_hw', 'labels', 'source',
+    'prompt_tokens', 'key_seed' and 'model_cfg'.  The step's optimizer
+    keeps the gradients as its state and moves nothing, so the step's own
+    loss function is differentiated as it is in training.  Saved: 'loss',
+    'logit_scale' (its gradient) and 'model/<name>' (each model tensor's
+    gradient, in torch's names and layouts).  Run it in a process whose
+    XLA_FLAGS hold ``--xla_allow_excess_precision=false``
+    (``excess_precision_subprocess``)."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from swat_tpu.core.precision import DEFAULT_PRECISION
+    from swat_tpu.models.clip import CLIPModel as JaxCLIPModel
+    from swat_tpu.models.configs import get_model_config as jax_model_config
+    from swat_tpu.models.loader import (params_to_torch_state_dict,
+                                        torch_state_dict_to_params)
+    from swat_tpu.train import steps as JS
+    from swat_tpu.train.state import create_train_state
+
+    with np.load(inputs_path) as data:
+        d = {k: data[k] for k in data.files}
+    cfg = jax_model_config(str(d["model_cfg"]))
+    params, _ = torch_state_dict_to_params(
+        {k[3:]: v for k, v in d.items() if k.startswith("sd/")},
+        cfg.vision.layers, cfg.text.layers)
+    model = JaxCLIPModel(cfg, precision=DEFAULT_PRECISION, use_pallas=True)
+    state, _ = create_train_state(params, d["head"], "FLYP", total_iter=10)
+
+    def update(grads, _state, _params=None):
+        return jax.tree_util.tree_map(jnp.zeros_like, grads), grads
+
+    keep = optax.GradientTransformation(
+        lambda p: jax.tree_util.tree_map(jnp.zeros_like, p), update)
+    state = state.replace(opt_state=keep.init(state.trainable))
+    step = JS.make_flyp_step(model, keep, image_size=cfg.vision.image_size)
+    batch = {k: jnp.asarray(d[k]) for k in ("canvases", "valid_hw", "labels",
+                                            "source", "prompt_tokens")}
+    state, loss = step(state, batch, jax.random.PRNGKey(int(d["key_seed"])))
+    grads = state.opt_state
+    out = {"loss": np.asarray(loss, np.float32),
+           "logit_scale": np.asarray(grads["logit_scale"], np.float32)}
+    for k, v in params_to_torch_state_dict(grads["model"], 0.0).items():
+        if k != "logit_scale":
+            out["model/" + k] = np.asarray(v, np.float32)
+    np.savez(out_path, **out)
 
 
 # ---------------------------------------------------------------------------
