@@ -26,10 +26,18 @@ counted exactly; stage 1 of REAL-Linear (streaming), CMLP (on a
 train-transform snapshot's features, and streaming with
 ``--use_attribute``) and FLYP (on into stage 2, and with ``--locked_text
 --lr_projector``) through the CLI, their training launches counted exactly;
+stage 1 of fixmatch (mu 2, its mask rates), finetune-multitask (on into
+stage 2) and dataset-cls (no summary row) through the CLI, their training
+launches counted exactly;
 one full-width step of each twin-loader method, kernel against plain
 attention; one full-width FLYP step (both towers, the text tower's causal
 attention through the kernels with a gradient), kernel against plain
-attention, timed, profiled and its peak memory; the cutmix step under every remat policy and
+attention, timed, profiled and its peak memory; RandAugment on the card
+(its time and launches, the integral ops bit-equal to the CPU, the strong
+view against the CPU) and one full-width FixMatch step (768 rows a
+forward), kernel against plain attention, timed, profiled and its peak
+memory; one full-width step each of finetune-multitask and dataset-cls,
+kernel against plain attention; the cutmix step under every remat policy and
 gradient accumulation, its peak memory, time and launches, its gradients
 against no remat; then the three block-fused layer
 kernels (block
@@ -37,7 +45,8 @@ forward, MLP backward, attention backward) against their plain versions and
 timed beside their bounds and a library-built block, both full-width towers
 through ``use_mega``, and a full-width cutmix train step whose image tower
 runs through them.  The data are a synthetic
-JPEG dataset (few-shot, retrieved and test splits) and a seeded
+JPEG dataset (few-shot, retrieved, unlabeled and test splits, and
+dataset-cls's flagged splits over the first two) and a seeded
 OpenCLIP-format checkpoint.  Any failure raises and exits non-zero.  The
 last line is a JSON object naming the device.  Without a GPU, or without
 the repository beside it, it exits non-zero and prints no result.
@@ -772,7 +781,8 @@ def phase_towers(workdir, smi):
 
 def _write_dataset(root, n_classes=10, n_test_per_class=30, seed=0):
     """<root>/smoke10: class-colored JPEGs of camera-like sizes, test.txt,
-    a few-shot split and the metrics json the prompts come from."""
+    a few-shot split, FixMatch's unlabeled split (N_UNLABELED images) and
+    the metrics json the prompts come from."""
     import os
 
     import numpy as np
@@ -784,7 +794,9 @@ def _write_dataset(root, n_classes=10, n_test_per_class=30, seed=0):
     rng = np.random.default_rng(seed)
     colors = rng.integers(30, 225, (n_classes, 3))
     for split, per_class, fewshot in (("test.txt", n_test_per_class, 0),
-                                      ("fewshot4_seed1.txt", 4, 1)):
+                                      ("fewshot4_seed1.txt", 4, 1),
+                                      (UNLABELED_SPLIT,
+                                       N_UNLABELED // n_classes, 0)):
         lines = []
         for c in range(n_classes):
             for i in range(per_class):
@@ -1445,6 +1457,300 @@ def phase_flyp_step(ckpt, smi):
     return results
 
 
+def _unlabeled_batch(rng, n):
+    """``n`` seeded random uint8 canvases on the card with their valid
+    sizes, as FixMatch's unlabeled batch (*_u keys)."""
+    import numpy as np
+    import torch
+
+    valid_hw = np.stack([rng.integers(160, 257, n), np.full(n, 256)],
+                        axis=1)
+    valid_hw[1::2] = valid_hw[1::2, ::-1]
+    return {"canvases_u": torch.from_numpy(rng.integers(
+                0, 256, (n, 256, 256, 3), dtype=np.uint8)).cuda(),
+            "valid_hw_u": valid_hw}
+
+
+def _launches_of(prof):
+    """(kernels, copies and sets, device ms, the three kernels of most
+    device time as (ms, count, name)) of a torch.profiler run."""
+    from torch.autograd import DeviceType
+
+    kernels = copies = 0
+    ms = 0.0
+    top = []
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        ms += evt.self_device_time_total / 1e3
+        if evt.key.startswith(("Memcpy", "Memset")):
+            copies += evt.count
+        else:
+            kernels += evt.count
+            top.append((evt.self_device_time_total / 1e3, evt.count,
+                        evt.key[:50]))
+    return kernels, copies, ms, sorted(top, reverse=True)[:3]
+
+
+# RandAugment on the card against the CPU, the same draws: the ops that
+# are integral on integral pixels must agree bit for bit; the whole strong
+# view (the crop, whose fp32 products round differently on the two, then
+# RandAugment, whose truncations can flip on that) in all but this share
+RA_MAX_SHARE = 0.005
+RA_EXACT_OPS = ("op_posterize", "op_solarize", "op_equalize",
+                "op_translate_x", "op_translate_y")
+
+
+def _rand_augment_checks(batch, draws, n_px, smi):
+    """RandAugment(2, 10) of the strong view's 256 crops (224 x 224) on the
+    card: its ms by CUDA events (10 calls after 2), its kernel launches and
+    copies in one profiled call; the integral ops (each at the draws' first
+    values, on the crops rounded to integers) bit-equal on the card and the
+    CPU; the strong view (crop + flip + RandAugment) on the card against
+    the CPU -> (ms, kernels, copies, share of values off by more than
+    1e-3)."""
+    import torch
+
+    from swat_tpu_torch.kernels import augment as aug
+    from swat_tpu_torch.kernels import randaugment as RA
+
+    ra = draws.rand_augment
+    cutout = n_px // 2
+
+    def strong(canvases):
+        crops = aug.hflip(aug.random_resized_crop(
+            canvases, draws.strong.boxes, n_px), draws.strong.flips)
+        return crops, RA.rand_augment(crops, ra, cutout)
+
+    crops, s_card = strong(batch["canvases_u"])
+    ms = _time_ms(lambda: RA.rand_augment(crops, ra, cutout), iters=10,
+                  warmup=2)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        RA.rand_augment(crops, ra, cutout)
+        torch.cuda.synchronize()
+    kernels, copies, busy, top = _launches_of(prof)
+    ints = crops.round().clamp(0, 255)
+    exact = []
+    for op, (fn, *_) in enumerate(RA.POOL):
+        if fn.__name__ not in RA_EXACT_OPS:
+            continue
+        values = RA.op_values(op, ra.magnitudes[:, 0], ra.signs[:, 0])
+        card = RA.apply_op(op, ints, values).cpu()
+        host = RA.apply_op(op, ints.cpu(), values)
+        exact.append((fn.__name__, torch.equal(card, host)))
+    boxes = RA.cutout_box(ra.cutout, n_px, n_px, cutout)
+    exact.append(("cutout", torch.equal(RA.cutout_abs(ints, boxes).cpu(),
+                                        RA.cutout_abs(ints.cpu(), boxes))))
+    crops_cpu, s_cpu = strong(batch["canvases_u"].cpu())
+    crop_err = float((crops.cpu() - crops_cpu).abs().max())
+    diff = (s_card.cpu() - s_cpu).abs()
+    share = float((diff > 1e-3).float().mean())
+    applied = int(ra.gates.sum())
+    ok = all(e for _, e in exact) and share < RA_MAX_SHARE
+    log(f"[fixmatch-step] RandAugment(2, 10) of {ra.ops.shape[0]} crops "
+        f"{n_px} x {n_px}, cutout {cutout}, {applied} ops gated on: "
+        f"{ms:.3f} ms a call (CUDA events), {kernels} kernel launches + "
+        f"{copies} copies a call, {busy:.3f} ms of device time, the most in "
+        + "; ".join(f"{t:.3f} ms x {n} {k}" for t, n, k in top)
+        + "; integral ops card vs CPU bit-equal: "
+        + ", ".join(f"{n} {e}" for n, e in exact)
+        + f"; the strong view card vs CPU: crop max |diff| {crop_err:.3e}, "
+        f"after RandAugment {100 * share:.4f} % of values off by > 1e-3 "
+        f"(bound {100 * RA_MAX_SHARE} %), max {float(diff.max()):.3e} on "
+        f"{smi} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("RandAugment on the card disagrees with the "
+                             "CPU")
+    return ms, kernels, copies, share
+
+
+# every unlabeled row passes at threshold 0: the strong view is in the loss
+# of each row, so its gradient is compared too
+FIXMATCH_STEP_THRESHOLD = 0.0
+
+
+def phase_fixmatch_step(ckpt, smi):
+    """One full-width ViT-B/32 FixMatch step at bsz 256, mu 1: 256 labeled
+    and 256 unlabeled seeded canvases on the card, the labeled crops, the
+    weak view (crop, flip) and the strong view (crop, flip, RandAugment)
+    encoded in one forward of 768 rows, fp32 and bf16.  RandAugment alone
+    first (_rand_augment_checks); then the loss, mask rate and the
+    gradients of the visual tensors and the head with the kernels against
+    plain attention; one step with the counts set to 0 just before it and
+    read just after (12 of each packed-head kernel); after a warm-up step,
+    3 steps timed with the peak allocated memory over them, and 2 steps
+    profiled (busy time by kernel family, idle share of the window)."""
+    import numpy as np
+    import torch
+
+    from swat_tpu_torch.core.precision import DEFAULT_PRECISION, FP32_PRECISION
+    from swat_tpu_torch.kernels import flash_attention as FA
+    from swat_tpu_torch.train.state import create_train_state
+    from swat_tpu_torch.train.steps import (make_fixmatch_loss,
+                                            make_fixmatch_step, make_sampler)
+
+    cfg, model, batch, head, rng = _train_setup(ckpt)
+    n_px, layers = cfg.vision.image_size, cfg.vision.layers
+    batch.update(_unlabeled_batch(rng, TRAIN_BSZ))
+    draws = make_sampler("fixmatch")(rng, batch)
+    ra = _rand_augment_checks(batch, draws, n_px, smi)
+    rows = 3 * TRAIN_BSZ
+    results = {"rand_augment": ra}
+    for dname, precision in (("float32", FP32_PRECISION),
+                             ("bfloat16", DEFAULT_PRECISION)):
+        precision.apply_backend_flags()
+        model.precision = precision
+        state = create_train_state(model, head, "fixmatch", total_iter=100)
+        grads = {}
+        for attn_name, attn in (("kernel", FA.mha_qkv),
+                                ("plain", FA.mha_qkv_reference)):
+            state.optimizer.zero_grad(set_to_none=True)
+            loss, rate, loss_u = make_fixmatch_loss(
+                FIXMATCH_STEP_THRESHOLD, 1.0, n_px, attn)(state, batch, draws)
+            loss.backward()
+            g = _visual_grads(model)
+            g["head"] = state.head.grad.detach().flatten().clone()
+            grads[attn_name] = (loss.item(), rate.item(), loss_u.item(), g)
+        (lk, rk, uk, gk), (lp, rp, up, gp) = grads["kernel"], grads["plain"]
+        cos, worst, share = _compare_grads(gk, gp)
+        del grads, gk, gp
+        state.optimizer.zero_grad(set_to_none=True)
+        step = make_fixmatch_step(FIXMATCH_STEP_THRESHOLD, 1.0, n_px)
+        _reset_counts(FA)
+        val = float(step(state, batch, draws))
+        torch.cuda.synchronize()
+        counts = _counts(FA)
+        torch.cuda.reset_peak_memory_stats()
+        resting = torch.cuda.memory_allocated()
+        ms = _time_ms(lambda: step(state, batch, draws), iters=3, warmup=1)
+        peak = torch.cuda.max_memory_allocated()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            start.record()
+            for _ in range(2):
+                step(state, batch, draws)
+            end.record()
+            torch.cuda.synchronize()
+        window = start.elapsed_time(end) / 2
+        split, others = _device_split(prof, 2)
+        busy = sum(split.values())
+        need = (layers, layers, 0, 0)
+        same_loss = dname != "float32" or abs(lk - lp) <= 1e-5 * abs(lp)
+        ok = (np.isfinite(lk) and np.isfinite(val) and rk == rp == 1.0
+              and cos >= GRAD_MIN_COS[dname] and counts == need
+              and same_loss and not state.logit_scale.requires_grad)
+        log(f"[fixmatch-step] {MODEL_CFG} fixmatch bsz {TRAIN_BSZ} mu 1 "
+            f"({rows} rows a forward) {dname}: loss kernel {lk:.6f} / plain "
+            f"{lp:.6f} (loss_u {uk:.6f} / {up:.6f}, mask rate {rk:.3f} / "
+            f"{rp:.3f} at threshold {FIXMATCH_STEP_THRESHOLD}); min cosine "
+            f"of the visual and head gradients kernel vs plain = {cos:.8f} "
+            f"({worst}; bound {GRAD_MIN_COS[dname]}), bit-equal share "
+            f"{share:.4f}; launches fwd {counts[0]} bwd {counts[1]} "
+            f"heads-first {counts[2]}/{counts[3]} (need {need}); {ms:.2f} "
+            f"ms/step ({rows * 1e3 / ms:.1f} encoded images/s), peak "
+            f"{peak / 2 ** 30:.3f} GiB allocated (at rest "
+            f"{resting / 2 ** 30:.3f}); profiled: {busy:.2f} ms busy of a "
+            f"{window:.2f} ms window (idle {100 * (1 - busy / window):.1f} %; "
+            + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+            + "; largest 'other': "
+            + "; ".join(f"{t:.2f} {n}" for t, n in others[:3])
+            + f") on {smi} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"fixmatch step failed ({dname}): {counts}")
+        results[dname] = (ms, peak, busy, window)
+        del state, step
+    del model
+    torch.cuda.empty_cache()
+    return results
+
+
+def phase_head_steps(ckpt, smi):
+    """One full-width ViT-B/32 step at bsz 256, fp32, of finetune-multitask
+    (the class head and a seeded binary dataset head) and of dataset-cls (a
+    binary head, the source flag as the label), from seeded canvases on the
+    card: the loss and the gradients of the visual tensors and the heads
+    with the kernels against plain attention; one step with the counts set
+    to 0 just before it and read just after (12 of each packed-head
+    kernel); 3 steps timed after a warm-up step."""
+    import numpy as np
+    import torch
+
+    from swat_tpu_torch.core.precision import FP32_PRECISION
+    from swat_tpu_torch.kernels import flash_attention as FA
+    from swat_tpu_torch.models.head import init_head_random
+    from swat_tpu_torch.train.state import create_train_state
+    from swat_tpu_torch.train.steps import (make_dataset_cls_loss,
+                                            make_dataset_cls_step,
+                                            make_multitask_loss,
+                                            make_multitask_step,
+                                            make_sampler)
+
+    cfg, model, batch, head, rng = _train_setup(ckpt)
+    n_px, layers, dim = cfg.vision.image_size, cfg.vision.layers, \
+        cfg.embed_dim
+    FP32_PRECISION.apply_backend_flags()
+    model.precision = FP32_PRECISION
+    results = {}
+    for method in ("finetune-multitask", "dataset-cls"):
+        multitask = method == "finetune-multitask"
+        state = create_train_state(
+            model, head if multitask else init_head_random(1, 2, dim, "cuda"),
+            method, total_iter=100,
+            dataset_head=init_head_random(2, 2, dim, "cuda") if multitask
+            else None)
+        draws = make_sampler(method, image_size=n_px)(rng, batch)
+        grads = {}
+        for attn_name, attn in (("kernel", FA.mha_qkv),
+                                ("plain", FA.mha_qkv_reference)):
+            state.optimizer.zero_grad(set_to_none=True)
+            loss_fn = (make_multitask_loss(image_size=n_px, attention=attn)
+                       if multitask else
+                       make_dataset_cls_loss(image_size=n_px, attention=attn))
+            loss = loss_fn(state, batch, draws)
+            loss.backward()
+            g = _visual_grads(model)
+            g["head"] = state.head.grad.detach().flatten().clone()
+            if multitask:
+                g["dataset_head"] = state.dataset_head.grad.detach(
+                    ).flatten().clone()
+            grads[attn_name] = (loss.item(), g)
+        (lk, gk), (lp, gp) = grads["kernel"], grads["plain"]
+        cos, worst, share = _compare_grads(gk, gp)
+        del grads, gk, gp
+        state.optimizer.zero_grad(set_to_none=True)
+        step = (make_multitask_step(image_size=n_px) if multitask
+                else make_dataset_cls_step(image_size=n_px))
+        _reset_counts(FA)
+        val = float(step(state, batch, draws))
+        torch.cuda.synchronize()
+        counts = _counts(FA)
+        ms = _time_ms(lambda: step(state, batch, draws), iters=3, warmup=1)
+        need = (layers, layers, 0, 0)
+        ok = (np.isfinite(lk) and np.isfinite(val)
+              and cos >= GRAD_MIN_COS["float32"] and counts == need
+              and abs(lk - lp) <= 1e-5 * abs(lp))
+        log(f"[head-step] {MODEL_CFG} {method} bsz {TRAIN_BSZ} float32: "
+            f"loss kernel {lk:.6f} / plain {lp:.6f}; min cosine of the "
+            f"visual and head gradients kernel vs plain = {cos:.8f} ({worst}; "
+            f"bound {GRAD_MIN_COS['float32']}), bit-equal share {share:.4f}; "
+            f"launches fwd {counts[0]} bwd {counts[1]} heads-first "
+            f"{counts[2]}/{counts[3]} (need {need}); {ms:.2f} ms/step "
+            f"({TRAIN_BSZ * 1e3 / ms:.1f} images/s) on {smi} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{method} step failed: {counts}")
+        results[method] = ms
+        del state, step
+    del model
+    torch.cuda.empty_cache()
+    return results
+
+
 # the remat / accum policies of the [memory] phase: (name, remat, accum)
 MEMORY_POLICIES = (("none", False, 1), ("full", "full", 1),
                    ("first4", "first4", 1), ("dots", "dots", 1),
@@ -1601,6 +1907,8 @@ def _write_retrieved(root, dataset, n_per_class, n_classes=10, seed=1):
 
 
 RETRIEVAL_SPLIT = "retrieved_smoke.txt"
+UNLABELED_SPLIT = "u_train_in_oracle.txt"
+N_UNLABELED = 130
 CLI_BSZ = 64
 N_FEWSHOT, N_RETRIEVED, N_TEST = 40, 220, 300   # the smoke splits
 # the flagship run's batch: few-shot finetuning's drop-last loader refuses
@@ -1678,12 +1986,15 @@ def _train_loop_counts(FA):
 
 
 def _train_cli_run(workdir, ckpt, dataset, method, dtype, resident, smi,
-                   extra=(), bsz=CLI_BSZ, tag="", rows_want=2, stage2=False):
+                   extra=(), bsz=CLI_BSZ, tag="", rows_want=2, stage2=False,
+                   summary_row=True):
     """One run of ``method`` through swat_tpu_torch.cli.main at full width
     (2 epochs at ``bsz`` unless ``extra`` says otherwise; --skip_stage2
     unless ``stage2``), its summary line, loss.csv (``rows_want`` rows) and
-    output files checked.  The four counts are set to 0 just before the run
-    and read just after -> dict of what it gave."""
+    output files checked; without ``summary_row`` (dataset-cls) the run
+    must print no summary line and write no stage file.  The four counts
+    are set to 0 just before the run and read just after -> dict of what
+    it gave."""
     import csv
     import io
     import math
@@ -1714,15 +2025,20 @@ def _train_cli_run(workdir, ckpt, dataset, method, dtype, resident, smi,
     out = buf.getvalue()
     summary = [ln for ln in out.splitlines()
                if ln.startswith(f"{dataset},{method},")]
-    if len(summary) != 1 or len(summary[0].split(",")) != 11:
+    if not summary_row:
+        if summary:
+            raise AssertionError(f"{method} printed a summary row: {summary}")
+        summary = [f"{dataset},{method}: no summary row"]
+    elif len(summary) != 1 or len(summary[0].split(",")) != 11:
         raise AssertionError(f"no 11-field summary line:\n{out[-2000:]}")
-    accs = [float(x) for x in summary[0].split(",")[7:]]
-    skipped_stage1 = "--skip_stage1" in extra
-    ran = accs[2:] if skipped_stage1 else accs if stage2 else accs[:2]
-    if not all(0.0 <= a <= 100.0 for a in ran) or (
-            not stage2 and accs[2:] != [-1.0, -1.0]) or (
-            skipped_stage1 and accs[:2] != [-1.0, -1.0]):
-        raise AssertionError(f"bad accuracies in {summary[0]}")
+    else:
+        accs = [float(x) for x in summary[0].split(",")[7:]]
+        skipped_stage1 = "--skip_stage1" in extra
+        ran = accs[2:] if skipped_stage1 else accs if stage2 else accs[:2]
+        if not all(0.0 <= a <= 100.0 for a in ran) or (
+                not stage2 and accs[2:] != [-1.0, -1.0]) or (
+                skipped_stage1 and accs[:2] != [-1.0, -1.0]):
+            raise AssertionError(f"bad accuracies in {summary[0]}")
     (run_dir,) = [r for r, _, files in os.walk(folder)
                   if "loss.csv" in files]
     with open(os.path.join(run_dir, "loss.csv")) as f:
@@ -1731,7 +2047,8 @@ def _train_cli_run(workdir, ckpt, dataset, method, dtype, resident, smi,
     if len(rows) != rows_want or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"loss.csv malformed: {rows}")
     files = sorted(os.listdir(run_dir))
-    stages = (2, 3) if skipped_stage1 else (1, 2, 3) if stage2 else (1,)
+    stages = (() if not summary_row else (2, 3) if skipped_stage1
+              else (1, 2, 3) if stage2 else (1,))
     # a run stopped before its last epoch takes no best snapshot, so it has
     # no validation confusion matrix
     want = [f"stage{n}_{name}" for n in stages for name in STAGE_FILES
@@ -1743,7 +2060,8 @@ def _train_cli_run(workdir, ckpt, dataset, method, dtype, resident, smi,
     # a bundle (the resumed run's folder keeps the stopped run's too) and
     # its sidecar for each stage that ran
     if missing or {f + ".json" for f in arrays} != set(bundles) - arrays \
-            or {f[:6] for f in arrays} != {f"stage{n}" for n in stages}:
+            or {f[:6] for f in arrays} != {f"stage{n}" for n in stages} \
+            or (not stages and any(f.startswith("stage") for f in files)):
         raise AssertionError(f"outputs missing: {missing} (bundle files "
                              f"{bundles})")
     resident_run = "resident epochs" in out
@@ -2030,6 +2348,99 @@ def phase_method_cli(workdir, ckpt, dataset, smi):
                                  f"{run['counts']}")
         total = [t + c for t, c in zip(total, run["counts"])]
     return total
+
+
+def _write_dataset_cls_splits(root, dataset):
+    """dataset-cls's split files in the dataset: the few-shot images
+    flagged 1 and the retrieved ones 0, each line with its absolute path
+    (these splits' root is empty) -> the number of lines."""
+    import os
+
+    ddir = os.path.join(root, dataset)
+    lines = []
+    for name, flag in (("fewshot4_seed1.txt", 1), (RETRIEVAL_SPLIT, 0)):
+        with open(os.path.join(ddir, name)) as f:
+            for rel, label, _ in (ln.split() for ln in f if ln.strip()):
+                lines.append(f"{os.path.join(ddir, rel)} {label} {flag}")
+    for name in ("dataset_train.txt", "dataset_val.txt", "dataset_test.txt"):
+        with open(os.path.join(ddir, name), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return len(lines)
+
+
+# fixmatch through the CLI: the max softmax of the unscaled logits of a
+# random tower over 10 classes lies in [1/10, 0.105) (no row passed 0.105
+# on an H100), so at 1/10 every row passes and the strong view is in the
+# loss of every step
+FIXMATCH_CLI_THRESHOLD = 0.1
+
+
+def phase_semi_cli(workdir, ckpt, dataset, smi):
+    """Stage 1 of fixmatch (its unlabeled split streamed as canvases, mu 2,
+    the labeled loader cycled beside it; each step's mask rate recorded by
+    building the pipeline's step with aux=True), finetune-multitask (on
+    into stage 2) and dataset-cls (--data_source dataset-cls: the few-shot
+    and retrieved images flagged; no summary row, no stage file) through
+    swat_tpu_torch.cli.main at full width, fp32, bsz 32, 2 epochs.  Each
+    run's loss.csv rows and outputs are checked, its training steps'
+    launches exactly (12 + 12 a step).  -> the four counts summed over the
+    runs."""
+    from swat_tpu_torch.models.configs import get_model_config
+    from swat_tpu_torch.train import stages
+
+    layers = get_model_config(MODEL_CFG).vision.layers
+    n_flagged = _write_dataset_cls_splits(workdir, dataset)
+    rates = []
+    real = stages.make_fixmatch_step
+
+    def recording(*args, **kw):
+        step = real(*args, aux=True, **kw)
+
+        def run(state, batch, draws):
+            val, rate, _ = step(state, batch, draws)
+            rates.append(rate)
+            return val
+
+        return run
+
+    stages.make_fixmatch_step = recording
+    try:
+        fixmatch = _train_cli_run(
+            workdir, ckpt, dataset, "fixmatch", "float32", "auto", smi,
+            ("--mu", "2", "--threshold", str(FIXMATCH_CLI_THRESHOLD)),
+            bsz=FLAGSHIP_BSZ, tag="_mu2")
+    finally:
+        stages.make_fixmatch_step = real
+    steps = 2 * (N_UNLABELED // (2 * FLAGSHIP_BSZ))
+    rates = [float(r) for r in rates]
+    log(f"[train-cli] fixmatch: {fixmatch['steps']} steps (need {steps}: "
+        f"{N_UNLABELED} unlabeled images at {2 * FLAGSHIP_BSZ} a step), "
+        f"mask rates at threshold {FIXMATCH_CLI_THRESHOLD}: "
+        + ", ".join(f"{r:.4f}" for r in rates))
+    if fixmatch["steps"] != steps or len(rates) != steps:
+        raise AssertionError(f"fixmatch ran {fixmatch['steps']} steps")
+    _check_stage1_counts(fixmatch, "fixmatch", layers)
+    multitask = _train_cli_run(workdir, ckpt, dataset, "finetune-multitask",
+                               "float32", "auto", smi, bsz=FLAGSHIP_BSZ,
+                               tag="_stage2", rows_want=22, stage2=True)
+    if (multitask["out"].count("Dataset Val Acc:") != 2
+            or multitask["out"].count("Dataset Test Acc:") != 2):
+        raise AssertionError("multitask did not validate its dataset head "
+                             "every epoch")
+    # the rows of stage 2 follow stage 1's two
+    _check_stage1_counts(dict(multitask, steps=2 * (
+        (N_FEWSHOT + N_RETRIEVED) // FLAGSHIP_BSZ)), "finetune-multitask",
+        layers)
+    dscls = _train_cli_run(workdir, ckpt, dataset, "dataset-cls", "float32",
+                           "auto", smi, ("--data_source", "dataset-cls"),
+                           bsz=FLAGSHIP_BSZ, summary_row=False)
+    if dscls["steps"] != 2 * (n_flagged // FLAGSHIP_BSZ) or \
+            "dataset-cls run complete" not in dscls["out"]:
+        raise AssertionError(f"dataset-cls ran {dscls['steps']} steps")
+    _check_stage1_counts(dscls, "dataset-cls", layers)
+    return [a + b + c for a, b, c in zip(fixmatch["counts"],
+                                         multitask["counts"],
+                                         dscls["counts"])]
 
 
 def phase_train_cli(workdir, ckpt, dataset, smi):
@@ -2591,10 +3002,13 @@ def main() -> int:
                                                     "smoke10", smi)
         twin_counts = phase_twin_cli(workdir, ckpt, "smoke10", smi)
         method_counts = phase_method_cli(workdir, ckpt, "smoke10", smi)
-        cli_counts = [c + t + m for c, t, m in zip(cli_counts, twin_counts,
-                                                   method_counts)]
+        semi_counts = phase_semi_cli(workdir, ckpt, "smoke10", smi)
+        cli_counts = [c + t + m + f for c, t, m, f in zip(
+            cli_counts, twin_counts, method_counts, semi_counts)]
         phase_twin_step(ckpt, smi)
         phase_flyp_step(ckpt, smi)
+        phase_fixmatch_step(ckpt, smi)
+        phase_head_steps(ckpt, smi)
         phase_memory(ckpt, smi)
         worst_mega = phase_mega_kernels()
         times_mega = phase_mega_timing(smi)

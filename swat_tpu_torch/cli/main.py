@@ -16,9 +16,13 @@ in ``swat_tpu``); a mesh other than one device raises.  Ported so far:
 ``mixup`` / ``resizemix`` / ``saliencymix`` / ``attentivemix`` /
 ``finetune-mixed`` / ``cutmix-fs`` / ``mixup-fs`` / ``CMO`` / ``probing`` /
 ``REAL-Linear`` / ``CMLP`` (``--use_attribute``) / ``FLYP``
-(``--locked_text``, ``--lr_projector``) (``--aug_mode canvas | host |
-eval``), with ``--optim AdamW | SGD`` and ``--utrain``; stage 2 (probing, then few-shot finetuning), or
-``--skip_stage2``; ``--skip_stage1 --stage1_model_path``, ``--model_path``,
+(``--locked_text``, ``--lr_projector``) / ``finetune-multitask``
+(``--dataset_wd``) / ``fixmatch`` (``--mu``, ``--threshold``,
+``--lambda_u``, ``--unlabeled_split``) (``--aug_mode canvas | host |
+eval``), with ``--optim AdamW | SGD`` and ``--utrain``; stage 2 (probing,
+then few-shot finetuning), or ``--skip_stage2``; ``--method dataset-cls``
+(``--data_source dataset-cls``), which ends after stage 1's epochs with no
+summary row; ``--skip_stage1 --stage1_model_path``, ``--model_path``,
 ``--save_ckpt`` / ``--resume``.  The ``.msgpack`` bundles are those of
 ``swat_tpu``: either package reads the other's.
 

@@ -1,5 +1,6 @@
-"""Streaming evaluation (counterpart of ``swat_tpu/eval/validate.py:24-132,
-194-227``): the ``validate`` path of the reference (testing.py:403-486).
+"""Streaming evaluation (counterpart of ``swat_tpu/eval/validate.py:24-227``):
+the ``validate`` path of the reference (testing.py:403-486) and
+finetune-multitask's two-head ``validate_multitask`` (testing.py:189-278).
 
 Per batch: encode -> head logits -> argmax and masked loss, with the
 (correct, count, sum of per-batch mean losses) carry and the confusion
@@ -79,6 +80,53 @@ class Evaluator:
         acc = int(correct) / max(int(count), 1) * 100.0
         return (acc, float(loss_sum) / max(batches, 1),
                 cm.cpu().numpy() if return_confusion else None)
+
+
+def validate_multitask(evaluator: Evaluator, model: CLIPModel,
+                       cls_head: torch.Tensor, dataset_head: torch.Tensor,
+                       logit_scale: float, loader,
+                       loss: LossFn = cross_entropy):
+    """finetune-multitask's validation (reference validate_multitask,
+    testing.py:189-278): one pass over the loader's images scores the class
+    head against the labels (accuracy, the mean of per-batch mean losses of
+    the logits scaled by exp(logit_scale), confusion matrix) and the binary
+    dataset head against the source flag (accuracy, 2 x 2 confusion
+    matrix); the counts stay on the device, one host sync at the end.
+    -> (acc %, mean loss, cm, dataset acc %, dataset cm)."""
+    dev = evaluator.device
+    c = int(cls_head.shape[0])
+    correct = torch.zeros((), dtype=torch.int64, device=dev)
+    d_correct = torch.zeros((), dtype=torch.int64, device=dev)
+    count = torch.zeros((), dtype=torch.int64, device=dev)
+    loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
+    cm = torch.zeros((c, c), dtype=torch.int64, device=dev)
+    dcm = torch.zeros((2, 2), dtype=torch.int64, device=dev)
+    scale = torch.exp(torch.tensor(logit_scale, dtype=torch.float32,
+                                   device=dev))
+    cls_head, dataset_head = cls_head.to(dev), dataset_head.to(dev)
+    batches = 0
+    with torch.inference_mode():
+        for batch in loader:
+            images = torch.from_numpy(batch["images"]).to(dev)
+            feats = model.encode_image(images, normalize=True)
+            labels = torch.from_numpy(batch["labels"]).to(dev).long()
+            source = torch.from_numpy(batch["source"]).to(dev).long()
+            mask = torch.from_numpy(batch["mask"]).to(dev)
+            logits = head_logits(cls_head, feats)
+            preds = logits.argmax(dim=-1)
+            d_preds = head_logits(dataset_head, feats).argmax(dim=-1)
+            nb = mask.sum()
+            correct += ((preds == labels) & mask).sum()
+            d_correct += ((d_preds == source) & mask).sum()
+            per = loss.per_sample(logits * scale, labels, source)
+            loss_sum += (per * mask).sum() / nb.clamp_min(1)
+            count += nb
+            cm_scatter_add(cm, preds, labels, mask, c)
+            cm_scatter_add(dcm, d_preds, source, mask, 2)
+            batches += 1
+    n = max(int(count), 1)
+    return (int(correct) / n * 100.0, float(loss_sum) / max(batches, 1),
+            cm.cpu().numpy(), int(d_correct) / n * 100.0, dcm.cpu().numpy())
 
 
 def validate_features(head, logit_scale, features, labels, num_classes: int,

@@ -10,7 +10,9 @@ matrices are the same too.
 
 Train checkpoints (``--save_ckpt``, ``ckpt_ep{E}_it{I}.msgpack``) hold the
 model, head, logit_scale, step and the port's own optimizer state (AdamW's
-moments, or SGD's momentum buffers), keyed by parameter name.  optax's
+moments, or SGD's momentum buffers), keyed by parameter name; a
+finetune-multitask state's head slot is the map {'cls', 'dataset'}, as
+``swat_tpu`` writes it.  optax's
 multi-transform state does not map one to one onto torch's optimizers, so
 a train checkpoint resumes only in the package that wrote it (ROADMAP Queue C, recorded departures).  The orbax pair of the
 JAX package has no counterpart here.
@@ -150,11 +152,23 @@ def load_best_model(path: str, params_template=None, head_template=None):
 # ---------------------------------------------------------------------------
 # periodic train checkpoints (--save_ckpt / --resume)
 
+def _head_tree(state):
+    """The head slot: the head, or multitask's {'cls', 'dataset'}."""
+    if state.dataset_head is None:
+        return state.head
+    return {"cls": state.head, "dataset": state.dataset_head}
+
+
 def _opt_names(state) -> dict:
-    """id(parameter) -> its place in the trainable tree, ('model', name),
-    ('head',) or ('logit_scale',)."""
+    """id(parameter) -> its path in the trainable tree, ('model', name),
+    ('head',) (('head', 'cls') and ('head', 'dataset') for multitask) or
+    ('logit_scale',)."""
     names = {id(p): ("model", n) for n, p in state.model.named_parameters()}
-    names[id(state.head)] = ("head",)
+    if state.dataset_head is None:
+        names[id(state.head)] = ("head",)
+    else:
+        names[id(state.head)] = ("head", "cls")
+        names[id(state.dataset_head)] = ("head", "dataset")
     names[id(state.logit_scale)] = ("logit_scale",)
     return names
 
@@ -168,11 +182,11 @@ def _opt_state_tree(state) -> dict:
         for p in group["params"]:
             slots = {k: to_numpy(v) for k, v in
                      state.optimizer.state.get(p, {}).items()}
-            where = names[id(p)]
-            if where[0] == "model":
-                tree.setdefault("model", {})[where[1]] = slots
-            else:
-                tree[where[0]] = slots
+            *parents, leaf = names[id(p)]
+            node = tree
+            for key in parents:
+                node = node.setdefault(key, {})
+            node[leaf] = slots
     return tree
 
 
@@ -182,7 +196,7 @@ def save_train_ckpt(ckpt_dir: str, tag: str, state, best_records: dict):
     path = os.path.join(ckpt_dir, f"ckpt_{tag}.msgpack")
     arrays = {
         "model": jax_params_from_state_dict(state.model.state_dict())[0],
-        "head": state.head,
+        "head": _head_tree(state),
         "logit_scale": state.logit_scale,
         "opt_state": _opt_state_tree(state),
         "step": np.asarray(state.step, np.int32),
@@ -214,8 +228,14 @@ def load_train_ckpt(path: str, state):
     sd = state_dict_from_jax_params(arrays["model"],
                                     state.model.logit_scale.item())
     state.model.load_state_dict(sd)
+    heads = arrays["head"]
+    if not isinstance(heads, dict):
+        heads = {"cls": heads}
     with torch.no_grad():
-        state.head.copy_(torch.from_numpy(np.array(arrays["head"])))
+        state.head.copy_(torch.from_numpy(np.array(heads["cls"])))
+        if state.dataset_head is not None:
+            state.dataset_head.copy_(torch.from_numpy(
+                np.array(heads["dataset"])))
         state.logit_scale.copy_(torch.from_numpy(
             np.array(arrays["logit_scale"])))
     names = _opt_names(state)
@@ -223,9 +243,9 @@ def load_train_ckpt(path: str, state):
     index = 0
     for group in state.optimizer.param_groups:
         for p in group["params"]:
-            where = names[id(p)]
-            slots = (opt["model"][where[1]] if where[0] == "model"
-                     else opt[where[0]])
+            slots = opt
+            for key in names[id(p)]:
+                slots = slots[key]
             saved[index] = {k: torch.from_numpy(np.array(v))
                             for k, v in slots.items()}
             index += 1

@@ -9,19 +9,25 @@ single-loader mixes (cutmix, mixup, resizemix, saliencymix, attentivemix),
 the twin-loader methods (finetune-mixed, cutmix-fs, mixup-fs, CMO), the
 linear probes (probing, REAL-Linear and CMLP, on pre-extracted features or
 streamed; CMLP joins a batch of prompt embeddings to each, ``--use_attribute``
-adds the attribute prompts) and FLYP (both towers, streaming; its head
+adds the attribute prompts), FLYP (both towers, streaming; its head
 rebuilt from the text tower on each validating epoch; ``--locked_text``,
-``--lr_projector``) run stage 1: the epochs (streaming or resident),
-WiSE-FT, feature re-extraction with the best weights, test scores,
-tau-normalization and the stage-1 bundle.
+``--lr_projector``), finetune-multitask (a second, binary dataset head,
+both heads validated every epoch) and fixmatch (its epochs over the
+unlabeled split, the labeled split cycled beside it, validated on the test
+split) run stage 1: the epochs (streaming or resident), WiSE-FT, feature
+re-extraction with the best weights, test scores, tau-normalization and the
+stage-1 bundle.  dataset-cls trains a binary head to tell few-shot from
+retrieved images, validates on the split with the source flag as the
+label, and ends after its epochs, with no summary row.
 ``--accum``, ``--remat``, ``--optim SGD`` and ``--utrain`` (pseudo-labeled
 samples appended to the train split) apply as in ``swat_tpu``.
 Stage 2 starts from that bundle (or from ``--stage1_model_path`` with
 ``--skip_stage1``): probing on the few-shot train-transform snapshot's
-features, then few-shot finetuning; the 11-field summary line follows.  ``--model_path`` warm-starts stage 1,
-``--save_ckpt`` / ``--resume`` write and restore train checkpoints.  The
-other methods (fixmatch, multitask, dataset-cls) and options raise
-NotImplementedError naming their ROADMAP item.
+features, then few-shot finetuning; the 11-field summary line follows.
+``--model_path`` warm-starts stage 1, ``--save_ckpt`` / ``--resume`` write
+and restore train checkpoints.  The options still to port (a device mesh,
+``--trace_dir``, ``--test_imagenet_ood``) raise NotImplementedError naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -37,8 +43,8 @@ import numpy as np
 import torch
 
 from swat_tpu_torch.data import prompts as P
-from swat_tpu_torch.data.splits import (class_counts, read_pseudo_split,
-                                        read_split)
+from swat_tpu_torch.data.splits import (Sample, class_counts,
+                                        read_pseudo_split, read_split)
 from swat_tpu_torch.utils.logging import set_logger
 from swat_tpu_torch.core.config import RunConfig
 from swat_tpu_torch.core.precision import DEFAULT_PRECISION, FP32_PRECISION
@@ -58,7 +64,8 @@ from swat_tpu_torch.eval.heatmap import (clip_attention_heatmap,
                                          clip_text_heatmap)
 from swat_tpu_torch.eval.metrics import calculate_scores
 from swat_tpu_torch.eval.resident import ResidentEval, make_scan_eval
-from swat_tpu_torch.eval.validate import Evaluator, validate_features
+from swat_tpu_torch.eval.validate import (Evaluator, validate_features,
+                                          validate_multitask)
 from swat_tpu_torch.models.clip import CLIPModel
 from swat_tpu_torch.models.configs import get_model_config
 from swat_tpu_torch.models.head import (init_head_from_prompts,
@@ -79,9 +86,10 @@ from swat_tpu_torch.train.state import create_train_state
 from swat_tpu_torch.train.steps import (ACCUM_METHODS, FROZEN_STEP_METHODS,
                                         RESIDENT_METHODS, STEP_METHODS,
                                         TWIN_METHODS, make_ce_step,
-                                        make_cmlp_step, make_flyp_step,
-                                        make_mixing_step, make_probing_step,
-                                        make_sampler)
+                                        make_cmlp_step, make_dataset_cls_step,
+                                        make_fixmatch_step, make_flyp_step,
+                                        make_mixing_step, make_multitask_step,
+                                        make_probing_step, make_sampler)
 from swat_tpu_torch.train.trainer import compose_twin, train_loop
 
 
@@ -204,17 +212,19 @@ class SwatPipeline:
 
         # ---- classifier head (reference set_classifier,
         # utils/models.py:22-43)
+        # dataset-cls: a random binary head whatever --cls_init says; the
+        # random heads are swat_tpu's draws from PRNGKey(training_seed)
         if cfg.method == "dataset-cls":
-            raise _not_ported("--method dataset-cls", "Queue A item 6")
-        if cfg.cls_init in ("REAL-Prompt", "REAL-Linear", "text"):
+            head = init_head_random(cfg.training_seed, 2,
+                                    self.model_cfg.embed_dim, self.device)
+        elif cfg.cls_init in ("REAL-Prompt", "REAL-Linear", "text"):
             head = init_head_from_prompts(
                 P.class_embedding_matrix(self.prompt_tensors), self.device)
             logger.info("Initialized classifier head with text embedding. "
                         f"weights.shape: {tuple(head.shape)}")
         elif cfg.cls_init == "random":
-            head = init_head_random(
-                torch.Generator().manual_seed(cfg.training_seed),
-                cfg.num_classes, self.model_cfg.embed_dim, self.device)
+            head = init_head_random(cfg.training_seed, cfg.num_classes,
+                                    self.model_cfg.embed_dim, self.device)
         else:
             raise NotImplementedError(cfg.cls_init)
         self.zeroshot_head = head
@@ -386,14 +396,17 @@ class SwatPipeline:
 
     def train_method(self, cfg: RunConfig, head: torch.Tensor):
         """The epochs of ``cfg.method`` (finetune, a mix, a twin-loader
-        method, a probe or FLYP) from the model's current weights and
-        ``head`` -> (final state, BestSnapshot)."""
+        method, a probe, FLYP, finetune-multitask, dataset-cls or fixmatch)
+        from the model's current weights and ``head`` -> (final state,
+        BestSnapshot)."""
         method = cfg.method
         logger = self.logger
         loss = self._loss(cfg)
         image_size = self.model_cfg.vision.image_size
         samples = self._train_samples(cfg)
         frozen = method in FROZEN_STEP_METHODS
+        if method not in STEP_METHODS:
+            raise NotImplementedError(f"Method {method} not implemented.")
         if cfg.accum > 1 and method not in ACCUM_METHODS:
             raise ValueError(
                 f"--accum only supports the CE/mixing methods, not "
@@ -494,13 +507,34 @@ class SwatPipeline:
                     f" canvases ({est / 1e9:.2f} GB) on device; resident "
                     "epochs.")
 
-        steps_per_epoch = len(train_loader)
+        u_loader = None
+        if method == "fixmatch":
+            # the epoch iterates the unlabeled loader (reference
+            # train_fixmatch, utils/training.py:869-876), always on canvases:
+            # the LR schedule spans its steps, so it is built first
+            u_loader = TrainLoader(
+                self._samples(cfg.unlabeled_data),
+                batch_size=cfg.bsz * cfg.mu, seed=cfg.training_seed,
+                mode="canvas", n_px=image_size, num_workers=cfg.num_workers)
+            steps_per_epoch = len(u_loader)
+        else:
+            steps_per_epoch = len(train_loader)
         total_iter = steps_per_epoch * max(cfg.epochs, 1)
+
+        # dataset-cls needs a binary head (reference set_classifier,
+        # utils/models.py:24-27), multitask a second one for the source flag
+        dim = self.model_cfg.embed_dim
+        if method == "dataset-cls" and head.shape[0] != 2:
+            head = init_head_random(cfg.training_seed, 2, dim, self.device)
+        dataset_head = (init_head_random(cfg.training_seed + 1, 2, dim,
+                                         self.device)
+                        if method == "finetune-multitask" else None)
         state = create_train_state(
             self.model, head, method, lr_classifier=cfg.lr_classifier,
             lr_backbone=cfg.lr_backbone, total_iter=total_iter, wd=cfg.wd,
             optim_type=cfg.optim, lr_projector=cfg.lr_projector,
-            temperature=cfg.temperature, locked_text=cfg.locked_text)
+            temperature=cfg.temperature, locked_text=cfg.locked_text,
+            dataset_head=dataset_head)
 
         heatmap_fn = (self._heatmap_fn() if method == "attentivemix"
                       else None)
@@ -512,6 +546,13 @@ class SwatPipeline:
                 return make_probing_step(loss, cfg.pre_extracted, image_size)
             if method == "FLYP":
                 return make_flyp_step(loss, image_size)
+            if method == "finetune-multitask":
+                return make_multitask_step(loss, cfg.dataset_wd, image_size)
+            if method == "dataset-cls":
+                return make_dataset_cls_step(loss, image_size)
+            if method == "fixmatch":
+                return make_fixmatch_step(cfg.threshold, cfg.lambda_u,
+                                          image_size)
             if method in ("finetune", "finetune-mixed"):
                 return make_ce_step(loss, image_size, aug_dtype,
                                     concat_fs=method == "finetune-mixed",
@@ -530,6 +571,15 @@ class SwatPipeline:
 
             def train_batches():
                 return compose_twin(iter(train_loader), twin_cycler)
+        elif method == "fixmatch":
+            # the labeled loader cycles beside the unlabeled one, whose
+            # canvases ride under *_u keys
+            labeled = CyclingLoader(train_loader)
+
+            def train_batches():
+                for ub in u_loader:
+                    yield dict(labeled.next(), canvases_u=ub["canvases"],
+                               valid_hw_u=ub["valid_hw"])
         elif method == "CMLP":
             # a batch of the flattened prompt bank joins each batch
             # (swat_tpu/train/stages.py:546-567, :634-641)
@@ -563,11 +613,50 @@ class SwatPipeline:
                     f["image_features"], f["labels"], cfg.num_classes, loss,
                     source=f.get("source"))
                 return acc
+        elif method == "dataset-cls":
+            # predictions against the source flag (reference
+            # validate_dataset, testing.py:280-364)
+            def flagged(split):
+                return EvalLoader([Sample(s.path, s.is_fewshot, s.is_fewshot)
+                                   for s in self._samples(split)], 128,
+                                  image_size, cfg.num_workers)
+
+            def validate_fn(state):
+                return self.evaluator.validate(
+                    state.model, state.head.detach(),
+                    state.logit_scale.item(), flagged(cfg.val_split),
+                    return_confusion=True)
+
+            def test_fn(state):
+                acc, _, _ = self.evaluator.validate(
+                    state.model, state.head.detach(),
+                    state.logit_scale.item(), flagged(cfg.test_split))
+                return acc
+        elif method == "finetune-multitask":
+            # both heads over one pass (reference validate_multitask,
+            # testing.py:189-278)
+            def both(state, split, tag):
+                acc, vloss, cm, d_acc, _ = validate_multitask(
+                    self.evaluator, state.model, state.head.detach(),
+                    state.dataset_head.detach(), state.logit_scale.item(),
+                    self._eval_loader(split), loss)
+                logger.info(f"Dataset {tag} Acc: {round(d_acc, 3)}")
+                return acc, vloss, cm
+
+            def validate_fn(state):
+                return both(state, cfg.val_split, "Val")
+
+            def test_fn(state):
+                return both(state, cfg.test_split, "Test")[0]
         else:
+            # fixmatch validates on the test split (reference :922-924)
+            val_split = (cfg.test_split if method == "fixmatch"
+                         else cfg.val_split)
+
             def validate_fn(state):
                 return self._validate_images(
                     state.model, state.head.detach(),
-                    state.logit_scale.item(), cfg.val_split,
+                    state.logit_scale.item(), val_split,
                     return_confusion=True)
 
             def test_fn(state):
@@ -808,6 +897,8 @@ class SwatPipeline:
             return -1.0, cfg.stage1_model_path, -1.0
 
         _, best = self.train_method(cfg, head)
+        if cfg.method == "dataset-cls":
+            return -1.0, None, -1.0
         best_trainable = best.trainable
 
         # ---- WiSE-FT
@@ -990,15 +1081,12 @@ class SwatPipeline:
         cfg = self.cfg
         if cfg.method == "zeroshot" or cfg.zeroshot_only:
             return
-        if not cfg.skip_stage1 and cfg.method not in STEP_METHODS:
-            raise _not_ported(f"--method {cfg.method} training",
-                              "Queue A item 6")
-        if (not cfg.skip_stage1 and cfg.method == "CMLP"
-                and cfg.loss_name == "WeightedCE"):
+        if (not cfg.skip_stage1 and cfg.loss_name == "WeightedCE"
+                and cfg.method in ("CMLP", "dataset-cls")):
             # swat_tpu fails inside its first step there (ROADMAP Queue C)
             raise ValueError(
-                "--method CMLP cannot take --loss_name WeightedCE: its "
-                "text rows carry no source flag to weight by")
+                f"--method {cfg.method} cannot take --loss_name WeightedCE: "
+                "its loss gets no source flag to weight by")
         if cfg.test_imagenet_ood:
             raise _not_ported("--test_imagenet_ood", "Queue A item 8")
 
@@ -1010,6 +1098,12 @@ class SwatPipeline:
         t0 = time.perf_counter()
         stage1_acc, stage1_path, wsft_acc = self.run_stage1()
         if cfg.zeroshot_only or cfg.method == "zeroshot":
+            return ""
+        if cfg.method == "dataset-cls":
+            # the reference exits right after train_dataset_cls
+            # (main.py:329-330): no stage 2 and no summary row
+            logger.info("dataset-cls run complete (no summary row; "
+                        "reference exits after training).")
             return ""
         logger.info(f"Stage 1 wall time: {time.perf_counter() - t0:.3f} s")
         stage2_lp_acc = stage2_fsft_acc = -1.0

@@ -1,8 +1,9 @@
 """Train state (counterpart of ``swat_tpu/train/state.py:29-123``).
 
-The trainable set is the CLIP model, the classifier head and logit_scale;
-the state also holds the optimizer over them (AdamW or SGD) and the step
-count.
+The trainable set is the CLIP model, the classifier head and logit_scale
+(and finetune-multitask's binary dataset head, ``swat_tpu``'s
+``head['dataset']``); the state also holds the optimizer over them (AdamW
+or SGD) and the step count.
 The JAX package keeps these as one immutable pytree; here the model is
 trained in place, and the head and logit_scale are the state's own
 parameters.  Frozen tensors have ``requires_grad`` off and sit in no
@@ -32,6 +33,8 @@ class TrainState:
     logit_scale: nn.Parameter     # scalar, the log of the scale
     optimizer: torch.optim.Optimizer
     step: int = 0
+    # finetune-multitask's [2, embed_dim] dataset-source head, else None
+    dataset_head: Optional[nn.Parameter] = None
 
     def apply_update(self) -> None:
         """One optimizer step with this count's learning rates, then the
@@ -72,9 +75,12 @@ def create_train_state(model: CLIPModel, head: torch.Tensor, method: str, *,
                        optim_type: str = "AdamW",
                        lr_projector: Optional[float] = None,
                        temperature: float = 0.07,
-                       locked_text: bool = False) -> TrainState:
+                       locked_text: bool = False,
+                       dataset_head: Optional[torch.Tensor] = None
+                       ) -> TrainState:
     """Marks the model's frozen tensors (``requires_grad`` off), copies the
-    head and makes logit_scale on the model's device, and builds the
+    head (and ``dataset_head``, finetune-multitask's, trained in the head
+    group) and makes logit_scale on the model's device, and builds the
     optimizer (``optim_type``: AdamW or SGD) over the labeled groups."""
     labels = make_labels(model, method, locked_text)
     groups = {"backbone": [], "projector": [], "head": []}
@@ -84,18 +90,23 @@ def create_train_state(model: CLIPModel, head: torch.Tensor, method: str, *,
         if label != "frozen":
             groups[label].append(p)
     device = model.logit_scale.device
-    head_p = nn.Parameter(torch.as_tensor(head).detach().to(
-        device=device, dtype=torch.float32).clone(),
-        requires_grad=labels["head"] == "head")
-    scale_p = nn.Parameter(torch.tensor(init_logit_scale(method, temperature),
-                                        dtype=torch.float32, device=device),
-                           requires_grad=labels["logit_scale"] == "head")
-    for p in (head_p, scale_p):
-        if p.requires_grad:
+
+    def own(t, trains):
+        return nn.Parameter(torch.as_tensor(t).detach().to(
+            device=device, dtype=torch.float32).clone(), requires_grad=trains)
+
+    head_p = own(head, labels["head"] == "head")
+    dataset_p = (None if dataset_head is None
+                 else own(dataset_head, labels["head"] == "head"))
+    scale_p = own(init_logit_scale(method, temperature),
+                  labels["logit_scale"] == "head")
+    for p in (head_p, dataset_p, scale_p):
+        if p is not None and p.requires_grad:
             groups["head"].append(p)
     optimizer = build_optimizer(groups, lr_classifier=lr_classifier,
                                 lr_backbone=lr_backbone,
                                 total_iter=total_iter, wd=wd,
                                 optim_type=optim_type,
                                 lr_projector=lr_projector)
-    return TrainState(model, head_p, scale_p, optimizer)
+    return TrainState(model, head_p, scale_p, optimizer,
+                      dataset_head=dataset_p)

@@ -1,6 +1,7 @@
 """Train steps of the finetune and mixing families, of linear probing
-(probing, REAL-Linear), cross-modal probing (CMLP) and FLYP (counterpart
-of ``swat_tpu/train/steps.py:48-251,254-434``).
+(probing, REAL-Linear), cross-modal probing (CMLP), FLYP, finetune-multitask,
+dataset-cls and FixMatch (counterpart of
+``swat_tpu/train/steps.py:48-251,254-552``).
 
 One step: on-device augmentation (random-resized-crop / flip / normalize
 from uint8 canvases, when the batch carries them), the method's mix, the
@@ -19,8 +20,13 @@ REAL-Linear (``make_probing_step``: the head alone on pre-extracted or
 freshly encoded features), CMLP (``make_cmlp_step``: the same with a batch
 of prompt embeddings joined to the image features) and FLYP
 (``make_flyp_step``: both towers trained by the batch's [B, B] image-text
-contrastive loss).  ``accum > 1`` mixes the whole batch, then encodes and
-differentiates it in that many microbatches, summing their gradients.
+contrastive loss), finetune-multitask (``make_multitask_step``: a second,
+binary head scored against the batch's source flag), dataset-cls
+(``make_dataset_cls_step``: the source flag as the label) and FixMatch
+(``make_fixmatch_step``: a weak and a RandAugment-strong view of an
+unlabeled batch, ``FixmatchDraws``).  ``accum > 1`` mixes the whole batch,
+then encodes and differentiates it in that many microbatches, summing their
+gradients.
 """
 
 from __future__ import annotations
@@ -33,6 +39,9 @@ import torch
 
 from swat_tpu_torch.kernels import augment as aug
 from swat_tpu_torch.kernels.flash_attention import mha_qkv
+from swat_tpu_torch.kernels.randaugment import (RandAugmentDraws,
+                                                rand_augment,
+                                                sample_rand_augment)
 from swat_tpu_torch.models.clip import Attention
 from swat_tpu_torch.models.head import head_logits
 from swat_tpu_torch.train.losses import (LossFn, cross_entropy,
@@ -53,8 +62,11 @@ RESIDENT_METHODS = ("finetune", "cutmix", "mixup", "resizemix",
 ACCUM_METHODS = MIX_METHODS + TWIN_METHODS
 # the methods that train the head alone on frozen towers
 FROZEN_STEP_METHODS = ("probing", "REAL-Linear", "CMLP")
+# the methods whose step augments its batch and draws nothing else
+CROP_ONLY_METHODS = FROZEN_STEP_METHODS + ("FLYP", "finetune-multitask",
+                                          "dataset-cls")
 # every method whose step is ported
-STEP_METHODS = ACCUM_METHODS + FROZEN_STEP_METHODS + ("FLYP",)
+STEP_METHODS = ACCUM_METHODS + CROP_ONLY_METHODS + ("fixmatch",)
 
 MixDraws = Union[aug.CutmixDraws, aug.CutmixFromDraws, aug.MixupDraws,
                  aug.MixupFsDraws, aug.ResizemixDraws, aug.PeakMixDraws]
@@ -69,6 +81,17 @@ class StepDraws:
     crops: Optional[aug.CropDraws] = None
     mix: Optional[MixDraws] = None
     twin_crops: Optional[aug.CropDraws] = None
+
+
+@dataclasses.dataclass
+class FixmatchDraws:
+    """The random inputs of one FixMatch step: the labeled batch's crops
+    and flips (for canvas batches), those of the unlabeled canvases' weak
+    and strong views, and the strong view's RandAugment draws."""
+    crops: Optional[aug.CropDraws] = None
+    weak: Optional[aug.CropDraws] = None
+    strong: Optional[aug.CropDraws] = None
+    rand_augment: Optional[RandAugmentDraws] = None
 
 
 def _check_method(method: str) -> None:
@@ -90,9 +113,12 @@ def make_sampler(method: str, *, mixup_alpha: float = 1.0,
                  image_size: int = 224):
     """sample(rng, batch) -> StepDraws for a batch whose ``valid_hw`` (if
     it carries canvases) is a host array.  Draw order: crops, flips, the
-    twin's crops and flips, mix (the frozen methods and FLYP draw no mix).
-    cutmix-fs's permutation spans the batch and its twin joined."""
-    if method not in FROZEN_STEP_METHODS + ("FLYP",):
+    twin's crops and flips, mix (CROP_ONLY_METHODS draw no mix).
+    cutmix-fs's permutation spans the batch and its twin joined.
+    fixmatch's sampler is ``sample_fixmatch``."""
+    if method == "fixmatch":
+        return sample_fixmatch
+    if method not in CROP_ONLY_METHODS:
         _check_method(method)
 
     def sample(rng: np.random.Generator, batch: Mapping) -> StepDraws:
@@ -120,6 +146,20 @@ def make_sampler(method: str, *, mixup_alpha: float = 1.0,
         return StepDraws(crops, mix, twin_crops)
 
     return sample
+
+
+def sample_fixmatch(rng: np.random.Generator, batch: Mapping
+                    ) -> FixmatchDraws:
+    """FixMatch's draws for a batch (host ``valid_hw`` / ``valid_hw_u``):
+    the labeled crops and flips, the unlabeled canvases' weak crops and
+    flips, their strong crops and flips, then the strong view's
+    RandAugment(2, 10) draws; none for the parts that carry images."""
+    crops = _sample_crops(rng, batch)
+    weak = _sample_crops(rng, batch, "_u")
+    strong = _sample_crops(rng, batch, "_u")
+    ra = (sample_rand_augment(rng, len(batch["valid_hw_u"]))
+          if "canvases_u" in batch else None)
+    return FixmatchDraws(crops, weak, strong, ra)
 
 
 def _twin_of(batch: Mapping) -> Optional[dict]:
@@ -229,16 +269,17 @@ def make_encode_loss(loss: LossFn, attention: Attention = mha_qkv,
 
 # the batch keys a step reads; the integer ones go to the device as int64
 _STEP_KEYS = ("canvases", "images", "features", "labels", "source",
-              "prompt_tokens", "text_features", "text_labels")
+              "prompt_tokens", "text_features", "text_labels", "images_w",
+              "images_s")
 _LONG_KEYS = ("labels", "prompt_tokens", "text_labels")
 
 
 def batch_to_device(batch: Mapping, device: torch.device) -> dict:
-    """The arrays a step reads, the twin's *_fs keys included, as tensors
-    on ``device`` (labels and tokens as int64); tensors already there pass
-    through."""
+    """The arrays a step reads, the twin's *_fs keys and FixMatch's
+    unlabeled *_u keys included, as tensors on ``device`` (labels and tokens
+    as int64); tensors already there pass through."""
     out = {}
-    for suffix in ("", "_fs"):
+    for suffix in ("", "_fs", "_u"):
         for key in _STEP_KEYS:
             if key + suffix in batch:
                 t = torch.as_tensor(batch[key + suffix])
@@ -384,6 +425,17 @@ def _update(state: TrainState, val: torch.Tensor) -> torch.Tensor:
     return val.detach()
 
 
+def _loss_step(step_loss: Callable) -> Callable:
+    """A step of ``step_loss(state, batch, draws)``: the batch to the
+    device, the loss, its backward, one update -> the loss."""
+
+    def step(state: TrainState, batch, draws) -> torch.Tensor:
+        batch = batch_to_device(batch, state.head.device)
+        return _update(state, step_loss(state, batch, draws))
+
+    return step
+
+
 def make_probing_step(loss: LossFn = cross_entropy,
                       pre_extracted: bool = True, image_size: int = 224,
                       attention: Attention = mha_qkv):
@@ -460,10 +512,135 @@ def make_flyp_step(loss: LossFn = cross_entropy, image_size: int = 224,
                    attention: Attention = mha_qkv):
     """FLYP contrastive finetuning of both towers: ``make_flyp_loss``'s
     loss, its backward, one update."""
-    flyp_loss = make_flyp_loss(loss, image_size, attention)
+    return _loss_step(make_flyp_loss(loss, image_size, attention))
 
-    def step(state: TrainState, batch, draws: StepDraws) -> torch.Tensor:
+
+def make_multitask_loss(loss: LossFn = cross_entropy,
+                        dataset_wd: float = 1.0, image_size: int = 224,
+                        attention: Attention = mha_qkv):
+    """multitask_loss(state, batch, draws) -> finetune-multitask's loss on
+    a batch already on the device (reference train_ce_multitask,
+    utils/training.py:990-1111; ``swat_tpu.train.steps.make_multitask_step``'s
+    loss): the class head's logits scaled by exp(logit_scale) under the
+    run's loss, plus ``dataset_wd`` x the plain CE of the state's binary
+    dataset head against the batch's source flag; the dataset logits are
+    left unscaled, as the reference comments the scaling out
+    (:1035-1036)."""
+
+    def multitask_loss(state: TrainState, batch, draws: StepDraws):
+        feats = state.model.encode_image(
+            _train_images(batch, draws, image_size), normalize=True,
+            attention=attention)
+        logits = head_logits(state.head, feats) * torch.exp(state.logit_scale)
+        ds_logits = head_logits(state.dataset_head, feats)
+        return (loss(logits, batch["labels"], batch["source"])
+                + dataset_wd * cross_entropy(ds_logits, batch["source"], None))
+
+    return multitask_loss
+
+
+def make_dataset_cls_loss(loss: LossFn = cross_entropy,
+                          image_size: int = 224,
+                          attention: Attention = mha_qkv):
+    """dataset_cls_loss(state, batch, draws) -> dataset-cls's loss on a
+    batch already on the device (reference train_dataset_cls,
+    utils/training.py:572-685; ``swat_tpu.train.steps.make_dataset_cls_step``'s
+    loss): a binary head's logits scaled by exp(logit_scale), the batch's
+    source flag as the label, no source weighting."""
+
+    def dataset_cls_loss(state: TrainState, batch, draws: StepDraws):
+        feats = state.model.encode_image(
+            _train_images(batch, draws, image_size), normalize=True,
+            attention=attention)
+        logits = head_logits(state.head, feats) * torch.exp(state.logit_scale)
+        return loss(logits, batch["source"], None)
+
+    return dataset_cls_loss
+
+
+def make_multitask_step(loss: LossFn = cross_entropy, dataset_wd: float = 1.0,
+                        image_size: int = 224,
+                        attention: Attention = mha_qkv):
+    """finetune-multitask: ``make_multitask_loss``'s loss, one update."""
+    return _loss_step(make_multitask_loss(loss, dataset_wd, image_size,
+                                          attention))
+
+
+def make_dataset_cls_step(loss: LossFn = cross_entropy,
+                          image_size: int = 224,
+                          attention: Attention = mha_qkv):
+    """dataset-cls: ``make_dataset_cls_loss``'s loss, one update."""
+    return _loss_step(make_dataset_cls_loss(loss, image_size, attention))
+
+
+def fixmatch_views(batch, draws: FixmatchDraws, image_size: int = 224):
+    """The unlabeled batch's two views, normalized: weak = random-resized
+    crop + flip, strong = random-resized crop + flip + RandAugment(2, 10)
+    with a cutout of image_size // 2 (reference TransformFixMatch,
+    utils/extras.py:41-63), from its canvases; or its pre-augmented
+    'images_w' / 'images_s'."""
+    if "canvases_u" not in batch:
+        return batch["images_w"], batch["images_s"]
+    canvases = batch["canvases_u"]
+
+    def view(crops):
+        return aug.hflip(aug.random_resized_crop(canvases, crops.boxes,
+                                                 image_size), crops.flips)
+
+    strong = rand_augment(view(draws.strong), draws.rand_augment,
+                          cutout=image_size // 2)
+    return (aug.normalize_float_pixels(view(draws.weak)),
+            aug.normalize_float_pixels(strong))
+
+
+def make_fixmatch_loss(threshold: float = 0.95, lambda_u: float = 1.0,
+                       image_size: int = 224,
+                       attention: Attention = mha_qkv):
+    """fixmatch_loss(state, batch, draws) -> (loss, mask rate, loss_u) on a
+    batch already on the device (reference train_fixmatch,
+    utils/training.py:820-983; ``swat_tpu.train.steps.make_fixmatch_step``'s
+    loss): the labeled images, the weak and the strong view through the
+    image tower in one forward ([l; w; s]); unscaled head logits; the plain
+    CE of the labeled rows plus ``lambda_u`` x the mean over the unlabeled
+    rows of the strong view's CE against the weak view's argmax, masked by
+    max softmax(weak) >= ``threshold``, the weak view taking no gradient.
+    logit_scale is never read."""
+
+    def fixmatch_loss(state: TrainState, batch, draws: FixmatchDraws):
+        images_l = _train_images(batch, draws, image_size)
+        images_w, images_s = fixmatch_views(batch, draws, image_size)
+        n_l = images_l.shape[0]
+        feats = state.model.encode_image(
+            torch.cat([images_l, images_w, images_s]), normalize=True,
+            attention=attention)
+        logits = head_logits(state.head, feats)
+        logits_w, logits_s = logits[n_l:].chunk(2)
+        loss_l = cross_entropy(logits[:n_l], batch["labels"], None)
+        probs_w = torch.softmax(logits_w.detach(), dim=-1)
+        max_p, targets = probs_w.amax(dim=-1), probs_w.argmax(dim=-1)
+        mask = (max_p >= threshold).float()
+        per = cross_entropy.per_sample(logits_s, targets)
+        loss_u = (per * mask).mean()
+        return loss_l + lambda_u * loss_u, mask.mean(), loss_u
+
+    return fixmatch_loss
+
+
+def make_fixmatch_step(threshold: float = 0.95, lambda_u: float = 1.0,
+                       image_size: int = 224,
+                       attention: Attention = mha_qkv, aux: bool = False):
+    """FixMatch: ``make_fixmatch_loss``'s loss, its backward, one update ->
+    the loss, or with ``aux`` (loss, mask rate, loss_u), all 0-d tensors on
+    the device, not synchronized."""
+    fixmatch_loss = make_fixmatch_loss(threshold, lambda_u, image_size,
+                                       attention)
+
+    def step(state: TrainState, batch, draws: FixmatchDraws):
         batch = batch_to_device(batch, state.head.device)
-        return _update(state, flyp_loss(state, batch, draws))
+        val, mask_rate, loss_u = fixmatch_loss(state, batch, draws)
+        val = _update(state, val)
+        if aux:
+            return val, mask_rate, loss_u.detach()
+        return val
 
     return step

@@ -97,10 +97,8 @@ def test_head_init_and_logits():
     head = init_head_from_prompts(emb, torch.device("cpu"))
     assert head.dtype == torch.float32
     np.testing.assert_array_equal(head.numpy(), emb)
-    a = init_head_random(torch.Generator().manual_seed(4), 5, 64,
-                         torch.device("cpu"))
-    b = init_head_random(torch.Generator().manual_seed(4), 5, 64,
-                         torch.device("cpu"))
+    a = init_head_random(4, 5, 64, torch.device("cpu"))
+    b = init_head_random(4, 5, 64, torch.device("cpu"))
     assert torch.equal(a, b) and a.shape == (5, 64)
     assert float(a.abs().max()) <= 1 / 8            # U(-1/sqrt(64), +)
     feats = torch.randn(3, 8, dtype=torch.bfloat16)

@@ -143,7 +143,7 @@ def test_cli_main_prints_the_summary_on_cpu(setup, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"method": "fixmatch"}, "Queue A"),
+    ({"method": "finetune", "test_imagenet_ood": True}, "Queue A"),
 ])
 def test_unported_paths_raise(setup, tmp_path, kw, match):
     dataset_path, ckpt = setup

@@ -18,15 +18,21 @@ TORCH_THREADS = 2
 
 
 RETRIEVAL_SPLIT = "T2T30.txt"
+UNLABELED_SPLIT = "u_train_in_oracle.txt"
+DATASET_CLS_SPLITS = ("dataset_train.txt", "dataset_val.txt",
+                      "dataset_test.txt")
 
 
 def make_dataset(base, n_test_per_class: int = 50, seed: int = 0,
-                 n_retrieved_per_class: int = 0) -> str:
+                 n_retrieved_per_class: int = 0,
+                 n_unlabeled_per_class: int = 0) -> str:
     """``<base>/<DATASET>`` with fewshot4_seed1.txt, test.txt, the metrics
     json and, when ``n_retrieved_per_class``, the retrieved split
     RETRIEVAL_SPLIT (retrieved data lives under retrieved_path/<dataset>,
-    here the same root, as in tests/test_e2e_cli.py); class-colored JPEGs
-    (learnable by color).  Returns the dataset_path to pass as
+    here the same root, as in tests/test_e2e_cli.py), and when
+    ``n_unlabeled_per_class`` FixMatch's unlabeled split UNLABELED_SPLIT
+    (written last, so the other splits do not depend on it); class-colored
+    JPEGs (learnable by color).  Returns the dataset_path to pass as
     ``dataset_path``."""
     rng = np.random.default_rng(seed)
     root = os.path.join(str(base), DATASET)
@@ -49,6 +55,8 @@ def make_dataset(base, n_test_per_class: int = 50, seed: int = 0,
     write_split("test.txt", n_test_per_class, 0, "te")
     if n_retrieved_per_class:
         write_split(RETRIEVAL_SPLIT, n_retrieved_per_class, 0, "rt")
+    if n_unlabeled_per_class:
+        write_split(UNLABELED_SPLIT, n_unlabeled_per_class, 0, "ul")
     metrics = {str(c): {"name": f"class{c}",
                         "most_common_name": CLASS_NAMES[c]}
                for c in range(NUM_CLASSES)}
@@ -56,6 +64,25 @@ def make_dataset(base, n_test_per_class: int = 50, seed: int = 0,
               "w") as f:
         json.dump(metrics, f)
     return str(base)
+
+
+def write_dataset_cls_splits(dataset_path) -> None:
+    """dataset-cls's three split files beside the dataset's: the few-shot
+    images flagged 1 and the retrieved ones 0 (make_dataset's
+    ``n_retrieved_per_class``), each line with its absolute path, since
+    these splits' root is empty (``core/config.py``'s val / test /
+    train_split)."""
+    root = os.path.join(str(dataset_path), DATASET)
+    lines = []
+    for name, flag in (("fewshot4_seed1.txt", 1), (RETRIEVAL_SPLIT, 0)):
+        with open(os.path.join(root, name)) as f:
+            for line in f.read().split("\n"):
+                if line:
+                    rel, label, _ = line.split()
+                    lines.append(f"{os.path.join(root, rel)} {label} {flag}")
+    for name in DATASET_CLS_SPLITS:
+        with open(os.path.join(root, name), "w") as f:
+            f.write("\n".join(lines) + "\n")
 
 
 def register_dataset():
@@ -178,6 +205,61 @@ def jax_crop_draws(key, valid_hw):
     from swat_tpu_torch.train.steps import StepDraws
 
     return StepDraws(_jax_crops(key, np.asarray(valid_hw)))
+
+
+def jax_rand_augment_draws(key, b: int, n: int = 2, m: int = 10):
+    """The draws swat_tpu.kernels.randaugment.rand_augment makes from
+    ``key`` for ``b`` images, as the port's RandAugmentDraws: the batch's
+    split(key, b), each image's split into 5 n + 1 keys; round j takes
+    (op, magnitude, gate, sign, apply) from keys[5 j: 5 j + 5] (the apply
+    key feeds no op), the cutout's (x, y) uniforms come from
+    split(keys[-1])."""
+    import jax
+
+    from swat_tpu.kernels.randaugment import NUM_OPS
+    from swat_tpu_torch.kernels.randaugment import RandAugmentDraws
+
+    ops = np.zeros((b, n), np.int64)
+    mags = np.zeros((b, n), np.int64)
+    gates = np.zeros((b, n), bool)
+    signs = np.zeros((b, n), np.float32)
+    cutout = np.zeros((b, 2), np.float32)
+    for i, key_i in enumerate(jax.random.split(key, b)):
+        keys = jax.random.split(key_i, n * 5 + 1)
+        for j in range(n):
+            k_op, k_mag, k_gate, k_sign, _ = keys[j * 5: j * 5 + 5]
+            ops[i, j] = int(jax.random.randint(k_op, (), 0, NUM_OPS))
+            mags[i, j] = int(jax.random.randint(k_mag, (), 1, m))
+            gates[i, j] = bool(jax.random.uniform(k_gate) < 0.5)
+            signs[i, j] = -1.0 if bool(jax.random.uniform(k_sign) < 0.5) \
+                else 1.0
+        k1, k2 = jax.random.split(keys[-1])
+        cutout[i] = (float(jax.random.uniform(k1)),
+                     float(jax.random.uniform(k2)))
+    return RandAugmentDraws(ops, mags, gates, signs, cutout)
+
+
+def jax_fixmatch_draws(key, valid_hw, valid_hw_u=None):
+    """The random inputs swat_tpu's make_fixmatch_step draws from its step
+    key, as the port's FixmatchDraws: key -> (k_l, k_w, k_s, k_ra); the
+    labeled crops from k_l (train_augment's), the weak and the strong
+    view's from k_w and k_s (their own (crop, flip) splits, the same as
+    train_augment's, ``_jax_crops``), RandAugment's from k_ra.  Without
+    ``valid_hw_u`` (pre-augmented views) no view draws; without
+    ``valid_hw`` (labeled images) no labeled crops."""
+    import jax
+
+    from swat_tpu_torch.train.steps import FixmatchDraws
+
+    k_l, k_w, k_s, k_ra = jax.random.split(key, 4)
+    draws = FixmatchDraws(None if valid_hw is None
+                          else _jax_crops(k_l, np.asarray(valid_hw)))
+    if valid_hw_u is not None:
+        valid_hw_u = np.asarray(valid_hw_u)
+        draws.weak = _jax_crops(k_w, valid_hw_u)
+        draws.strong = _jax_crops(k_s, valid_hw_u)
+        draws.rand_augment = jax_rand_augment_draws(k_ra, len(valid_hw_u))
+    return draws
 
 
 def jax_step_draws(key, valid_hw, image_size: int, beta: float = 1.0,
