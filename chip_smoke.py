@@ -39,8 +39,16 @@ forward), kernel against plain attention, timed, profiled and its peak
 memory; one full-width step each of finetune-multitask and dataset-cls,
 kernel against plain attention; the cutmix step under every remat policy and
 gradient accumulation, its peak memory, time and launches, its gradients
-against no remat; then the three block-fused layer
-kernels (block
+against no remat; the RN50 towers (seeded, their BN statistics calibrated)
+on the card against the CPU and in bf16, with no attention launch in the
+image tower and 12 for a prompt batch; one RN50 cutmix step on the card
+against the CPU at 4 images, then timed and profiled at bsz 256; RN50
+through the CLI (the flagship run into stage 2; FLYP and ``--accum 2``
+refused, as ``swat_tpu`` fails on both); one cutmix step of ViT-B/16 at bsz
+128 and of ViT-L/14 at bsz 64, kernel against plain attention, counted,
+timed and profiled (the attention kernels' share of the step); L/14's step
+under no remat, full remat, ``--accum 2`` and ``auto_memory_policy``'s
+pick, with its peak memory; then the three block-fused layer kernels (block
 forward, MLP backward, attention backward) against their plain versions and
 timed beside their bounds and a library-built block, both full-width towers
 through ``use_mega``, and a full-width cutmix train step whose image tower
@@ -917,6 +925,25 @@ def _device_split(prof, steps):
     return split, sorted(others, reverse=True)[:5]
 
 
+def _canvas_batch(rng, n, n_classes, device):
+    """n random uint8 canvases (256 x 256, camera-like valid sizes), labels
+    and source flags."""
+    import numpy as np
+    import torch
+
+    from swat_tpu_torch.train.steps import batch_to_device
+
+    valid_hw = np.stack([rng.integers(160, 257, n), np.full(n, 256)], axis=1)
+    valid_hw[::2] = valid_hw[::2, ::-1]
+    batch = batch_to_device(
+        {"canvases": torch.from_numpy(rng.integers(
+            0, 256, (n, 256, 256, 3), dtype=np.uint8)),
+         "labels": rng.integers(0, n_classes, n),
+         "source": rng.integers(0, 2, n)}, device)
+    batch["valid_hw"] = valid_hw
+    return batch
+
+
 def _train_setup(ckpt):
     """The full-width model from the seeded checkpoint, one batch of
     TRAIN_BSZ random uint8 canvases on the card, and a random head."""
@@ -925,7 +952,6 @@ def _train_setup(ckpt):
 
     from swat_tpu_torch.models.clip import CLIPModel
     from swat_tpu_torch.models.configs import get_model_config
-    from swat_tpu_torch.train.steps import batch_to_device
 
     cfg = get_model_config(MODEL_CFG)
     model = CLIPModel(cfg)
@@ -933,16 +959,7 @@ def _train_setup(ckpt):
     model.cuda()
     rng = np.random.default_rng(0)
     n_classes = 10
-    valid_hw = np.stack([rng.integers(160, 257, TRAIN_BSZ),
-                         np.full(TRAIN_BSZ, 256)], axis=1)
-    valid_hw[::2] = valid_hw[::2, ::-1]
-    canvases = torch.from_numpy(rng.integers(
-        0, 256, (TRAIN_BSZ, 256, 256, 3), dtype=np.uint8)).cuda()
-    batch = batch_to_device(
-        {"canvases": canvases,
-         "labels": rng.integers(0, n_classes, TRAIN_BSZ),
-         "source": rng.integers(0, 2, TRAIN_BSZ)}, torch.device("cuda"))
-    batch["valid_hw"] = valid_hw
+    batch = _canvas_batch(rng, TRAIN_BSZ, n_classes, torch.device("cuda"))
     head = torch.nn.functional.normalize(torch.from_numpy(
         rng.standard_normal((n_classes, cfg.embed_dim)).astype(np.float32)),
         dim=-1)
@@ -1987,7 +2004,7 @@ def _train_loop_counts(FA):
 
 def _train_cli_run(workdir, ckpt, dataset, method, dtype, resident, smi,
                    extra=(), bsz=CLI_BSZ, tag="", rows_want=2, stage2=False,
-                   summary_row=True):
+                   summary_row=True, model_cfg=MODEL_CFG):
     """One run of ``method`` through swat_tpu_torch.cli.main at full width
     (2 epochs at ``bsz`` unless ``extra`` says otherwise; --skip_stage2
     unless ``stage2``), its summary line, loss.csv (``rows_want`` rows) and
@@ -2004,7 +2021,7 @@ def _train_cli_run(workdir, ckpt, dataset, method, dtype, resident, smi,
     from swat_tpu_torch.cli.main import main as cli_main
     from swat_tpu_torch.kernels import flash_attention as FA
 
-    folder = f"{workdir}/train_{method}_{dtype}_{resident}{tag}"
+    folder = f"{workdir}/train_{model_cfg}_{method}_{dtype}_{resident}{tag}"
     _reset_counts(FA)
     buf = io.StringIO()
     t0 = time.perf_counter()
@@ -2014,7 +2031,7 @@ def _train_cli_run(workdir, ckpt, dataset, method, dtype, resident, smi,
                   "--retrieval_split", RETRIEVAL_SPLIT,
                   "--shots", "4", "--epochs", "2",
                   *(() if stage2 else ("--skip_stage2",)),
-                  "--bsz", str(bsz), "--model_cfg", MODEL_CFG,
+                  "--bsz", str(bsz), "--model_cfg", model_cfg,
                   "--checkpoint_path", ckpt,
                   "--config_yml", f"{workdir}/config.yml",
                   "--folder", folder, "--compute_dtype", dtype,
@@ -2069,7 +2086,7 @@ def _train_cli_run(workdir, ckpt, dataset, method, dtype, resident, smi,
     # the steps of the rows' stage: a resumed run counts on from its
     # checkpoint's iteration
     steps = len(rows) * (int(rows[0]["Iter"]) // int(rows[0]["Epoch"]))
-    log(f"[train-cli] {method} {dtype} resident={resident}{tag}"
+    log(f"[train-cli] {model_cfg} {method} {dtype} resident={resident}{tag}"
         f"{' (resident epochs)' if resident_run else ' (streaming)'}: "
         f"{summary[0]} | train loss "
         f"{' -> '.join(f'{x:.6f}' for x in losses[:2])} | "
@@ -2964,6 +2981,540 @@ def phase_mega_step(ckpt, smi):
     return total
 
 
+# ---------------------------------------------------------------------------
+# the RN50 image tower (models/resnet.py) and the ViT-B/16 and ViT-L/14
+# towers' train steps
+
+RN50_CFG = "rn50_openclip_openai"
+# card against CPU, fp32: eval features (cosine), train-mode features and
+# the new BN running statistics (relative to each tensor's largest value):
+# cuDNN's and the CPU's fp32 convolutions sum in other orders
+RN50_MIN_COS = 1 - 1e-5
+RN50_REL = 1e-4
+# bf16 against fp32 on the card: 16 bottlenecks of bf16 activations
+RN50_BF16_MIN_COS = 0.99
+RN50_STEP_BSZ = 256
+RN50_CPU_ROWS = 4
+
+
+def _rn50_images(n, n_px, seed):
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn(n, n_px, n_px, 3, generator=gen)
+
+
+def _bn_stats(model):
+    return {k: v.detach().float().cpu() for k, v in model.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def _max_rel(got, ref):
+    """The largest |got - ref| / max|ref| over the tensors of two dicts ->
+    (value, name)."""
+    rel = {k: float((got[k].float().cpu() - ref[k].float().cpu()).abs().max()
+                    / max(float(ref[k].abs().max()), 1e-30)) for k in ref}
+    worst = max(rel, key=rel.get)
+    return rel[worst], worst
+
+
+def phase_rn50_towers(workdir, smi):
+    """The registry's RN50 at full width (224 px), its weights seeded by
+    ``CLIPModel.init_random`` (He-normal convolutions, every bottleneck's
+    bn3 weight N(0, 0.1) where OpenCLIP zeroes it, the running statistics
+    calibrated by one batch-statistics pass over 4 seeded images), saved as
+    an OpenCLIP-format checkpoint for the CLI phase.  TF32 is off for cuDNN
+    too.  On 4 images, fp32, the card against the CPU: the eval-mode
+    features, the train-mode features and every BN batch statistic;
+    bf16 against fp32 on the card; the image tower launches none of the
+    four attention kernels, a prompt batch through the text tower exactly
+    12 of mha_fwd.  -> the checkpoint's path."""
+    import numpy as np
+    import torch
+
+    from swat_tpu_torch.core.precision import DEFAULT_PRECISION, FP32_PRECISION
+    from swat_tpu_torch.kernels import flash_attention as FA
+    from swat_tpu_torch.models.clip import CLIPModel
+    from swat_tpu_torch.models.configs import get_model_config
+
+    cfg = get_model_config(RN50_CFG)
+    t0 = time.perf_counter()
+    model = CLIPModel(cfg, precision=FP32_PRECISION).init_random(
+        torch.Generator().manual_seed(0))
+    init_s = time.perf_counter() - t0
+    ckpt = f"{workdir}/{RN50_CFG}_seed0.pt"
+    torch.save(model.state_dict(), ckpt)
+    n_params = sum(p.numel() for p in model.parameters())
+    FP32_PRECISION.apply_backend_flags()
+    if torch.backends.cudnn.allow_tf32 or \
+            torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on after apply_backend_flags")
+    images = _rn50_images(RN50_CPU_ROWS, cfg.vision.image_size, 1)
+    out = {}
+    for device in ("cpu", "cuda"):
+        model.to(device)
+        x = images.to(device)
+        with torch.no_grad():
+            ev = model.encode_image(x, normalize=True)
+            upd = {}
+            tr = model.encode_image(x, normalize=True, updates=upd)
+        names = {m: n for n, m in model.named_modules()}
+        stats = {f"{names[bn]}.{k}": t.cpu() for bn, (mean, var) in
+                 upd.items() for k, t in (("batch_mean", mean),
+                                          ("batch_var", var))}
+        out[device] = (ev.cpu(), tr.cpu(), stats)
+    (ev_c, tr_c, st_c), (ev_g, tr_g, st_g) = out["cpu"], out["cuda"]
+    cos_eval = float((ev_c * ev_g).sum(-1).min())
+    cos_train = float((tr_c * tr_g).sum(-1).min())
+    rel_train, _ = _max_rel({"f": tr_g}, {"f": tr_c})
+    rel_bn, worst_bn = _max_rel(st_g, st_c)
+    model.precision = DEFAULT_PRECISION
+    DEFAULT_PRECISION.apply_backend_flags()
+    with torch.no_grad():
+        ev_bf = model.encode_image(images.cuda(), normalize=True).cpu()
+    cos_bf = float((ev_bf * ev_g).sum(-1).min())
+    # launches: the image tower none, a prompt batch 12 (the text tower)
+    tokens = torch.from_numpy(_prompt_tokens(
+        np.random.default_rng(0), 10, cfg.text)).cuda()
+    _reset_counts(FA)
+    with torch.no_grad():
+        model.encode_image(images.cuda())
+        model.encode_image(images.cuda(), updates={})
+        model.encode_image_tokens(images.cuda())
+    image_counts = _counts(FA)
+    with torch.no_grad():
+        txt = model.encode_text(tokens, normalize=True)
+    torch.cuda.synchronize()
+    text_counts = tuple(a - b for a, b in zip(_counts(FA), image_counts))
+    need_text = (cfg.text.layers, 0, 0, 0)
+    ok = (cos_eval >= RN50_MIN_COS and cos_train >= RN50_MIN_COS
+          and rel_train <= RN50_REL and rel_bn <= RN50_REL
+          and cos_bf >= RN50_BF16_MIN_COS and image_counts == (0, 0, 0, 0)
+          and text_counts == need_text and bool(torch.isfinite(txt).all())
+          and len(st_g) == 2 * 55)
+    log(f"[rn50-towers] {RN50_CFG} ({n_params / 1e6:.1f} M parameters, "
+        f"init_random {init_s:.1f} s) {RN50_CPU_ROWS} images, card against "
+        f"CPU fp32: eval-mode min cosine {cos_eval:.9f}, train-mode min "
+        f"cosine {cos_train:.9f} (max rel {rel_train:.2e}), BN batch "
+        f"statistics ({len(st_g)} tensors) max rel {rel_bn:.2e} "
+        f"({worst_bn}; bounds cosine {RN50_MIN_COS}, rel {RN50_REL}); bf16 "
+        f"against fp32 on the card: min cosine {cos_bf:.6f} (bound "
+        f"{RN50_BF16_MIN_COS}); cudnn.allow_tf32 "
+        f"{torch.backends.cudnn.allow_tf32}; launches: image tower "
+        f"{image_counts}, a batch of 10 prompts {text_counts} (need "
+        f"{need_text}) on {smi} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("RN50 towers failed")
+    del model
+    torch.cuda.empty_cache()
+    return ckpt
+
+
+def _rn50_split(prof, steps):
+    """Device ms per step of a ResNet step by kernel family: cuDNN's
+    convolutions (forward, data and weight gradients, its FFT and Winograd
+    transforms included), other GEMMs (the attention pool, the head, the
+    GEMMs cuDNN calls for 1x1 convolutions), AdamW, the elementwise and
+    reduction kernels (BatchNorm's statistics and affine, ReLU, pooling,
+    their gradients) and the rest -> (split, the largest kernels of the
+    elementwise family and of the rest)."""
+    from torch.autograd import DeviceType
+
+    split = {"conv": 0.0, "gemm": 0.0, "bn-elementwise": 0.0,
+             "optimizer": 0.0, "other": 0.0}
+    largest = []
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        name = evt.key.lower()
+        ms = evt.self_device_time_total / 1e3 / steps
+        if any(t in name for t in ("conv", "fprop", "dgrad", "wgrad",
+                                   "implicit", "winograd", "cudnn", "fft",
+                                   "region_transform",
+                                   "pointwise_mult_and_sum")):
+            fam = "conv"
+        elif any(t in name for t in ("gemm", "nvjet", "cutlass", "xmma")):
+            fam = "gemm"
+        elif "adam" in name or "multi_tensor" in name:
+            fam = "optimizer"
+        elif any(t in name for t in ("elementwise", "reduce", "pool",
+                                     "batch_norm", "vectorized")):
+            fam = "bn-elementwise"
+            largest.append((ms, evt.key[:70]))
+        else:
+            fam = "other"
+            largest.append((ms, evt.key[:70]))
+        split[fam] += ms
+    return split, sorted(largest, reverse=True)[:4]
+
+
+def _profiled(step, n, split_fn):
+    """n steps under torch.profiler inside a window of CUDA events ->
+    (busy ms per step, window ms per step, split, largest 'other')."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(n):
+            step()
+        end.record()
+        torch.cuda.synchronize()
+    split, others = split_fn(prof, n)
+    return sum(split.values()), start.elapsed_time(end) / n, split, others
+
+
+def phase_rn50_step(ckpt, smi):
+    """One full-width RN50 cutmix step (augment, cutmix, batch-statistics
+    BN forward and backward, AdamW, the BN statistics folded after it):
+    first at 4 images, fp32, the card against the CPU on the same weights,
+    canvases and draws (the loss, every gradient, the folded statistics);
+    then at bsz 256, fp32 and bf16: a warm-up step, 3 steps timed, the
+    peak allocated memory over them, 2 steps profiled (busy time by kernel
+    family: convolutions, GEMMs, BN and elementwise, AdamW; the idle share
+    of the window).  -> {dtype: (ms, busy, window, peak)}."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from swat_tpu_torch.core.precision import DEFAULT_PRECISION, FP32_PRECISION
+    from swat_tpu_torch.kernels import flash_attention as FA
+    from swat_tpu_torch.models.clip import CLIPModel
+    from swat_tpu_torch.models.configs import get_model_config
+    from swat_tpu_torch.train.state import create_train_state
+    from swat_tpu_torch.train.steps import make_mixing_step, make_sampler
+
+    cfg = get_model_config(RN50_CFG)
+    n_px = cfg.vision.image_size
+    base = CLIPModel(cfg, precision=FP32_PRECISION)
+    base.load_state_dict(torch.load(ckpt))
+    rng = np.random.default_rng(3)
+    n_classes = 10
+    head = torch.nn.functional.normalize(torch.from_numpy(
+        rng.standard_normal((n_classes, cfg.embed_dim)).astype(np.float32)),
+        dim=-1)
+    sample = make_sampler("cutmix", mix_prob=1.0, image_size=n_px)
+    step = make_mixing_step("cutmix", image_size=n_px)
+    FP32_PRECISION.apply_backend_flags()
+    small = _canvas_batch(rng, RN50_CPU_ROWS, n_classes, torch.device("cpu"))
+    draws = sample(rng, small)
+    res = {}
+    for device in ("cpu", "cuda"):
+        model = copy.deepcopy(base).to(device)
+        state = create_train_state(model, head, "cutmix", total_iter=100)
+        batch = {k: v.to(device) if isinstance(v, torch.Tensor) else v
+                 for k, v in small.items()}
+        loss = float(step(state, batch, draws))
+        grads = {n: p.grad.detach().float().flatten().cpu()
+                 for n, p in model.named_parameters() if p.grad is not None}
+        res[device] = (loss, grads, _bn_stats(model))
+        del state, model
+    (lc, gc, sc), (lg, gg, sg) = res["cpu"], res["cuda"]
+    # the attention pool's key bias shifts every score of a query alike,
+    # which the softmax cancels: its gradient is rounding noise in both
+    kb = "visual.attnpool.k_proj.bias"
+    kb_rel = float(gg[kb].abs().max() / gg["visual.attnpool.k_proj.weight"]
+                   .abs().max())
+    del gg[kb], gc[kb]
+    cos, worst, _ = _compare_grads(gg, gc)
+    rel_bn, worst_bn = _max_rel(sg, sc)
+    moved = _max_rel(sc, _bn_stats(base))[0]
+    rel_loss = abs(lg - lc) / abs(lc)
+    ok = (rel_loss <= RN50_REL and cos >= GRAD_MIN_COS["float32"]
+          and rel_bn <= RN50_REL and moved > 0 and kb_rel < 1e-4
+          and len(gg) == len(gc) > 150)
+    log(f"[rn50-step] {RN50_CFG} cutmix {RN50_CPU_ROWS} images fp32, card "
+        f"against CPU: loss {lg:.7f} / {lc:.7f} (rel {rel_loss:.2e}, bound "
+        f"{RN50_REL}); min cosine of {len(gg)} visual gradients "
+        f"{cos:.8f} ({worst}; bound {GRAD_MIN_COS['float32']}; the key "
+        f"bias's, noise, at {kb_rel:.1e} of the key weight's); BN "
+        f"statistics after the fold max rel {rel_bn:.2e} ({worst_bn}; bound "
+        f"{RN50_REL}; moved {moved:.2e} from the checkpoint's) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("RN50 step disagrees with the CPU")
+    del res, gc, gg
+
+    model = base.cuda()
+    batch = _canvas_batch(rng, RN50_STEP_BSZ, n_classes, torch.device("cuda"))
+    draws = sample(rng, batch)
+    results = {}
+    for dname, precision in (("float32", FP32_PRECISION),
+                             ("bfloat16", DEFAULT_PRECISION)):
+        precision.apply_backend_flags()
+        model.precision = precision
+        state = create_train_state(model, head, "cutmix", total_iter=100)
+        step(state, batch, draws)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resting = torch.cuda.memory_allocated()
+        _reset_counts(FA)
+        ms = _time_ms(lambda: step(state, batch, draws), iters=3, warmup=0)
+        peak = torch.cuda.max_memory_allocated()
+        counts = _counts(FA)
+        busy, window, split, others = _profiled(
+            lambda: step(state, batch, draws), 2, _rn50_split)
+        val = float(step(state, batch, draws))
+        ok = np.isfinite(val) and counts == (0, 0, 0, 0)
+        log(f"[rn50-step] {RN50_CFG} cutmix bsz {RN50_STEP_BSZ} {dname}: "
+            f"{ms:.2f} ms/step ({RN50_STEP_BSZ * 1e3 / ms:.1f} images/s), "
+            f"peak {peak / 2 ** 30:.3f} GiB allocated (at rest "
+            f"{resting / 2 ** 30:.3f} GiB); profiled: {busy:.2f} ms busy of "
+            f"a {window:.2f} ms window (idle {100 * (1 - busy / window):.1f} "
+            f"%; " + ", ".join(
+                f"{k} {v:.2f} ({100 * v / max(busy, 1e-9):.1f} %)"
+                for k, v in split.items())
+            + "; largest elementwise or other kernels: "
+            + "; ".join(f"{t:.2f} {n}" for t, n in others)
+            + f"); attention launches {counts} on {smi} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"RN50 step failed ({dname}): {counts}")
+        results[dname] = (ms, busy, window, peak)
+        del state
+    del model, base
+    torch.cuda.empty_cache()
+    return results
+
+
+def phase_rn50_cli(workdir, ckpt, dataset, smi):
+    """RN50 through swat_tpu_torch.cli.main at full width: the flagship run
+    (cutmix, fewshot+retrieved, bsz 32, fp32) through stage 2 to its
+    11-field summary line, its training steps launching no attention kernel
+    (the image tower has none); then FLYP (its projector group names
+    visual.proj, which the ResNet has none of) and --accum 2, each of
+    which must raise its ValueError before any epoch, as both fail in
+    swat_tpu.  -> the flagship run's four counts, counted from 0."""
+    steps = 2 * ((N_FEWSHOT + N_RETRIEVED) // FLAGSHIP_BSZ)
+    run = _train_cli_run(workdir, ckpt, dataset, "cutmix", "float32", "auto",
+                         smi, (), bsz=FLAGSHIP_BSZ, tag="_rn50", rows_want=22,
+                         stage2=True, model_cfg=RN50_CFG)
+    train = run["loops"][0]
+    ok = train == (0, 0, 0, 0)
+    log(f"[rn50-cli] cutmix: stage-1 steps launched {train} (need none: "
+        f"{steps} steps at bsz {FLAGSHIP_BSZ}); the whole run "
+        f"{run['counts']} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"RN50 cutmix launches {train}")
+    for method, extra, why in (("FLYP", (), "no such tensor"),
+                               ("cutmix", ("--accum", "2"), "ViT-only")):
+        try:
+            _train_cli_run(workdir, ckpt, dataset, method, "float32", "auto",
+                           smi, extra, bsz=FLAGSHIP_BSZ,
+                           tag=f"_rn50_refused_{method}", model_cfg=RN50_CFG)
+        except ValueError as e:
+            if why not in str(e):
+                raise
+            log(f"[rn50-cli] {method} {' '.join(extra)} raised ValueError: "
+                f"{e}")
+        else:
+            raise AssertionError(f"{method} {extra} on RN50 ran")
+    return list(run["counts"])
+
+
+# (registry name, bsz): the two towers the long-row kernels serve
+VIT_TOWERS = (("vitb16_openclip_laion400m", 128),
+              ("vitl14_openclip_laion400m", 64))
+
+
+def _vit_model(name, precision):
+    """The registry's ``name`` at full depth and width, seeded by
+    init_random, on the card (no checkpoint file)."""
+    import torch
+
+    from swat_tpu_torch.models.clip import CLIPModel
+    from swat_tpu_torch.models.configs import get_model_config
+
+    cfg = get_model_config(name)
+    t0 = time.perf_counter()
+    model = CLIPModel(cfg, precision=precision).init_random(
+        torch.Generator().manual_seed(0)).cuda()
+    return cfg, model, time.perf_counter() - t0
+
+
+def phase_vit_towers(smi):
+    """One full-width cutmix step of ViT-B/16 at bsz 128 (S = 197) and of
+    ViT-L/14 at bsz 64 (S = 257, 24 layers), fp32 and bf16: the visual
+    gradients with the kernels against plain attention; one step with the
+    counts set to 0 just before it and read just after (mha_fwd and
+    mha_bwd once a layer); a warm-up step, 3 steps timed with the peak
+    allocated memory, 2 steps profiled (busy time by kernel family, the
+    attention kernels' share of it, the idle share of the window).
+    -> ({(name, dtype): (ms, busy, window, attention share, peak)}, the
+    four counts summed over the counted steps)."""
+    import numpy as np
+    import torch
+
+    from swat_tpu_torch.core.precision import DEFAULT_PRECISION, FP32_PRECISION
+    from swat_tpu_torch.kernels import flash_attention as FA
+    from swat_tpu_torch.train.losses import cross_entropy
+    from swat_tpu_torch.train.state import create_train_state
+    from swat_tpu_torch.train.steps import (make_encode_loss, make_mix_fn,
+                                            make_mixing_step, make_sampler)
+
+    results, total = {}, [0, 0, 0, 0]
+    for name, bsz in VIT_TOWERS:
+        cfg, model, init_s = _vit_model(name, FP32_PRECISION)
+        n_px, layers = cfg.vision.image_size, cfg.vision.layers
+        rng = np.random.default_rng(4)
+        batch = _canvas_batch(rng, bsz, 10, torch.device("cuda"))
+        head = torch.nn.functional.normalize(torch.from_numpy(
+            rng.standard_normal((10, cfg.embed_dim)).astype(np.float32)),
+            dim=-1)
+        draws = make_sampler("cutmix", mix_prob=1.0, image_size=n_px)(
+            rng, batch)
+        mix = make_mix_fn("cutmix", image_size=n_px)
+        step = make_mixing_step("cutmix", image_size=n_px)
+        for dname, precision in (("float32", FP32_PRECISION),
+                                 ("bfloat16", DEFAULT_PRECISION)):
+            precision.apply_backend_flags()
+            model.precision = precision
+            state = create_train_state(model, head, "cutmix", total_iter=100)
+            grads = {}
+            for attn_name, attn in (("kernel", FA.mha_qkv),
+                                    ("plain", FA.mha_qkv_reference)):
+                state.optimizer.zero_grad(set_to_none=True)
+                loss = make_encode_loss(cross_entropy, attn)(
+                    state, mix(state, batch, draws))
+                loss.backward()
+                grads[attn_name] = (loss.item(), _visual_grads(model))
+            (lk, gk), (lp, gp) = grads["kernel"], grads["plain"]
+            cos, worst, _ = _compare_grads(gk, gp)
+            del grads, gk, gp
+            state.optimizer.zero_grad(set_to_none=True)
+            step(state, batch, draws)
+            torch.cuda.synchronize()
+            _reset_counts(FA)
+            step(state, batch, draws)
+            torch.cuda.synchronize()
+            counts = _counts(FA)
+            total = [t + c for t, c in zip(total, counts)]
+            torch.cuda.reset_peak_memory_stats()
+            ms = _time_ms(lambda: step(state, batch, draws), iters=3,
+                          warmup=0)
+            peak = torch.cuda.max_memory_allocated()
+            busy, window, split, others = _profiled(
+                lambda: step(state, batch, draws), 2, _device_split)
+            attn = split["mha_fwd"] + split["mha_bwd"]
+            need = (layers, layers, 0, 0)
+            ok = (np.isfinite(lk) and cos >= GRAD_MIN_COS[dname]
+                  and counts == need)
+            log(f"[vit-towers] {name} cutmix bsz {bsz} (S = "
+                f"{cfg.vision.seq_len}, {layers} layers, init_random "
+                f"{init_s:.1f} s) {dname}: loss kernel {lk:.6f} / plain "
+                f"{lp:.6f}; min cosine of the visual gradients kernel vs "
+                f"plain {cos:.8f} ({worst}; bound {GRAD_MIN_COS[dname]}); "
+                f"launches {counts} (need {need}); {ms:.2f} ms/step "
+                f"({bsz * 1e3 / ms:.1f} images/s), peak "
+                f"{peak / 2 ** 30:.3f} GiB allocated; profiled: {busy:.2f} "
+                f"ms busy of a {window:.2f} ms window (idle "
+                f"{100 * (1 - busy / window):.1f} %; "
+                + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+                + f"); attention kernels {attn:.2f} ms = "
+                f"{100 * attn / busy:.1f} % of busy (mha_fwd "
+                f"{split['mha_fwd']:.2f}, mha_bwd {split['mha_bwd']:.2f}) on "
+                f"{smi} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{name} step failed ({dname})")
+            results[(name, dname)] = (ms, busy, window, attn / busy, peak)
+            del state
+        del model, batch
+        torch.cuda.empty_cache()
+    return results, total
+
+
+def phase_l14_memory(smi):
+    """ViT-L/14 cutmix at bsz 64, fp32 and bf16, under no remat, full
+    remat, --accum 2 and auto_memory_policy's own pick for the run (the
+    port keeps swat_tpu's decision): per policy a warm-up step, the
+    peak-memory counter reset, 3 steps timed, the peak allocated memory
+    over them, one step profiled (busy / window).  Does an 80 GB card need
+    the trigger swat_tpu measured on its own accelerator?"""
+    import numpy as np
+    import torch
+
+    from swat_tpu_torch.core.precision import DEFAULT_PRECISION, FP32_PRECISION
+    from swat_tpu_torch.train.stages import auto_memory_policy
+    from swat_tpu_torch.train.state import create_train_state
+    from swat_tpu_torch.train.steps import make_mixing_step, make_sampler
+
+    name, bsz = VIT_TOWERS[1]
+    cfg, model, _ = _vit_model(name, FP32_PRECISION)
+    n_px = cfg.vision.image_size
+    rng = np.random.default_rng(5)
+    batch = _canvas_batch(rng, bsz, 10, torch.device("cuda"))
+    head = torch.nn.functional.normalize(torch.from_numpy(
+        rng.standard_normal((10, cfg.embed_dim)).astype(np.float32)), dim=-1)
+    draws = make_sampler("cutmix", mix_prob=1.0, image_size=n_px)(rng, batch)
+    # the policy's own pick runs once, under its own name unless it is one
+    # of these
+    auto = auto_memory_policy(name, False, 1, bsz, 1, "cutmix")
+    policies = [("none", False, 1), ("full", "full", 1), ("accum2", False, 2)]
+    same = [label for label, *pick in policies if tuple(pick) == auto]
+    if not same:
+        policies.append((f"auto={auto[0]!r},{auto[1]}", *auto))
+    results = {}
+    total = torch.cuda.get_device_properties(0).total_memory
+    for dname, precision in (("float32", FP32_PRECISION),
+                             ("bfloat16", DEFAULT_PRECISION)):
+        precision.apply_backend_flags()
+        model.precision = precision
+        state = create_train_state(model, head, "cutmix", total_iter=100)
+        for label, remat, accum in policies:
+            model.remat = remat
+            step = make_mixing_step("cutmix", image_size=n_px, accum=accum)
+            step(state, batch, draws)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = _time_ms(lambda: step(state, batch, draws), iters=3,
+                          warmup=0)
+            peak = torch.cuda.max_memory_allocated()
+            busy, window, split, _ = _profiled(
+                lambda: step(state, batch, draws), 1, _device_split)
+            log(f"[l14-memory] {name} cutmix bsz {bsz} {dname} {label}: "
+                f"peak {peak / 2 ** 30:.3f} GiB allocated of "
+                f"{total / 2 ** 30:.1f} GiB, {ms:.2f} ms/step "
+                f"({bsz * 1e3 / ms:.1f} images/s); profiled step {busy:.2f} "
+                f"ms busy of a {window:.2f} ms window (idle "
+                f"{100 * (1 - busy / window):.1f} %) on {smi}")
+            results[(label, dname)] = (peak, ms, busy, window)
+            del step
+        model.remat = False
+        del state
+    need = {d: results[("none", d)][0] for d in ("float32", "bfloat16")}
+    log(f"[l14-memory] auto_memory_policy picks remat={auto[0]!r}, accum="
+        f"{auto[1]} ({same[0] if same else 'its own line'}) for {name} at "
+        f"bsz {bsz} on one device; without it the "
+        f"step peaks at {need['float32'] / 2 ** 30:.3f} GiB fp32, "
+        f"{need['bfloat16'] / 2 ** 30:.3f} GiB bf16 of the card's "
+        f"{total / 2 ** 30:.1f} GiB")
+    del model, batch
+    torch.cuda.empty_cache()
+    return results
+
+
+def _new_tower_phases(workdir, smi):
+    """[rn50-towers], [rn50-step], [rn50-cli] (on the smoke dataset the
+    earlier CLI phases wrote), [vit-towers] and [l14-memory] -> the four
+    counts summed over the RN50 CLI runs and the counted ViT steps."""
+    dataset = "smoke10"
+    t0 = time.perf_counter()
+    ckpt = phase_rn50_towers(workdir, smi)
+    phase_rn50_step(ckpt, smi)
+    rn50_counts = phase_rn50_cli(workdir, ckpt, dataset, smi)
+    t1 = time.perf_counter()
+    _, vit_counts = phase_vit_towers(smi)
+    phase_l14_memory(smi)
+    log(f"[new-towers] RN50 phases {t1 - t0:.1f} s, ViT phases "
+        f"{time.perf_counter() - t1:.1f} s; launches: RN50 CLI runs "
+        f"{rn50_counts}, ViT steps {vit_counts}")
+    return [a + b for a, b in zip(rn50_counts, vit_counts)]
+
+
 def main() -> int:
     try:
         import torch
@@ -3010,6 +3561,8 @@ def main() -> int:
         phase_fixmatch_step(ckpt, smi)
         phase_head_steps(ckpt, smi)
         phase_memory(ckpt, smi)
+        tower_counts = _new_tower_phases(workdir, smi)
+        cli_counts = [c + t for c, t in zip(cli_counts, tower_counts)]
         worst_mega = phase_mega_kernels()
         times_mega = phase_mega_timing(smi)
         tower_mega = phase_mega_towers(ckpt, smi)

@@ -23,8 +23,12 @@ eval``), with ``--optim AdamW | SGD`` and ``--utrain``; stage 2 (probing,
 then few-shot finetuning), or ``--skip_stage2``; ``--method dataset-cls``
 (``--data_source dataset-cls``), which ends after stage 1's epochs with no
 summary row; ``--skip_stage1 --stage1_model_path``, ``--model_path``,
-``--save_ckpt`` / ``--resume``.  The ``.msgpack`` bundles are those of
-``swat_tpu``: either package reads the other's.
+``--save_ckpt`` / ``--resume``.  Every registered ``--model_cfg`` builds:
+the ViT-B/32, B/16 and L/14 towers, and the RN50 ones
+(``rn50_openclip_openai``, ``rn50_clip``; their BatchNorm trains with batch
+statistics, and ``--accum`` > 1 raises for them as in ``swat_tpu``).  The
+``.msgpack`` bundles are those of ``swat_tpu``: either package reads the
+other's.
 
 Usage:
     python -m swat_tpu_torch.cli.main --dataset semi-aves --method zeroshot \

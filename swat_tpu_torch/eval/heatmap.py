@@ -5,8 +5,11 @@ AttentiveMix: the heatmap is the cosine similarity between each projected
 patch token and a per-image query, the image's own class-token embedding
 (self-relevance) or a text embedding.  The forward is
 ``CLIPModel.encode_image_tokens``, whose attention goes through the
-heads-first forward kernel on the card.  No gradient is taken: the callers
-run it under ``torch.no_grad()``.
+heads-first forward kernel on the card; on RN50 it is the attention pool's
+projected tokens (the mean token first) with eval-mode BatchNorm, even
+inside a training step, as ``swat_tpu`` applies the tower with
+``train=False`` there.  No gradient is taken: the callers run it under
+``torch.no_grad()``.
 """
 
 from __future__ import annotations

@@ -48,6 +48,17 @@ through the block-fused layer kernels instead
 backward kernels as its gradient, only x and x2 saved), as
 ``functional._transformer(use_mega=True)`` does; ``attention`` is then not
 used.  ``encode_image_tokens`` has no such route, as there.
+
+A ``ResNetConfig`` (the RN50 names) builds OpenAI's modified ResNet image
+tower instead (``models/resnet.py``): convolutions, BatchNorm and an
+attention pool in plain PyTorch, as ``swat_tpu`` runs them in XLA; remat,
+``use_mega`` and ``attention`` do not apply to it (the text tower still
+runs through the kernels); it takes the ViT tower's call and ignores
+those three.  ``encode_image(..., updates={})`` normalizes with batch
+statistics and fills ``updates`` with them (``swat_tpu``'s
+``encode_image_bn_train``); every other encode uses the running
+statistics.  A ViT tower holds no normalization state and leaves
+``updates`` empty.
 """
 
 from __future__ import annotations
@@ -68,6 +79,7 @@ from swat_tpu_torch.kernels.flash_attention import mha_qkv
 from swat_tpu_torch.kernels.megablock import fused_transformer
 from swat_tpu_torch.models.configs import (CLIPConfig, ResNetConfig,
                                            TextConfig, VisionConfig)
+from swat_tpu_torch.models.resnet import ModifiedResNet
 
 # (qkv [B, S, 3*H*D], heads, causal) -> out [B, S, H*D]
 Attention = Callable[[torch.Tensor, int, bool], torch.Tensor]
@@ -228,6 +240,30 @@ class Transformer(nn.Module):
         return x
 
 
+def _normal(t: torch.Tensor, std: float, generator: torch.Generator):
+    t.copy_(torch.randn(t.shape, generator=generator) * std)
+
+
+def _init_transformer(tr: Transformer, width: int,
+                      generator: torch.Generator) -> None:
+    """OpenCLIP's initialisation of a tower's blocks."""
+    layers = len(tr.resblocks)
+    attn_std = width ** -0.5
+    proj_std = attn_std * (2 * layers) ** -0.5
+    for blk in tr.resblocks:
+        _normal(blk.attn.in_proj_weight, attn_std, generator)
+        blk.attn.in_proj_bias.zero_()
+        _normal(blk.attn.out_proj.weight, proj_std, generator)
+        blk.attn.out_proj.bias.zero_()
+        _normal(blk.mlp["c_fc"].weight, (2 * width) ** -0.5, generator)
+        blk.mlp["c_fc"].bias.zero_()
+        _normal(blk.mlp["c_proj"].weight, proj_std, generator)
+        blk.mlp["c_proj"].bias.zero_()
+        for ln in (blk.ln_1, blk.ln_2):
+            ln.weight.fill_(1.0)
+            ln.bias.zero_()
+
+
 class VisionTower(nn.Module):
     """OpenCLIP ``VisionTransformer`` names; forward is
     functional.vit_encode_image."""
@@ -248,12 +284,30 @@ class VisionTower(nn.Module):
         self.ln_post = nn.LayerNorm(w)
         self.proj = nn.Parameter(torch.empty(w, cfg.embed_dim))
 
+    @torch.no_grad()
+    def init_random(self, generator: torch.Generator) -> None:
+        """OpenCLIP's initialisation of the tower, drawn from
+        ``generator``."""
+        w = self.cfg.width
+        _normal(self.conv1.weight, (3 * self.cfg.patch_size ** 2) ** -0.5,
+                generator)
+        _normal(self.class_embedding, w ** -0.5, generator)
+        _normal(self.positional_embedding, w ** -0.5, generator)
+        _normal(self.proj, w ** -0.5, generator)
+        _init_transformer(self.transformer, w, generator)
+        for ln in (self.ln_pre, self.ln_post):
+            ln.weight.fill_(1.0)
+            ln.bias.zero_()
+
     def forward(self, images: torch.Tensor, precision: Precision,
                 attention: Attention, pool: bool = True,
-                use_mega: bool = False, remat: Remat = False) -> torch.Tensor:
+                use_mega: bool = False, remat: Remat = False,
+                updates=None) -> torch.Tensor:
         """images [B, H, W, 3] -> [B, embed]; ``pool=False`` applies
         ln_post and the projection to every token -> [B, S, embed], class
-        token first (the heatmaps' input)."""
+        token first (the heatmaps' input).  ``updates`` (the batch
+        statistics of a ResNet tower's train mode) is left as it is: the
+        tower has no normalization state."""
         p = self.cfg.patch_size
         b, h, w, c = images.shape
         gh, gw = h // p, w // p
@@ -317,23 +371,25 @@ class CLIPModel(TextTower):
                  precision: Precision = DEFAULT_PRECISION,
                  remat: Remat = False):
         resolve_remat_policy(remat)
-        if isinstance(cfg.vision, ResNetConfig):
-            raise NotImplementedError(
-                f"{cfg.name}: the port has no ResNet image tower yet "
-                "(ROADMAP Queue A item 7)")
         super().__init__(cfg.text)
         self.cfg = cfg
         self.precision = precision
         self.remat = remat
-        self.visual = VisionTower(cfg.vision)
+        self.visual = (ModifiedResNet(cfg.vision)
+                       if isinstance(cfg.vision, ResNetConfig)
+                       else VisionTower(cfg.vision))
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
 
     def encode_image(self, images: torch.Tensor, normalize: bool = False,
-                     attention: Attention = mha_qkv,
-                     use_mega: bool = False) -> torch.Tensor:
-        """images [B, H, W, 3] (CLIP-normalized) -> [B, embed] fp32."""
+                     attention: Attention = mha_qkv, use_mega: bool = False,
+                     updates: Optional[dict] = None) -> torch.Tensor:
+        """images [B, H, W, 3] (CLIP-normalized) -> [B, embed] fp32.  With
+        ``updates`` (a dict) the ResNet tower normalizes with batch
+        statistics and adds each AffineBN's (``resnet.fold_bn_updates``
+        folds them); a ViT tower adds none."""
         feats = self.visual(images, self.precision, attention,
-                            use_mega=use_mega, remat=self.remat)
+                            use_mega=use_mega, remat=self.remat,
+                            updates=updates)
         return _normalize(feats) if normalize else feats
 
     def encode_image_tokens(
@@ -343,7 +399,9 @@ class CLIPModel(TextTower):
         first.  Its attention is the heads-first route by default, as the
         Flax tower that computes the heatmaps in ``swat_tpu`` runs under
         ``--use_pallas``: the heads-first forward kernel on the card, its
-        plain twin on the CPU."""
+        plain twin on the CPU.  The ResNet tower returns its attention
+        pool's tokens, the mean token first, with eval-mode BatchNorm
+        (``swat_tpu`` applies it with ``train=False`` there too)."""
         return self.visual(images, self.precision, attention, pool=False)
 
     def encode_text(self, token_ids: torch.Tensor, normalize: bool = False,
@@ -357,41 +415,15 @@ class CLIPModel(TextTower):
     @torch.no_grad()
     def init_random(self, generator: torch.Generator) -> "CLIPModel":
         """OpenCLIP's initialisation scheme, drawn from ``generator`` (for
-        runs without a checkpoint: smoke tests, synthetic checkpoints)."""
-
-        def normal(t, std):
-            t.copy_(torch.randn(t.shape, generator=generator) * std)
-
-        def init_transformer(tr: Transformer, width: int):
-            layers = len(tr.resblocks)
-            attn_std = width ** -0.5
-            proj_std = attn_std * (2 * layers) ** -0.5
-            for blk in tr.resblocks:
-                normal(blk.attn.in_proj_weight, attn_std)
-                blk.attn.in_proj_bias.zero_()
-                normal(blk.attn.out_proj.weight, proj_std)
-                blk.attn.out_proj.bias.zero_()
-                normal(blk.mlp["c_fc"].weight, (2 * width) ** -0.5)
-                blk.mlp["c_fc"].bias.zero_()
-                normal(blk.mlp["c_proj"].weight, proj_std)
-                blk.mlp["c_proj"].bias.zero_()
-                for ln in (blk.ln_1, blk.ln_2):
-                    ln.weight.fill_(1.0)
-                    ln.bias.zero_()
-
-        vis, vw = self.visual, self.cfg.vision.width
-        normal(vis.conv1.weight, (3 * self.cfg.vision.patch_size ** 2) ** -0.5)
-        normal(vis.class_embedding, vw ** -0.5)
-        normal(vis.positional_embedding, vw ** -0.5)
-        normal(vis.proj, vw ** -0.5)
-        init_transformer(vis.transformer, vw)
+        runs without a checkpoint: smoke tests, synthetic checkpoints): the
+        image tower's own ``init_random`` first, then the text tower."""
+        self.visual.init_random(generator)
         tw = self.text_cfg.width
-        normal(self.token_embedding.weight, 0.02)
-        normal(self.positional_embedding, 0.01)
-        normal(self.text_projection, tw ** -0.5)
-        init_transformer(self.transformer, tw)
-        for ln in (vis.ln_pre, vis.ln_post, self.ln_final):
-            ln.weight.fill_(1.0)
-            ln.bias.zero_()
+        _normal(self.token_embedding.weight, 0.02, generator)
+        _normal(self.positional_embedding, 0.01, generator)
+        _normal(self.text_projection, tw ** -0.5, generator)
+        _init_transformer(self.transformer, tw, generator)
+        self.ln_final.weight.fill_(1.0)
+        self.ln_final.bias.zero_()
         self.logit_scale.fill_(math.log(1 / 0.07))
         return self

@@ -98,14 +98,19 @@ MODEL_REGISTRY = {
 
 @dataclasses.dataclass(frozen=True)
 class ResNetConfig:
-    """Registered so the RN50 names resolve; the port has no ResNet tower
-    yet (ROADMAP Queue A item 7), and building one raises."""
+    """OpenAI's modified ResNet image tower (``models/resnet.py``); the
+    text tower of an RN50 model is a ``TextConfig`` as for the ViTs."""
     image_size: int = 224
     width: int = 64
     layers: tuple = (3, 4, 6, 3)
     embed_dim: int = 1024
-    heads: int = 32
-    quick_gelu: bool = True
+    heads: int = 32          # attention-pool heads
+    quick_gelu: bool = True  # text tower activation (vision uses ReLU)
+
+    @property
+    def seq_len(self) -> int:  # attnpool tokens: the grid and its mean
+        g = self.image_size // 32
+        return g * g + 1
 
 
 def _rn50(name):

@@ -7,8 +7,13 @@ the JAX package's param tree (as numpy arrays) across, mirroring
 ``swat_tpu.models.loader.params_to_torch_state_dict`` without importing it
 (key map in that module's docstring); ``jax_params_from_state_dict`` is its
 reverse, the port's counterpart of ``torch_state_dict_to_params`` (``:75``),
-which the bundles and the feature-cache fingerprint use.  Only ViT towers:
-the ResNet tower is not ported yet.
+which the bundles and the feature-cache fingerprint use.  Both image
+towers: the ViT, and the RN50 ``ModifiedResNet`` (``swat_tpu``'s
+``torch_rn50_visual_to_params`` / ``_rn50_visual_to_torch``, ``:133-163``,
+``:247-318``): convolution kernels torch ``[out, in, kh, kw]`` <-> flax
+``[kh, kw, in, out]`` under ``conv/kernel``, blocks ``layer{s}_{i}`` with
+``down_conv`` / ``down_bn``, BatchNorm leaves ``scale`` / ``bias`` /
+``mean`` / ``var``, the blocks per stage read off the state dict.
 """
 
 from __future__ import annotations
@@ -40,8 +45,9 @@ def load_torch_checkpoint(path: str) -> Tuple[dict, float]:
 
 def state_dict_from_jax_params(params: Mapping[str, Any],
                                logit_scale: float) -> dict:
-    """The JAX package's ViT CLIP param tree (numpy leaves; transformer
-    blocks stacked on a leading layer axis) -> the port's state dict."""
+    """The JAX package's CLIP param tree (numpy leaves; transformer blocks
+    stacked on a leading layer axis; a ViT or a ModifiedResNet image
+    tower) -> the port's state dict."""
     out: dict = {}
 
     def put(key, arr):
@@ -71,8 +77,10 @@ def state_dict_from_jax_params(params: Mapping[str, Any],
 
     vis, txt = params["visual"], params["text"]
     if "patch_embed" not in vis:
-        raise NotImplementedError("ResNet image towers are not ported yet "
-                                  "(ROADMAP Queue A item 7)")
+        _rn50_visual_to_torch(vis, put)
+        _put_text(txt, put, put_ln, put_blocks)
+        put("logit_scale", np.float32(logit_scale))
+        return out
     k = np.asarray(vis["patch_embed"]["kernel"], np.float32)  # [p*p*3, w]
     ppc, w = k.shape
     side = int(round((ppc // 3) ** 0.5))
@@ -83,14 +91,50 @@ def state_dict_from_jax_params(params: Mapping[str, Any],
     put_ln(vis["ln_pre"], "visual.ln_pre")
     put_ln(vis["ln_post"], "visual.ln_post")
     put_blocks(vis["transformer"]["blocks"], "visual.transformer.resblocks.")
+    _put_text(txt, put, put_ln, put_blocks)
+    put("logit_scale", np.float32(logit_scale))
+    return out
 
+
+def _put_text(txt, put, put_ln, put_blocks) -> None:
     put("token_embedding.weight", txt["token_embedding"])
     put("positional_embedding", txt["positional_embedding"])
     put("text_projection", txt["text_projection"])
     put_ln(txt["ln_final"], "ln_final")
     put_blocks(txt["transformer"]["blocks"], "transformer.resblocks.")
-    put("logit_scale", np.float32(logit_scale))
-    return out
+
+
+def _rn50_visual_to_torch(vis: Mapping[str, Any], put) -> None:
+    """The JAX package's ModifiedResNet tree -> ``put(key, array)`` of the
+    port's (OpenCLIP's) names."""
+
+    def put_conv(flax_conv, key):
+        put(key, np.asarray(flax_conv["conv"]["kernel"]).transpose(3, 2, 0, 1))
+
+    def put_bn(flax_bn, prefix):
+        for leaf, name in (("scale", "weight"), ("bias", "bias"),
+                           ("mean", "running_mean"), ("var", "running_var")):
+            put(f"{prefix}.{name}", flax_bn[leaf])
+
+    for i in (1, 2, 3):
+        put_conv(vis[f"conv{i}"], f"visual.conv{i}.weight")
+        put_bn(vis[f"bn{i}"], f"visual.bn{i}")
+    for name, blk in vis.items():
+        if not name.startswith("layer"):
+            continue
+        stage, idx = name[len("layer"):].split("_")
+        pre = f"visual.layer{stage}.{idx}"
+        for j in (1, 2, 3):
+            put_conv(blk[f"conv{j}"], f"{pre}.conv{j}.weight")
+            put_bn(blk[f"bn{j}"], f"{pre}.bn{j}")
+        if "down_conv" in blk:
+            put_conv(blk["down_conv"], f"{pre}.downsample.0.weight")
+            put_bn(blk["down_bn"], f"{pre}.downsample.1")
+    ap = vis["attnpool"]
+    put("visual.attnpool.positional_embedding", ap["positional_embedding"])
+    for name in ("q_proj", "k_proj", "v_proj", "c_proj"):
+        put(f"visual.attnpool.{name}.weight", np.asarray(ap[name]["kernel"]).T)
+        put(f"visual.attnpool.{name}.bias", ap[name]["bias"])
 
 
 def _f32(t) -> np.ndarray:
@@ -103,16 +147,57 @@ def _layers(sd: Mapping[str, Any], prefix: str) -> int:
                if k.startswith(prefix) and k.endswith(".ln_1.weight"))
 
 
+def _rn50_visual_params(sd: Mapping[str, Any]) -> dict:
+    """OpenCLIP's ModifiedResNet tensors -> the JAX package's tree; the
+    blocks per stage are read off the state dict, so RN50's (3, 4, 6, 3)
+    and smaller test towers alike load (``num_batches_tracked`` is not
+    read)."""
+    layers = tuple(
+        1 + max(int(k.split(".")[2]) for k in sd
+                if k.startswith(f"visual.layer{s}."))
+        for s in (1, 2, 3, 4))
+
+    def conv(key):
+        return {"conv": {"kernel": _f32(sd[key]).transpose(2, 3, 1, 0)}}
+
+    def bn(prefix):
+        return {"scale": _f32(sd[f"{prefix}.weight"]),
+                "bias": _f32(sd[f"{prefix}.bias"]),
+                "mean": _f32(sd[f"{prefix}.running_mean"]),
+                "var": _f32(sd[f"{prefix}.running_var"])}
+
+    v: dict = {}
+    for i in (1, 2, 3):
+        v[f"conv{i}"] = conv(f"visual.conv{i}.weight")
+        v[f"bn{i}"] = bn(f"visual.bn{i}")
+    for stage, blocks in enumerate(layers):
+        for i in range(blocks):
+            pre = f"visual.layer{stage + 1}.{i}"
+            blk = {}
+            for j in (1, 2, 3):
+                blk[f"conv{j}"] = conv(f"{pre}.conv{j}.weight")
+                blk[f"bn{j}"] = bn(f"{pre}.bn{j}")
+            if f"{pre}.downsample.0.weight" in sd:
+                blk["down_conv"] = conv(f"{pre}.downsample.0.weight")
+                blk["down_bn"] = bn(f"{pre}.downsample.1")
+            v[f"layer{stage + 1}_{i}"] = blk
+    ap = "visual.attnpool"
+    v["attnpool"] = {"positional_embedding":
+                     _f32(sd[f"{ap}.positional_embedding"])}
+    for name in ("q_proj", "k_proj", "v_proj", "c_proj"):
+        v["attnpool"][name] = {"kernel": _f32(sd[f"{ap}.{name}.weight"]).T,
+                               "bias": _f32(sd[f"{ap}.{name}.bias"])}
+    return v
+
+
 def jax_params_from_state_dict(sd: Mapping[str, Any]) -> Tuple[dict, float]:
-    """The port's (OpenCLIP-named) state dict -> (the JAX package's ViT CLIP
+    """The port's (OpenCLIP-named) state dict -> (the JAX package's CLIP
     param tree of float32 numpy arrays, logit_scale): flax kernels [in,
     out], each tower's blocks stacked on a leading layer axis, the patch
-    embedding as a [p*p*3, width] matrix in the NHWC unfold order.  Bit
-    for bit what ``swat_tpu.models.loader.torch_state_dict_to_params``
-    makes of the same tensors."""
-    if "visual.conv1.weight" not in sd:
-        raise NotImplementedError("ResNet image towers are not ported yet "
-                                  "(ROADMAP Queue A item 7)")
+    embedding as a [p*p*3, width] matrix in the NHWC unfold order (a ViT),
+    or the ModifiedResNet tree (an RN50).  Bit for bit what
+    ``swat_tpu.models.loader.torch_state_dict_to_params`` makes of the same
+    tensors."""
 
     def blocks(prefix):
         n = _layers(sd, prefix)
@@ -141,10 +226,12 @@ def jax_params_from_state_dict(sd: Mapping[str, Any]) -> Tuple[dict, float]:
         return {"ln": {"scale": _f32(sd[f"{name}.weight"]),
                        "bias": _f32(sd[f"{name}.bias"])}}
 
-    conv1 = _f32(sd["visual.conv1.weight"])          # [w, 3, p, p]
-    w, c, p, _ = conv1.shape
-    params = {
-        "visual": {
+    if "visual.layer1.0.conv1.weight" in sd:
+        visual = _rn50_visual_params(sd)
+    else:
+        conv1 = _f32(sd["visual.conv1.weight"])          # [w, 3, p, p]
+        w, c, p, _ = conv1.shape
+        visual = {
             "patch_embed": {"kernel": conv1.transpose(2, 3, 1, 0).reshape(
                 p * p * c, w)},
             "class_embedding": _f32(sd["visual.class_embedding"]),
@@ -154,7 +241,9 @@ def jax_params_from_state_dict(sd: Mapping[str, Any]) -> Tuple[dict, float]:
             "proj": _f32(sd["visual.proj"]),
             "transformer": {"blocks": blocks(
                 "visual.transformer.resblocks.")},
-        },
+        }
+    params = {
+        "visual": visual,
         "text": {
             "token_embedding": _f32(sd["token_embedding.weight"]),
             "positional_embedding": _f32(sd["positional_embedding"]),

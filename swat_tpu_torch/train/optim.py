@@ -75,9 +75,11 @@ def label_params(model: nn.Module, method: str,
     model's own tensors (reference set_params, utils/optimizers.py:38-120):
     finetune methods train the visual tower and lock the text tower; frozen
     methods lock both; FLYP trains both towers, its two projections as
-    'projector', and under ``locked_text`` locks the text tower but for
-    ``text_projection`` (the reference's lock_text_tower freezes it too,
-    then its FLYP branch re-enables both projections, :103-120).  The CLIP
+    'projector' (an image tower without ``visual.proj``, the ResNet, is
+    refused, as ``swat_tpu``'s labels fail on it), and under
+    ``locked_text`` locks the text tower but for ``text_projection`` (the
+    reference's lock_text_tower freezes it too, then its FLYP branch
+    re-enables both projections, :103-120).  The CLIP
     module's own logit_scale is never trained: the train state carries its
     own (``state.init_logit_scale``)."""
     names = [n for n, _ in model.named_parameters()]
@@ -87,6 +89,14 @@ def label_params(model: nn.Module, method: str,
         return {n: "backbone" if n.startswith("visual.") else "frozen"
                 for n in names}
     if method == "FLYP":
+        if "visual.proj" not in names:
+            # swat_tpu's labels fail on this tree too ("Dict key mismatch")
+            raise ValueError(
+                "FLYP trains the image tower's projection visual.proj in "
+                "its projector group (reference set_params, "
+                "utils/optimizers.py:103-120); the ResNet image tower has "
+                "no such tensor")
+
         def label(n):
             if n in ("visual.proj", "text_projection"):
                 return "projector"

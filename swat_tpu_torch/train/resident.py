@@ -14,7 +14,9 @@ A twin method's epoch gathers its second batch from a second resident
 split (the few-shot split; CMO's: the train split) by a twin permutation
 drawn from the same generator after the epoch's (``twin_permutation``).
 The resident epoch takes no ``--accum``: it trains whole batches, as
-``swat_tpu``'s scan epoch does.
+``swat_tpu``'s scan epoch does.  Its steps are the streaming steps, so an
+RN50 epoch folds each step's BN statistics after the step's update
+(``scan_loop.py:140-150``), through ``TrainState.apply_update``.
 """
 
 from __future__ import annotations

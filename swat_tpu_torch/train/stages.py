@@ -85,7 +85,8 @@ from swat_tpu_torch.train.resident import (ResidentData, epoch_permutation,
 from swat_tpu_torch.train.state import create_train_state
 from swat_tpu_torch.train.steps import (ACCUM_METHODS, FROZEN_STEP_METHODS,
                                         RESIDENT_METHODS, STEP_METHODS,
-                                        TWIN_METHODS, make_ce_step,
+                                        TWIN_METHODS, check_accum,
+                                        make_ce_step,
                                         make_cmlp_step, make_dataset_cls_step,
                                         make_fixmatch_step, make_flyp_step,
                                         make_mixing_step, make_multitask_step,
@@ -125,8 +126,12 @@ def auto_memory_policy(model_cfg: str, remat, accum: int, bsz: int,
     encode batch, doubled for finetune-mixed's joined twin), the others
     full remat; an explicit accum that leaves >= 64 images a microbatch
     gets full remat on top.  ``swat_tpu`` measured the need on its own
-    accelerator; whether an H100's 80 GB needs the trigger at all is open
-    (ROADMAP Queue A item 7)."""
+    accelerator.  An H100 does not need it: L/14's cutmix step at bsz 64
+    peaks at 34.7 GiB fp32, 24.5 GiB bf16 without it on an NVIDIA H100 80GB
+    HBM3 (700 W; ``chip_smoke.py``'s ``[l14-memory]``), where the picked
+    ``--accum 2`` costs 1.4-1.6 % of the fp32 step and 31-49 % of the bf16
+    one (the host; three calls); the decision stays ``swat_tpu``'s so that
+    both packages train the same microbatches."""
     if not ("vitl14" in model_cfg and bsz >= 64 and n_devices == 1):
         return remat, accum
     if remat:
@@ -412,6 +417,7 @@ class SwatPipeline:
                 f"--accum only supports the CE/mixing methods, not "
                 f"{method!r} (FLYP's contrastive loss couples the whole "
                 "batch; frozen-encoder methods don't need it)")
+        check_accum(self.model, cfg.accum)
 
         if frozen:
             # val / test features of the eval transform are deterministic,

@@ -7,7 +7,12 @@ or SGD) and the step count.
 The JAX package keeps these as one immutable pytree; here the model is
 trained in place, and the head and logit_scale are the state's own
 parameters.  Frozen tensors have ``requires_grad`` off and sit in no
-optimizer group.
+optimizer group; so do the RN50 tower's BatchNorm running statistics,
+which are buffers, not parameters (``swat_tpu`` labels them ``frozen``,
+``swat_tpu/train/optim.py:105-113``).  A train-mode encode leaves the
+batch's statistics on the state (``bn_updates``), and the optimizer update
+folds them into the running ones, as ``swat_tpu``'s ``_fold_bn`` folds its
+sown values after ``_apply_update``.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import torch
 from torch import nn
 
 from swat_tpu_torch.models.clip import CLIPModel
+from swat_tpu_torch.models.resnet import BNUpdates, fold_bn_updates
 from swat_tpu_torch.train.optim import (build_optimizer, label_params,
                                         set_lr, trains_logit_scale)
 
@@ -35,12 +41,19 @@ class TrainState:
     step: int = 0
     # finetune-multitask's [2, embed_dim] dataset-source head, else None
     dataset_head: Optional[nn.Parameter] = None
+    # the last train-mode encode's BatchNorm batch statistics (the RN50
+    # tower's; empty for a ViT), folded by the next update
+    bn_updates: Optional[BNUpdates] = None
 
     def apply_update(self) -> None:
-        """One optimizer step with this count's learning rates, then the
-        count moves on (the gradients are already in .grad)."""
+        """One optimizer step with this count's learning rates, the
+        pending BatchNorm statistics folded, then the count moves on (the
+        gradients are already in .grad)."""
         set_lr(self.optimizer, self.step)
         self.optimizer.step()
+        if self.bn_updates:
+            fold_bn_updates(self.bn_updates)
+        self.bn_updates = None
         self.step += 1
 
 

@@ -26,7 +26,12 @@ binary head scored against the batch's source flag), dataset-cls
 (``make_fixmatch_step``: a weak and a RandAugment-strong view of an
 unlabeled batch, ``FixmatchDraws``).  ``accum > 1`` mixes the whole batch,
 then encodes and differentiates it in that many microbatches, summing their
-gradients.
+gradients; on RN50 it raises (``check_accum``: batch-statistics BN does not
+decompose over microbatches).  Every step that trains the image tower
+encodes in train mode (``encode_train``): RN50's BatchNorm normalizes with
+the batch's statistics and the update writes the new running statistics
+(``TrainState.apply_update``), FixMatch's three views as one BN batch; the
+frozen probes encode with the running ones.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from swat_tpu_torch.kernels.randaugment import (RandAugmentDraws,
                                                 rand_augment,
                                                 sample_rand_augment)
 from swat_tpu_torch.models.clip import Attention
+from swat_tpu_torch.models.configs import ResNetConfig
 from swat_tpu_torch.models.head import head_logits
 from swat_tpu_torch.train.losses import (LossFn, cross_entropy,
                                          mixup_criterion,
@@ -249,18 +255,39 @@ def mix_criterion(loss: LossFn, logits, y_a, y_b, lam, lam_vec, source):
     return mixup_criterion(loss, logits, y_a, y_b, lam, source)
 
 
+def encode_train(state: TrainState, images: torch.Tensor,
+                 attention: Attention = mha_qkv,
+                 use_mega: bool = False) -> torch.Tensor:
+    """The training-mode encode of a step (``swat_tpu``'s
+    ``_encode_train``) -> normalized features.  The RN50 tower normalizes
+    with batch statistics (the reference's model.train()), which wait on
+    the state for the update to fold them into the running statistics
+    (``TrainState.apply_update``); a ViT tower adds none."""
+    state.bn_updates = {}
+    return state.model.encode_image(images, normalize=True,
+                                    attention=attention, use_mega=use_mega,
+                                    updates=state.bn_updates)
+
+
+def check_accum(model, accum: int) -> None:
+    """``--accum > 1`` is ViT-only (``swat_tpu``'s ``_check_accum``)."""
+    if accum > 1 and isinstance(model.cfg.vision, ResNetConfig):
+        raise ValueError(
+            "grad accumulation (accum>1) is ViT-only: RN50's batch-stat "
+            "BN is not microbatch-decomposable")
+
+
 def make_encode_loss(loss: LossFn, attention: Attention = mha_qkv,
                      use_mega: bool = False):
     """encode_loss(state, mixed) -> scalar loss: the normalized image
-    features, head logits scaled by exp(logit_scale), the mixed
-    criterion.  ``attention`` is the towers' (the kernels by default);
-    ``use_mega`` encodes through the block-fused layer kernels instead."""
+    features (``encode_train``), head logits scaled by exp(logit_scale),
+    the mixed criterion.  ``attention`` is the towers' (the kernels by
+    default); ``use_mega`` encodes through the block-fused layer kernels
+    instead."""
 
     def encode_loss(state: TrainState, mixed):
         images, y_a, y_b, lam, lam_vec, source = mixed
-        feats = state.model.encode_image(images, normalize=True,
-                                         attention=attention,
-                                         use_mega=use_mega)
+        feats = encode_train(state, images, attention, use_mega)
         logits = head_logits(state.head, feats) * torch.exp(state.logit_scale)
         return mix_criterion(loss, logits, y_a, y_b, lam, lam_vec, source)
 
@@ -297,7 +324,8 @@ def accum_backward(state: TrainState, encode_loss: Callable, mixed,
     registry losses reduce by the mean, so the sum and the summed loss are
     scaled by 1/accum once at the end; the per-image-lambda criterion
     (saliencymix, attentivemix) sums, so nothing is scaled.  -> the
-    step's loss, summed in fp32 from 0."""
+    step's loss, summed in fp32 from 0.  RN50 raises (``check_accum``)."""
+    check_accum(state.model, accum)
     images, y_a, y_b, lam, lam_vec, source = mixed
     n = images.shape[0]
     if n % accum:
@@ -494,9 +522,8 @@ def make_flyp_loss(loss: LossFn = cross_entropy, image_size: int = 224,
     diagonal."""
 
     def flyp_loss(state: TrainState, batch, draws: StepDraws):
-        img = state.model.encode_image(
-            _train_images(batch, draws, image_size), normalize=True,
-            attention=attention)
+        img = encode_train(state, _train_images(batch, draws, image_size),
+                           attention)
         txt = state.model.encode_text(batch["prompt_tokens"],
                                       normalize=True, attention=attention)
         logits = torch.exp(state.logit_scale) * (img @ txt.t())
@@ -528,9 +555,8 @@ def make_multitask_loss(loss: LossFn = cross_entropy,
     (:1035-1036)."""
 
     def multitask_loss(state: TrainState, batch, draws: StepDraws):
-        feats = state.model.encode_image(
-            _train_images(batch, draws, image_size), normalize=True,
-            attention=attention)
+        feats = encode_train(state, _train_images(batch, draws, image_size),
+                             attention)
         logits = head_logits(state.head, feats) * torch.exp(state.logit_scale)
         ds_logits = head_logits(state.dataset_head, feats)
         return (loss(logits, batch["labels"], batch["source"])
@@ -549,9 +575,8 @@ def make_dataset_cls_loss(loss: LossFn = cross_entropy,
     source flag as the label, no source weighting."""
 
     def dataset_cls_loss(state: TrainState, batch, draws: StepDraws):
-        feats = state.model.encode_image(
-            _train_images(batch, draws, image_size), normalize=True,
-            attention=attention)
+        feats = encode_train(state, _train_images(batch, draws, image_size),
+                             attention)
         logits = head_logits(state.head, feats) * torch.exp(state.logit_scale)
         return loss(logits, batch["source"], None)
 
@@ -610,9 +635,9 @@ def make_fixmatch_loss(threshold: float = 0.95, lambda_u: float = 1.0,
         images_l = _train_images(batch, draws, image_size)
         images_w, images_s = fixmatch_views(batch, draws, image_size)
         n_l = images_l.shape[0]
-        feats = state.model.encode_image(
-            torch.cat([images_l, images_w, images_s]), normalize=True,
-            attention=attention)
+        # one forward, so one BatchNorm batch on RN50 (swat_tpu's too)
+        feats = encode_train(state, torch.cat([images_l, images_w, images_s]),
+                             attention)
         logits = head_logits(state.head, feats)
         logits_w, logits_s = logits[n_l:].chunk(2)
         loss_l = cross_entropy(logits[:n_l], batch["labels"], None)

@@ -34,6 +34,7 @@ PORT_MODULES = [
     "swat_tpu_torch.kernels.megablock", "swat_tpu_torch.kernels.randaugment",
     "swat_tpu_torch.models.clip", "swat_tpu_torch.models.configs",
     "swat_tpu_torch.models.head", "swat_tpu_torch.models.loader",
+    "swat_tpu_torch.models.resnet",
     "swat_tpu_torch.models.tokenizer", "swat_tpu_torch.train.checkpoint",
     "swat_tpu_torch.train.losses", "swat_tpu_torch.train.msgpack_tree",
     "swat_tpu_torch.train.optim",

@@ -169,6 +169,108 @@ def jax_params_from_state_dict(sd, cfg):
     return params, logit_scale
 
 
+# RN50 image towers for the CPU tests: a tiny one (the widths of
+# tests/test_torch_oracle_rn50.py) and RN50's own widths at one bottleneck a
+# stage; both with a small text tower
+RN50_TEST_TOWERS = {
+    "rn50_tiny": dict(image_size=64, width=16, layers=(1, 1, 1, 1),
+                      embed_dim=32, heads=4),
+    "rn50_1111": dict(image_size=224, width=64, layers=(1, 1, 1, 1),
+                      embed_dim=1024, heads=32),
+}
+
+
+def rn50_configs(name: str):
+    """-> (the port's CLIPConfig, swat_tpu's) of RN50_TEST_TOWERS[name]."""
+    from swat_tpu.models import configs as JC
+    from swat_tpu.models.resnet import ResNetConfig as JaxResNetConfig
+    from swat_tpu_torch.models import configs as C
+
+    vision = RN50_TEST_TOWERS[name]
+    text = dict(context_length=16, vocab_size=512, width=32, layers=2,
+                heads=4, embed_dim=vision["embed_dim"], quick_gelu=True)
+    return (C.CLIPConfig(name=name, vision=C.ResNetConfig(**vision),
+                         text=C.TextConfig(**text)),
+            JC.CLIPConfig(name=name, vision=JaxResNetConfig(**vision),
+                          text=JC.TextConfig(**text)))
+
+
+def port_bn_updates(model, updates) -> dict:
+    """A train-mode encode's BN batch statistics (AffineBN module -> (mean,
+    var)) folded as a train step folds them (``resnet.fold_bn_updates``),
+    into a copy of ``model`` -> {state-dict name of the buffer: float32
+    numpy array}; ``model`` is left as it was."""
+    import copy
+
+    from swat_tpu_torch.models.resnet import fold_bn_updates
+
+    names = {m: n for n, m in model.named_modules()}
+    twin = copy.deepcopy(model)
+    modules = dict(twin.named_modules())
+    fold_bn_updates({modules[names[bn]]: stats
+                     for bn, stats in updates.items()})
+    sd = twin.state_dict()
+    return {f"{names[bn]}.{k}": sd[f"{names[bn]}.{k}"].float().numpy()
+            for bn in updates for k in ("running_mean", "running_var")}
+
+
+def jax_rn50_outputs(jax_cfg, params, images, precision) -> dict:
+    """swat_tpu's RN50 tower on ``images``: 'eval' and 'train' features
+    (normalized), 'tokens' (encode_image_tokens) and 'bn/<name>' (the
+    sown running statistics folded by apply_bn_updates, under the port's
+    buffer names)."""
+    import jax
+    import jax.numpy as jnp
+
+    from swat_tpu.models import functional as JF
+    from swat_tpu.models.clip import CLIPModel as JaxCLIPModel
+    from swat_tpu.models.loader import params_to_torch_state_dict
+
+    model = JaxCLIPModel(jax_cfg, precision=precision)
+
+    @jax.jit
+    def run(params, x):
+        feats, sown = JF.encode_image_bn_train(model, params, x)
+        return {"eval": JF.encode_image(model, params, x, normalize=True),
+                "tokens": model.apply(
+                    {"params": params}, x,
+                    method=JaxCLIPModel.encode_image_tokens),
+                "train": feats,
+                "visual": JF.apply_bn_updates(params["visual"], sown)}
+
+    out = run(params, jnp.asarray(images))
+    folded = dict(params, visual=out.pop("visual"))
+    for k, v in params_to_torch_state_dict(folded, 0.0).items():
+        if k.endswith(("running_mean", "running_var")):
+            out["bn/" + k] = v
+    return {k: np.asarray(v, np.float32) for k, v in out.items()}
+
+
+def rn50_bf16_reference(inputs_path: str, out_path: str) -> None:
+    """``jax_rn50_outputs`` in bf16 (swat_tpu's DEFAULT policy) for each
+    tower of the npz ``inputs_path`` ('<name>/sd/<key>' state dicts of
+    RN50_TEST_TOWERS, '<name>/images'), saved as '<name>/<output>'.  Run
+    it in a process whose XLA_FLAGS hold
+    ``--xla_allow_excess_precision=false`` (``excess_precision_subprocess``):
+    XLA on the CPU otherwise keeps bf16 products in fp32 where a cast
+    follows, and the rounding points move."""
+    from swat_tpu.core.precision import DEFAULT_PRECISION
+    from swat_tpu.models.loader import torch_state_dict_to_params
+
+    with np.load(inputs_path) as data:
+        d = {k: data[k] for k in data.files}
+    out = {}
+    for name in sorted({k.split("/")[0] for k in d}):
+        _, jax_cfg = rn50_configs(name)
+        sd = {k[len(name) + 4:]: v for k, v in d.items()
+              if k.startswith(f"{name}/sd/")}
+        params, _ = torch_state_dict_to_params(sd, 0, jax_cfg.text.layers)
+        for k, v in jax_rn50_outputs(jax_cfg, params, d[f"{name}/images"],
+                                     DEFAULT_PRECISION).items():
+            out[f"{name}/{k}"] = v
+    np.savez(out_path, **out)
+
+
 def cosine(a, b) -> np.ndarray:
     a = np.asarray(a, np.float64)
     b = np.asarray(b, np.float64)
