@@ -52,7 +52,18 @@ pick, with its peak memory; then the three block-fused layer kernels (block
 forward, MLP backward, attention backward) against their plain versions and
 timed beside their bounds and a library-built block, both full-width towers
 through ``use_mega``, and a full-width cutmix train step whose image tower
-runs through them.  The data are a synthetic
+runs through them.  Between the two: the serving side, through the entry
+points a user calls: the checkpoint through ``swat_tpu_torch.cli.convert``
+(fp32 and int8 bundles); ``swat_tpu_torch.cli.test`` on the flagship run's
+stage-1 bundle with each ``--which_head``, ``--tau``, ``--predict_labels``
+and ``--utrain_out``, on the card and on the CPU (the same line, labels
+and utrain file), and from the converted ``.msgpack`` as
+``--checkpoint_path`` (the ``.pt``'s line); ``--test_imagenet_ood`` over
+synthetic ImageNet-V2 / -A / -R trees with a 1000-class prompt head, card
+against CPU; the W8A8 int8 towers card against CPU and against fp32,
+ViT-L/14's int8 image tower, ``--quantize int8``, and the image tower's
+forward at B = 256 in fp32, bf16 and int8 over each, timed, profiled and
+its peak memory.  The data are a synthetic
 JPEG dataset (few-shot, retrieved, unlabeled and test splits, and
 dataset-cls's flagged splits over the first two) and a seeded
 OpenCLIP-format checkpoint.  Any failure raises and exits non-zero.  The
@@ -311,6 +322,65 @@ def _against(ms, bound, library_ms):
             f"kernel takes {ms / library_ms:.2f}x the library call")
 
 
+# a torch.profiler trace now and then comes back without a single device
+# event; such a trace is taken again, this many times in all, and a split
+# that stays empty is reported as not measured (it checks nothing)
+TRACE_TRIES = 3
+
+
+def _device_kernels(prof):
+    """[(device ms, name)] of the device events of a torch.profiler run,
+    most first."""
+    from torch.autograd import DeviceType
+
+    return sorted(((e.self_device_time_total / 1e3, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), reverse=True)
+
+
+def _trace(run, n=1, cpu=True):
+    """run() n times under torch.profiler (the host's side too unless
+    cpu=False) inside a window of CUDA events -> (the profile, window ms
+    per call); a trace with no device time is taken again."""
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CUDA]
+    if cpu:
+        activities.append(torch.profiler.ProfilerActivity.CPU)
+    for attempt in range(1, TRACE_TRIES + 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.profiler.profile(activities=activities) as prof:
+            start.record()
+            for _ in range(n):
+                run()
+            end.record()
+            torch.cuda.synchronize()
+        if any(ms > 0 for ms, _ in _device_kernels(prof)):
+            break
+        log(f"[trace] trace {attempt} of {TRACE_TRIES} holds no device time")
+    return prof, start.elapsed_time(end) / n
+
+
+def _profiled(run, n, split_fn):
+    """run() n times under _trace -> (busy ms per call, window ms per call,
+    split, largest 'other')."""
+    prof, window = _trace(run, n)
+    split, others = split_fn(prof, n)
+    return sum(split.values()), window, split, others
+
+
+def _pct(part, whole):
+    """part's share of whole, or 'not measured' where the trace held no
+    device time."""
+    return f"{100 * part / whole:.1f} %" if whole > 0 else "not measured"
+
+
+def _idle(busy, window):
+    """The share of the window in which the device was idle."""
+    return _pct(window - busy, window) if busy > 0 else "not measured"
+
+
 def phase_timing(smi):
     """Kernel and plain version on the same strided inputs, in turns
     plain, kernel, kernel, plain, beside the call's bound and one
@@ -407,7 +477,6 @@ def _library_gradient(q, k, v, do, causal):
     the port."""
     import torch
     import torch.nn.functional as F
-    from torch.autograd import DeviceType
 
     lq, lk, lv = (t.detach().requires_grad_(True) for t in (q, k, v))
     out = F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal)
@@ -416,13 +485,7 @@ def _library_gradient(q, k, v, do, causal):
         torch.autograd.grad(out, (lq, lk, lv), do, retain_graph=True)
 
     ms = _time_ms(grad)
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        grad()
-        torch.cuda.synchronize()
-    kernels = sorted(((e.self_device_time_total, e.key)
-                      for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA), reverse=True)
+    kernels = _device_kernels(_trace(grad, cpu=False)[0])
     return ms, kernels[0][1][:120] if kernels else "not traced"
 
 
@@ -589,7 +652,6 @@ def phase_flash_timing(smi):
     nowhere in the port.  Launches made here are not counted."""
     import torch
     import torch.nn.functional as F
-    from torch.autograd import DeviceType
 
     from swat_tpu_torch.kernels import flash_attention as FA
 
@@ -647,14 +709,9 @@ def phase_flash_timing(smi):
             times[("library", name, dname)] = (lib_fwd, lib_bwd)
             # what the library runs for this type (the name says whether an
             # fp32 call goes through the tensor cores)
-            with torch.profiler.profile(activities=[
-                    torch.profiler.ProfilerActivity.CUDA]) as prof:
-                F.scaled_dot_product_attention(q, k, v, is_causal=causal)
-                torch.cuda.synchronize()
-            lib_kernels = sorted(
-                ((e.self_device_time_total, e.key)
-                 for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA), reverse=True)
+            lib_kernels = _device_kernels(_trace(
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal), cpu=False)[0])
             lib_name = lib_kernels[0][1][:120] if lib_kernels else "not traced"
             log(f"[flash-timing] library {head}: "
                 f"scaled_dot_product_attention forward {lib_fwd:.4f} ms, "
@@ -763,25 +820,14 @@ def phase_towers(workdir, smi):
                 ("image B=256", lambda: model.encode_image(batch)),
                 (f"text {len(prompts)} prompts",
                  lambda: model.encode_text(prompts))):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            with torch.inference_mode(), torch.profiler.profile(activities=[
-                    torch.profiler.ProfilerActivity.CPU,
-                    torch.profiler.ProfilerActivity.CUDA]) as prof:
-                start.record()
-                for _ in range(3):
-                    forward()
-                end.record()
-                torch.cuda.synchronize()
-            window = start.elapsed_time(end) / 3
-            split, _ = _device_split(prof, 3)
-            busy = sum(split.values())
+            with torch.inference_mode():
+                busy, window, split, _ = _profiled(forward, 3, _device_split)
             parts = ", ".join(
                 f"{k} {v:.2f} ({100 * v / max(busy, 1e-9):.1f} %)"
                 for k, v in split.items() if v > 0)
             log(f"[towers] {tower} forward {dname} profile, device ms per "
                 f"forward: {busy:.2f} busy of a {window:.2f} ms window "
-                f"(idle {100 * (1 - busy / window):.1f} %) ({parts}) on {smi}")
+                f"(idle {_idle(busy, window)}) ({parts}) on {smi}")
     del model
     torch.cuda.empty_cache()
     return ckpt
@@ -1040,24 +1086,13 @@ def phase_train_step(ckpt, smi):
             f"on {smi}")
         # busy time (the kernels' device time in the trace) and the window
         # (CUDA events around the same steps) come from one run of steps
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            start.record()
-            for _ in range(3):
-                run("kernel")
-            end.record()
-            torch.cuda.synchronize()
-        window = start.elapsed_time(end) / 3
-        split, others = _device_split(prof, 3)
-        busy = sum(split.values())
+        busy, window, split, others = _profiled(lambda: run("kernel"), 3,
+                                                _device_split)
         parts = ", ".join(f"{k} {v:.2f} ({100 * v / max(busy, 1e-9):.1f} %)"
                           for k, v in split.items())
         log(f"[train-step] {dname} profile, device ms per kernel step: "
             f"{busy:.2f} busy of a {window:.2f} ms window (idle "
-            f"{100 * (1 - busy / window):.1f} %; the same profiled steps) "
+            f"{_idle(busy, window)}; the same profiled steps) "
             f"({parts}) on {smi}; largest "
             f"'other': " + "; ".join(f"{t:.2f} {n}" for t, n in others))
         results[dname] = (ms, plain_ms, cos[worst], split)
@@ -1434,19 +1469,8 @@ def phase_flyp_step(ckpt, smi):
         resting = torch.cuda.memory_allocated()
         ms = _time_ms(lambda: step(state, batch, draws), iters=3, warmup=1)
         peak = torch.cuda.max_memory_allocated()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            start.record()
-            for _ in range(2):
-                step(state, batch, draws)
-            end.record()
-            torch.cuda.synchronize()
-        window = start.elapsed_time(end) / 2
-        split, others = _device_split(prof, 2)
-        busy = sum(split.values())
+        busy, window, split, others = _profiled(
+            lambda: step(state, batch, draws), 2, _device_split)
         need = (layers, layers, 0, 0)
         ok = (np.isfinite(lk) and np.isfinite(val) and n_text > 0
               and cos >= GRAD_MIN_COS[dname] and counts == need)
@@ -1460,7 +1484,7 @@ def phase_flyp_step(ckpt, smi):
             f"({TRAIN_BSZ * 1e3 / ms:.1f} image-text pairs/s), peak "
             f"{peak / 2 ** 30:.3f} GiB allocated (at rest "
             f"{resting / 2 ** 30:.3f}); profiled: {busy:.2f} ms busy of a "
-            f"{window:.2f} ms window (idle {100 * (1 - busy / window):.1f} %; "
+            f"{window:.2f} ms window (idle {_idle(busy, window)}; "
             + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
             + "; largest 'other': "
             + "; ".join(f"{t:.2f} {n}" for t, n in others[:3])
@@ -1542,12 +1566,8 @@ def _rand_augment_checks(batch, draws, n_px, smi):
     crops, s_card = strong(batch["canvases_u"])
     ms = _time_ms(lambda: RA.rand_augment(crops, ra, cutout), iters=10,
                   warmup=2)
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        RA.rand_augment(crops, ra, cutout)
-        torch.cuda.synchronize()
-    kernels, copies, busy, top = _launches_of(prof)
+    kernels, copies, busy, top = _launches_of(
+        _trace(lambda: RA.rand_augment(crops, ra, cutout))[0])
     ints = crops.round().clamp(0, 255)
     exact = []
     for op, (fn, *_) in enumerate(RA.POOL):
@@ -1643,19 +1663,8 @@ def phase_fixmatch_step(ckpt, smi):
         resting = torch.cuda.memory_allocated()
         ms = _time_ms(lambda: step(state, batch, draws), iters=3, warmup=1)
         peak = torch.cuda.max_memory_allocated()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            start.record()
-            for _ in range(2):
-                step(state, batch, draws)
-            end.record()
-            torch.cuda.synchronize()
-        window = start.elapsed_time(end) / 2
-        split, others = _device_split(prof, 2)
-        busy = sum(split.values())
+        busy, window, split, others = _profiled(
+            lambda: step(state, batch, draws), 2, _device_split)
         need = (layers, layers, 0, 0)
         same_loss = dname != "float32" or abs(lk - lp) <= 1e-5 * abs(lp)
         ok = (np.isfinite(lk) and np.isfinite(val) and rk == rp == 1.0
@@ -1672,7 +1681,7 @@ def phase_fixmatch_step(ckpt, smi):
             f"ms/step ({rows * 1e3 / ms:.1f} encoded images/s), peak "
             f"{peak / 2 ** 30:.3f} GiB allocated (at rest "
             f"{resting / 2 ** 30:.3f}); profiled: {busy:.2f} ms busy of a "
-            f"{window:.2f} ms window (idle {100 * (1 - busy / window):.1f} %; "
+            f"{window:.2f} ms window (idle {_idle(busy, window)}; "
             + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
             + "; largest 'other': "
             + "; ".join(f"{t:.2f} {n}" for t, n in others[:3])
@@ -1861,18 +1870,8 @@ def phase_memory(ckpt, smi):
             peak = torch.cuda.max_memory_allocated()
             # one more step profiled: device busy time by kernel family in
             # a window of CUDA events around it
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            with torch.profiler.profile(activities=[
-                    torch.profiler.ProfilerActivity.CPU,
-                    torch.profiler.ProfilerActivity.CUDA]) as prof:
-                start.record()
-                step(state, batch, draws)
-                end.record()
-                torch.cuda.synchronize()
-            window = start.elapsed_time(end)
-            split, _ = _device_split(prof, 1)
-            busy = sum(split.values())
+            busy, window, split, _ = _profiled(
+                lambda: step(state, batch, draws), 1, _device_split)
             need = ((layers + recomputed) * accum, layers * accum, 0, 0)
             ok = np.isfinite(val) and counts == need
             log(f"[memory] {MODEL_CFG} cutmix bsz {TRAIN_BSZ} {dname} "
@@ -1881,7 +1880,7 @@ def phase_memory(ckpt, smi):
                 f"state, the batch), {ms:.2f} ms/step ({TRAIN_BSZ * 1e3 / ms:.1f}"
                 f" images/s); profiled step: {busy:.2f} ms busy of a "
                 f"{window:.2f} ms window (idle "
-                f"{100 * (1 - busy / window):.1f} %; "
+                f"{_idle(busy, window)}; "
                 + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
                 + f"); launches fwd {counts[0]} bwd {counts[1]} "
                 f"heads-first {counts[2]}/{counts[3]} (need {need[0]}, "
@@ -3148,25 +3147,6 @@ def _rn50_split(prof, steps):
     return split, sorted(largest, reverse=True)[:4]
 
 
-def _profiled(step, n, split_fn):
-    """n steps under torch.profiler inside a window of CUDA events ->
-    (busy ms per step, window ms per step, split, largest 'other')."""
-    import torch
-
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        start.record()
-        for _ in range(n):
-            step()
-        end.record()
-        torch.cuda.synchronize()
-    split, others = split_fn(prof, n)
-    return sum(split.values()), start.elapsed_time(end) / n, split, others
-
-
 def phase_rn50_step(ckpt, smi):
     """One full-width RN50 cutmix step (augment, cutmix, batch-statistics
     BN forward and backward, AdamW, the BN statistics folded after it):
@@ -3264,8 +3244,8 @@ def phase_rn50_step(ckpt, smi):
             f"{ms:.2f} ms/step ({RN50_STEP_BSZ * 1e3 / ms:.1f} images/s), "
             f"peak {peak / 2 ** 30:.3f} GiB allocated (at rest "
             f"{resting / 2 ** 30:.3f} GiB); profiled: {busy:.2f} ms busy of "
-            f"a {window:.2f} ms window (idle {100 * (1 - busy / window):.1f} "
-            f"%; " + ", ".join(
+            f"a {window:.2f} ms window (idle {_idle(busy, window)}; "
+            + ", ".join(
                 f"{k} {v:.2f} ({100 * v / max(busy, 1e-9):.1f} %)"
                 for k, v in split.items())
             + "; largest elementwise or other kernels: "
@@ -3412,15 +3392,16 @@ def phase_vit_towers(smi):
                 f"({bsz * 1e3 / ms:.1f} images/s), peak "
                 f"{peak / 2 ** 30:.3f} GiB allocated; profiled: {busy:.2f} "
                 f"ms busy of a {window:.2f} ms window (idle "
-                f"{100 * (1 - busy / window):.1f} %; "
+                f"{_idle(busy, window)}; "
                 + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
                 + f"); attention kernels {attn:.2f} ms = "
-                f"{100 * attn / busy:.1f} % of busy (mha_fwd "
+                f"{_pct(attn, busy)} of busy (mha_fwd "
                 f"{split['mha_fwd']:.2f}, mha_bwd {split['mha_bwd']:.2f}) on "
                 f"{smi} {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"{name} step failed ({dname})")
-            results[(name, dname)] = (ms, busy, window, attn / busy, peak)
+            results[(name, dname)] = (ms, busy, window,
+                                      attn / busy if busy else None, peak)
             del state
         del model, batch
         torch.cuda.empty_cache()
@@ -3480,7 +3461,7 @@ def phase_l14_memory(smi):
                 f"{total / 2 ** 30:.1f} GiB, {ms:.2f} ms/step "
                 f"({bsz * 1e3 / ms:.1f} images/s); profiled step {busy:.2f} "
                 f"ms busy of a {window:.2f} ms window (idle "
-                f"{100 * (1 - busy / window):.1f} %) on {smi}")
+                f"{_idle(busy, window)}) on {smi}")
             results[(label, dname)] = (peak, ms, busy, window)
             del step
         model.remat = False
@@ -3513,6 +3494,572 @@ def _new_tower_phases(workdir, smi):
         f"{time.perf_counter() - t1:.1f} s; launches: RN50 CLI runs "
         f"{rn50_counts}, ViT steps {vit_counts}")
     return [a + b for a, b in zip(rn50_counts, vit_counts)]
+
+
+# ---------------------------------------------------------------------------
+# the serving side: swat_tpu_torch.cli.convert, swat_tpu_torch.cli.test, the
+# ImageNet OOD sweep and W8A8 int8 inference
+
+SERVE_BSZ = 256
+# the OOD sweep's batch: its trees are small, and the CPU's run encodes
+# whole padded batches
+OOD_BSZ = 32
+# int8 towers, card against CPU: the same codes and int32 sums except where
+# the float work between the products (LayerNorm, attention, GELU) summed in
+# another order moves an activation across a rounding boundary; such a code
+# moves its element by a whole quantization step, the size of int8's own
+# error against fp32, so a few per layer part the towers by up to that
+# error (int8 against fp32: mean cosine 1 - 1.4e-4 image, 1 - 4.6e-4 text)
+INT8_CARD_MIN_COS = 1 - 1e-3
+# int8 against fp32 towers: swat_tpu's own bounds (tests/test_quant.py), on
+# the mean cosine
+INT8_MIN_MEAN_COS = {"image": 0.995, "text": 0.99}
+N_OOD_PER_TREE, N_OOD_TEST, OOD_CLASSES = 24, 20, 1000
+
+
+def _cli_test(argv, device, bsz=SERVE_BSZ):
+    """One run of swat_tpu_torch.cli.test at ``bsz``; the four counts
+    are set to 0 just before it and read just after -> dict: the
+    '{dataset},{split},{acc}' line, the OOD sweep's JSON line (or None),
+    whether it encoded its prompts, the counts, the wall time, the log."""
+    import io
+
+    from swat_tpu_torch.cli.test import main as test_main
+    from swat_tpu_torch.kernels import flash_attention as FA
+
+    dataset = argv[argv.index("--dataset") + 1]
+    buf = io.StringIO()
+    _reset_counts(FA)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        test_main([*argv, "--bsz", str(bsz), "--num_workers", "8",
+                   "--device", device])
+    wall = time.perf_counter() - t0
+    counts = _counts(FA)
+    out = buf.getvalue()
+    lines = [ln for ln in out.splitlines()
+             if ln.startswith(f"{dataset},test.txt,")]
+    ood = [ln for ln in out.splitlines() if ln.startswith('{"imagenet')]
+    if len(lines) != 1 or len(ood) > 1:
+        raise AssertionError(f"cli.test printed no result line:\n"
+                             f"{out[-2000:]}")
+    return {"line": lines[0], "ood": ood[0] if ood else None,
+            "encoded_prompts": "Saved prompt tensors" in out,
+            "counts": counts, "wall": wall, "out": out}
+
+
+def _need_fwd(run, image_batches, n_prompts=10):
+    """mha_fwd launches a cli.test run on the card must make: a layer of
+    the image tower a batch, and a layer of the text tower a prompt batch
+    (of up to 1024) if it encoded its prompts (else it read the cache)."""
+    import math
+
+    from swat_tpu_torch.models.configs import get_model_config
+
+    cfg = get_model_config(MODEL_CFG)
+    text = (cfg.text.layers * math.ceil(n_prompts / 1024)
+            if run["encoded_prompts"] else 0)
+    return cfg.vision.layers * image_batches + text
+
+
+def _check_counts(tag, run, need):
+    if run["counts"] != (need, 0, 0, 0):
+        raise AssertionError(f"{tag}: launches {run['counts']}, need "
+                             f"({need}, 0, 0, 0)")
+
+
+def phase_convert(workdir, ckpt, smi):
+    """The seeded ViT-B/32 .pt through swat_tpu_torch.cli.convert, fp32 and
+    int8 (--device cuda: the round trip compared on the card) -> the two
+    bundles' paths."""
+    import io
+    import os
+
+    from swat_tpu_torch.cli.convert import main as convert_main
+
+    paths = {}
+    for quantize in ("none", "int8"):
+        out = f"{workdir}/serve/{MODEL_CFG}_{quantize}.msgpack"
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            convert_main(["--checkpoint", ckpt, "--model_cfg", MODEL_CFG,
+                          "--output", out, "--quantize", quantize,
+                          "--device", "cuda"])
+        wall = time.perf_counter() - t0
+        report = json.loads(buf.getvalue().strip().splitlines()[-1])
+        if report["roundtrip_mismatches"] or (
+                (report.get("quantize") == "int8") != (quantize == "int8")):
+            raise AssertionError(f"convert {quantize}: {report}")
+        paths[quantize] = out
+        log(f"[w8a8] cli.convert --quantize {quantize}: {report['num_params']}"
+            f" parameters, round trip bit-equal on the card, bundle "
+            f"{os.path.getsize(out) / 2 ** 20:.1f} MiB in {wall:.2f} s "
+            f"(host clock) on {smi}")
+    return paths
+
+
+def phase_eval_cli(workdir, ckpt, bundle, converted, smi):
+    """swat_tpu_torch.cli.test at full ViT-B/32 width on the flagship run's
+    stage-1 bundle, each --which_head (head with --predict_labels and
+    --utrain_out, best_tau_head with --tau 0.5, wsft_head), on the card and
+    then on the CPU: the same line, the same predicted labels and the same
+    utrain file; then --checkpoint_path given the converted .msgpack
+    against the .pt.  -> mha_fwd launches of the card's runs."""
+    import math
+
+    import numpy as np
+
+    base = ["--dataset", "smoke10", "--dataset_path", workdir,
+            "--retrieved_path", workdir, "--model_cfg", MODEL_CFG,
+            "--folder", f"{workdir}/serve/eval"]
+    batches = math.ceil(N_TEST / SERVE_BSZ)
+    total = 0
+    heads = (("head", ["--which_head", "head", "--predict_labels",
+                       "{d}/pred_{dev}.txt", "--utrain_out",
+                       "{d}/utrain_{dev}.txt"]),
+             ("best_tau_head", ["--which_head", "best_tau_head", "--tau",
+                                "0.5"]),
+             ("wsft_head", ["--which_head", "wsft_head"]))
+    for name, extra in heads:
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            args = [a.format(d=f"{workdir}/serve", dev=dev) for a in extra]
+            runs[dev] = _cli_test(base + ["--checkpoint_path", ckpt,
+                                          "--model_path", bundle, *args],
+                                  dev)
+        card, cpu = runs["cuda"], runs["cpu"]
+        need = _need_fwd(card, batches)
+        _check_counts(f"[eval-cli] {name}", card, need)
+        _check_counts(f"[eval-cli] {name} on the CPU", cpu, 0)
+        same = card["line"] == cpu["line"]
+        extra_note = ""
+        if name == "head":
+            pred = {dev: np.loadtxt(f"{workdir}/serve/pred_{dev}.txt")
+                    for dev in runs}
+            utrain = {}
+            for dev in runs:
+                with open(f"{workdir}/serve/utrain_{dev}.txt", "rb") as f:
+                    utrain[dev] = f.read()
+            rel = float(np.max(np.abs(pred["cuda"][:, 1] - pred["cpu"][:, 1])
+                               / np.abs(pred["cpu"][:, 1]).max()))
+            same = (same and pred["cuda"].shape == (N_TEST, 2)
+                    and np.array_equal(pred["cuda"][:, 0], pred["cpu"][:, 0])
+                    and utrain["cuda"] == utrain["cpu"])
+            extra_note = (f"; {N_TEST} predicted labels equal, max logits "
+                          f"differ by {rel:.2e} of the largest, utrain files "
+                          f"byte-equal ({len(utrain['cuda'])} bytes)")
+        flags = " ".join(a for a in extra[2:] if a.startswith("--")
+                         or not a.startswith("{"))
+        log(f"[eval-cli] --which_head {name} {flags}: card "
+            f"'{card['line']}' in {card['wall']:.2f} s, CPU '{cpu['line']}' "
+            f"in {cpu['wall']:.2f} s (host clock, decode included){extra_note}"
+            f" | mha_fwd launches {card['counts'][0]} (need {need}: "
+            f"{batches} image batches x 12 layers"
+            f"{', prompts encoded' if card['encoded_prompts'] else ''}), "
+            f"CPU 0 on {smi} {'ok' if same else 'FAIL'}")
+        if not same:
+            raise AssertionError(f"cli.test --which_head {name}: card and "
+                                 "CPU disagree")
+        total += card["counts"][0]
+    runs = {}
+    for tag, path in (("pt", ckpt), ("msgpack", converted["none"])):
+        runs[tag] = _cli_test(base + ["--checkpoint_path", path], "cuda")
+        need = _need_fwd(runs[tag], batches)
+        _check_counts(f"[eval-cli] --checkpoint_path .{tag}", runs[tag], need)
+        total += runs[tag]["counts"][0]
+    ok = runs["pt"]["line"] == runs["msgpack"]["line"]
+    log(f"[eval-cli] --checkpoint_path the converted .msgpack: "
+        f"'{runs['msgpack']['line']}', the .pt: '{runs['pt']['line']}' on "
+        f"{smi} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("a converted bundle as --checkpoint_path gave "
+                             "another line than its .pt")
+    return total
+
+
+def _write_ood_trees(workdir, ckpt):
+    """<workdir>/smoke1000: 1000 synthetic class names (the prompt-built
+    head's) and a test split of N_OOD_TEST images; the OOD trees under
+    <workdir>: imagenet_v2 (numeric folders), imagenet_adv/imagenet-a and
+    imagenet_ren/imagenet-r (wnid folders of their 200-class subsets),
+    N_OOD_PER_TREE class-colored images each, every image in the folder of
+    the class the card's towers and prompt head predict for it (among the
+    subset's classes for -A / -R), so that a right sweep scores 100 % on
+    the card.  -> ({tree: images}, the smallest nonzero top-1 / top-2
+    logit gap, the images whose top two classes tie)."""
+    import glob
+    import io
+    import os
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from swat_tpu_torch.core.config import RunConfig
+    from swat_tpu_torch.data.pipeline import EvalLoader
+    from swat_tpu_torch.data.splits import Sample
+    from swat_tpu_torch.eval.ood import (_load_asset, ood_index_subset)
+    from swat_tpu_torch.models.head import head_logits
+    from swat_tpu_torch.train.stages import SwatPipeline
+
+    rng = np.random.default_rng(5)
+    ddir = f"{workdir}/smoke1000"
+    os.makedirs(f"{ddir}/imgs", exist_ok=True)
+    with open(f"{ddir}/smoke1000_metrics-LAION400M.json", "w") as f:
+        json.dump({str(c): {"name": f"item {c}",
+                            "most_common_name": f"object kind {c}"}
+                   for c in range(OOD_CLASSES)}, f)
+
+    def image(path):
+        h, w = rng.integers(240, 400, 2)
+        color = rng.integers(30, 225, 3)
+        arr = (color + rng.integers(-40, 40, (h, w, 3))).clip(0, 255)
+        Image.fromarray(arr.astype(np.uint8)).save(path, quality=90)
+
+    lines = []
+    for i in range(N_OOD_TEST):
+        image(f"{ddir}/imgs/test_{i}.jpg")
+        lines.append(f"imgs/test_{i}.jpg {rng.integers(OOD_CLASSES)} 0")
+    with open(f"{ddir}/test.txt", "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        pipe = SwatPipeline(RunConfig(
+            dataset="smoke1000", dataset_path=workdir,
+            retrieved_path=workdir, model_cfg=MODEL_CFG,
+            checkpoint_path=ckpt, method="zeroshot", num_workers=8,
+            folder=f"{workdir}/serve/ood_helper", device="cuda").derived())
+    # the sweep's cli.test run encodes the 1000 prompts itself
+    for path in glob.glob(f"{ddir}/prompts/*.npz"):
+        os.remove(path)
+    asset = _load_asset()
+    trees = {"imagenet_v2": "imagenet_v2",
+             "imagenet_adv": "imagenet_adv/imagenet-a",
+             "imagenet_ren": "imagenet_ren/imagenet-r"}
+    exts = (".jpg", ".JPEG", ".png")
+    gaps, ties = [], 0
+    for name, rel in trees.items():
+        stage = f"{workdir}/serve/stage_{name}"
+        os.makedirs(stage)
+        paths = [f"{stage}/img{i}{exts[i % 3]}"
+                 for i in range(N_OOD_PER_TREE)]
+        for p in paths:
+            image(p)
+        loader = EvalLoader([Sample(p, 0, 0) for p in paths],
+                            batch_size=OOD_BSZ,
+                            n_px=pipe.model_cfg.vision.image_size,
+                            num_workers=8)
+        with torch.inference_mode():
+            (batch,) = list(loader)
+            feats = pipe.model.encode_image(
+                torch.from_numpy(batch["images"]).cuda(), normalize=True)
+            logits = head_logits(pipe.zeroshot_head, feats)
+        sub = ood_index_subset(name)
+        if sub is not None:
+            logits = logits[:, torch.as_tensor(sub, device=logits.device)]
+        logits = logits[:len(paths)]
+        # the sweep's own argmax (the first of tied classes: names whose
+        # prompts tokenize alike give equal head rows)
+        preds = logits.argmax(dim=-1)
+        top = logits.topk(2, dim=-1).values
+        gap = top[:, 0] - top[:, 1]
+        ties += int((gap == 0).sum())
+        gaps += gap[gap > 0].tolist()
+        for p, pred in zip(paths, preds.tolist()):
+            idx = pred if sub is None else sub[pred]
+            folder = str(idx) if sub is None else asset["all_wnids"][idx]
+            os.makedirs(f"{workdir}/{rel}/{folder}", exist_ok=True)
+            os.rename(p, f"{workdir}/{rel}/{folder}/{os.path.basename(p)}")
+    del pipe
+    torch.cuda.empty_cache()
+    return ({name: N_OOD_PER_TREE for name in trees},
+            min(gaps, default=0.0), ties)
+
+
+def phase_ood(workdir, ckpt, smi):
+    """--test_imagenet_ood through swat_tpu_torch.cli.test on the smoke1000
+    dataset (1000 class names: the prompt encode runs the causal forward
+    at B = 1000) over the three synthetic trees, card against CPU: equal
+    accuracies, 100 % on the card.  -> mha_fwd launches of the card run."""
+    import math
+
+    trees, gap, ties = _write_ood_trees(workdir, ckpt)
+    base = ["--dataset", "smoke1000", "--dataset_path", workdir,
+            "--retrieved_path", workdir, "--model_cfg", MODEL_CFG,
+            "--checkpoint_path", ckpt, "--test_imagenet_ood",
+            "--folder", f"{workdir}/serve/ood"]
+    card = _cli_test(base, "cuda", OOD_BSZ)
+    cpu = _cli_test(base, "cpu", OOD_BSZ)
+    image_batches = math.ceil(N_OOD_TEST / OOD_BSZ) + sum(
+        math.ceil(n / OOD_BSZ) for n in trees.values())
+    need = _need_fwd(card, image_batches, n_prompts=OOD_CLASSES)
+    _check_counts("[ood] card", card, need)
+    _check_counts("[ood] CPU", cpu, 0)
+    accs = json.loads(card["ood"])
+    ok = (card["ood"] == cpu["ood"] and card["line"] == cpu["line"]
+          and sorted(accs) == sorted(trees)
+          and all(a == 100.0 for a in accs.values()))
+    log(f"[ood] --test_imagenet_ood over {trees} images (a 1000-class "
+        f"prompt head, prompts encoded: {card['encoded_prompts']}): card "
+        f"{card['ood']} in {card['wall']:.2f} s, CPU {cpu['ood']} in "
+        f"{cpu['wall']:.2f} s (host clock); smallest nonzero top-1/top-2 "
+        f"logit gap of the trees' images {gap:.2e}, {ties} exact ties "
+        f"(tied head rows); mha_fwd launches "
+        f"{card['counts'][0]} (need {need}) on {smi} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the OOD sweep disagrees between card and CPU")
+    return card["counts"][0]
+
+
+def _w8a8_split(prof, n):
+    """Device ms per forward by family: attention (kernel #1), int8 GEMMs
+    (cuBLASLt's s8 / i8 kernels), float GEMMs, and the rest (LayerNorm,
+    GELU, residual adds, and in an int8 forward the quantize and
+    dequantize passes) -> (split, the largest kernels of each family)."""
+    from torch.autograd import DeviceType
+
+    split = {"attention": 0.0, "int8 gemm": 0.0, "gemm": 0.0, "other": 0.0}
+    names: dict = {}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        name = evt.key.lower()
+        ms = evt.self_device_time_total / 1e3 / n
+        gemm = any(t in name for t in ("gemm", "nvjet", "cutlass", "xmma",
+                                       "imma"))
+        if "attention_fwd" in name:
+            fam = "attention"
+        elif gemm and any(t in name for t in ("s8", "i8", "int8", "imma")):
+            fam = "int8 gemm"
+        elif gemm:
+            fam = "gemm"
+        else:
+            fam = "other"
+        split[fam] += ms
+        names.setdefault(fam, []).append((round(ms, 3), evt.key[:60]))
+    return split, {k: sorted(v, reverse=True)[:2] for k, v in names.items()}
+
+
+def _tokens(n, cfg, seed):
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    ctx, vocab = cfg.text.context_length, cfg.text.vocab_size
+    tokens = torch.zeros(n, ctx, dtype=torch.long)
+    for i in range(n):
+        k = 2 + (7 * i) % (ctx - 3)
+        tokens[i, 0] = vocab - 2
+        tokens[i, 1:k] = torch.randint(1, vocab - 3, (k - 1,), generator=gen)
+        tokens[i, k] = vocab - 1
+    return tokens
+
+
+def phase_w8a8(workdir, ckpt, converted, smi):
+    """W8A8 int8 inference: the int8 towers from the converted bundle on the
+    card against the same on the CPU and against the fp32 towers; one int8
+    forward of the full-width ViT-L/14 image tower (K = 588, padded);
+    cli.test --quantize int8 from the .pt and from the int8 bundle; the
+    image tower's forward at B = 256 in fp32, bf16, int8 over fp32 and int8
+    over bf16, each timed, profiled and its peak memory.  -> mha_fwd
+    launches of the counted runs."""
+    import math
+
+    import torch
+
+    from swat_tpu_torch.core.precision import DEFAULT_PRECISION, FP32_PRECISION
+    from swat_tpu_torch.kernels import flash_attention as FA
+    from swat_tpu_torch.models.clip import CLIPModel
+    from swat_tpu_torch.models.configs import get_model_config
+    from swat_tpu_torch.models.loader import (jax_params_from_state_dict,
+                                              load_torch_checkpoint,
+                                              state_dict_from_jax_params)
+    from swat_tpu_torch.models.quant import quantize_tree
+
+    cfg = get_model_config(MODEL_CFG)
+    FP32_PRECISION.apply_backend_flags()
+
+    def model_from(path, device):
+        sd, _ = load_torch_checkpoint(path)
+        return CLIPModel(cfg, precision=FP32_PRECISION).load_weights(
+            sd).to(device).eval()
+
+    fp32 = model_from(ckpt, "cuda")
+    int8 = model_from(converted["int8"], "cuda")
+    int8_cpu = model_from(converted["int8"], "cpu")
+    gen = torch.Generator().manual_seed(11)
+    n_px = cfg.vision.image_size
+    images = torch.randn(8, n_px, n_px, 3, generator=gen)
+    tokens = _tokens(8, cfg, 12)
+    total = 0
+    with torch.inference_mode():
+        feats = {}
+        for tag, model, dev in (("fp32", fp32, "cuda"), ("int8", int8, "cuda"),
+                                ("int8_cpu", int8_cpu, "cpu")):
+            _reset_counts(FA)
+            feats[tag] = [model.encode_image(images.to(dev),
+                                             normalize=True).cpu(),
+                          model.encode_text(tokens.to(dev),
+                                            normalize=True).cpu()]
+            if tag == "int8":
+                run = {"counts": _counts(FA)}
+                _check_counts("[w8a8] int8 towers", run,
+                              cfg.vision.layers + cfg.text.layers)
+                total += run["counts"][0]
+    ok = True
+    for i, tower in enumerate(("image", "text")):
+        got, ref, f32 = (feats[t][i] for t in ("int8", "int8_cpu", "fp32"))
+        finite = bool(torch.isfinite(got).all()) and got.shape == (
+            8, cfg.embed_dim)
+        cos_cpu = float((got * ref).sum(-1).min())
+        cos32 = (got * f32).sum(-1)
+        good = (finite and cos_cpu >= INT8_CARD_MIN_COS
+                and float(cos32.mean()) > INT8_MIN_MEAN_COS[tower])
+        ok = ok and good
+        log(f"[w8a8] {MODEL_CFG} int8 {tower} tower (B=8): min cosine card "
+            f"vs CPU {cos_cpu:.8f} (bound {INT8_CARD_MIN_COS}), max abs "
+            f"{float((got - ref).abs().max()):.2e}; against fp32 on the card "
+            f"mean cosine {float(cos32.mean()):.6f} (bound "
+            f"{INT8_MIN_MEAN_COS[tower]}), min {float(cos32.min()):.6f} "
+            f"{'ok' if good else 'FAIL'}")
+    del int8_cpu, feats
+    if not ok:
+        raise AssertionError("[w8a8] the int8 towers disagree")
+
+    # ViT-L/14's image tower in int8: its patch embedding has K = 588
+    lcfg = get_model_config("vitl14_openclip_laion400m")
+    big = CLIPModel(lcfg, precision=FP32_PRECISION).init_random(
+        torch.Generator().manual_seed(0))
+    t0 = time.perf_counter()
+    qtree = quantize_tree(jax_params_from_state_dict(big.state_dict())[0])
+    quant_s = time.perf_counter() - t0
+    big = big.cuda().eval()
+    big_q = CLIPModel(lcfg, precision=FP32_PRECISION).load_weights(
+        state_dict_from_jax_params(qtree, 0.0)).cuda().eval()
+    del qtree
+    n_px = lcfg.vision.image_size
+    limages = torch.randn(16, n_px, n_px, 3, generator=gen).cuda()
+    with torch.inference_mode():
+        ref = big.encode_image(limages, normalize=True)
+        _reset_counts(FA)
+        got = big_q.encode_image(limages, normalize=True)
+        torch.cuda.synchronize()
+        counts = _counts(FA)
+    _check_counts("[w8a8] vitl14 int8 image tower", {"counts": counts},
+                  lcfg.vision.layers)
+    cos = (got * ref).sum(-1)
+    good = (bool(torch.isfinite(got).all())
+            and got.shape == (16, lcfg.embed_dim)
+            and float(cos.mean()) > INT8_MIN_MEAN_COS["image"])
+    log(f"[w8a8] vitl14 int8 image tower (B=16, K = "
+        f"{3 * lcfg.vision.patch_size ** 2} padded to "
+        f"{3 * lcfg.vision.patch_size ** 2 + (-3 * lcfg.vision.patch_size ** 2) % 8}"
+        f"; quantize_tree {quant_s:.2f} s on the host): mean cosine against "
+        f"fp32 {float(cos.mean()):.6f}, min {float(cos.min()):.6f}; "
+        f"launches {counts} {'ok' if good else 'FAIL'}")
+    if not good:
+        raise AssertionError("[w8a8] the int8 ViT-L/14 tower failed")
+    total += counts[0]
+    del big, big_q, limages
+    torch.cuda.empty_cache()
+
+    # cli.test --quantize int8, from the .pt and from the int8 bundle
+    base = ["--dataset", "smoke10", "--dataset_path", workdir,
+            "--retrieved_path", workdir, "--model_cfg", MODEL_CFG,
+            "--folder", f"{workdir}/serve/w8a8"]
+    batches = math.ceil(N_TEST / SERVE_BSZ)
+    runs = {}
+    for tag, extra in (("--quantize int8", ["--checkpoint_path", ckpt,
+                                            "--quantize", "int8"]),
+                       ("int8 bundle", ["--checkpoint_path",
+                                        converted["int8"]]),
+                       ("fp32", ["--checkpoint_path", ckpt])):
+        runs[tag] = _cli_test(base + extra, "cuda")
+        if tag != "fp32":
+            need = _need_fwd(runs[tag], batches)
+            _check_counts(f"[w8a8] cli.test {tag}", runs[tag], need)
+            total += runs[tag]["counts"][0]
+    ok = runs["--quantize int8"]["line"] == runs["int8 bundle"]["line"]
+    log(f"[w8a8] cli.test --quantize int8: '{runs['--quantize int8']['line']}'"
+        f" in {runs['--quantize int8']['wall']:.2f} s; --checkpoint_path the "
+        f"int8 bundle: '{runs['int8 bundle']['line']}'; fp32: "
+        f"'{runs['fp32']['line']}' (host clock, decode included) on {smi} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[w8a8] --quantize int8 and the int8 bundle "
+                             "disagree")
+
+    # the image tower's forward at the eval batch, four ways, timed in
+    # turns, then each profiled with its peak memory
+    n_px = cfg.vision.image_size
+    batch = torch.randn(SERVE_BSZ, n_px, n_px, 3, generator=gen).cuda()
+    variants = (("fp32", fp32, FP32_PRECISION),
+                ("bf16", fp32, DEFAULT_PRECISION),
+                ("int8/fp32", int8, FP32_PRECISION),
+                ("int8/bf16", int8, DEFAULT_PRECISION))
+
+    def forward(model, precision):
+        precision.apply_backend_flags()
+        model.precision = precision
+        return lambda: model.encode_image(batch)
+
+    with torch.inference_mode():
+        times = {name: [] for name, _, _ in variants}
+        for order in (variants, variants[::-1]):
+            for name, model, precision in order:
+                times[name].append(_time_ms(forward(model, precision),
+                                            iters=5, warmup=2))
+        stats = {}
+        for name, model, precision in variants:
+            fn = forward(model, precision)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fn()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            busy, window, split, top = _profiled(fn, 2, _w8a8_split)
+            stats[name] = (sum(times[name]) / 2, busy, window, split, peak,
+                           top)
+    FP32_PRECISION.apply_backend_flags()
+    for name, (ms, busy, window, split, peak, top) in stats.items():
+        float_other = stats["bf16" if "bf16" in name else "fp32"][3]["other"]
+        qdq = (f"; quantize/dequantize passes ~{split['other'] - float_other:.3f}"
+               f" ms (other minus the float forward's)"
+               if name.startswith("int8") else "")
+        log(f"[w8a8] {MODEL_CFG} image tower forward B={SERVE_BSZ} {name}: "
+            f"{ms:.3f} ms ({SERVE_BSZ * 1e3 / ms:.1f} images/s; turns "
+            f"{', '.join(f'{t:.3f}' for t in times[name])}), peak "
+            f"{peak / 2 ** 30:.3f} GiB allocated; profiled {busy:.3f} ms busy "
+            f"of a {window:.3f} ms window (idle "
+            f"{_idle(busy, window)}): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+            + f"{qdq}; largest {top} on {smi}")
+    del fp32, int8, batch
+    torch.cuda.empty_cache()
+    return total
+
+
+def _serving_phases(workdir, ckpt, smi):
+    """[w8a8]'s conversions, [eval-cli] on the flagship run's stage-1
+    bundle, [ood] and [w8a8] -> their mha_fwd launches."""
+    import glob
+    import os
+
+    os.makedirs(f"{workdir}/serve", exist_ok=True)
+    (bundle,) = glob.glob(f"{workdir}/train_{MODEL_CFG}_cutmix_float32_auto/"
+                          "**/stage1_model_best-epoch_*_best.msgpack",
+                          recursive=True)
+    t0 = time.perf_counter()
+    converted = phase_convert(workdir, ckpt, smi)
+    launches = phase_eval_cli(workdir, ckpt, bundle, converted, smi)
+    t1 = time.perf_counter()
+    launches += phase_ood(workdir, ckpt, smi)
+    t2 = time.perf_counter()
+    launches += phase_w8a8(workdir, ckpt, converted, smi)
+    log(f"[serve] eval-cli {t1 - t0:.1f} s, ood {t2 - t1:.1f} s, w8a8 "
+        f"{time.perf_counter() - t2:.1f} s; mha_fwd launches {launches}")
+    return launches
 
 
 def main() -> int:
@@ -3563,14 +4110,15 @@ def main() -> int:
         phase_memory(ckpt, smi)
         tower_counts = _new_tower_phases(workdir, smi)
         cli_counts = [c + t for c, t in zip(cli_counts, tower_counts)]
+        cli_counts[0] += _serving_phases(workdir, ckpt, smi)
         worst_mega = phase_mega_kernels()
         times_mega = phase_mega_timing(smi)
         tower_mega = phase_mega_towers(ckpt, smi)
         step_mega = phase_mega_step(ckpt, smi)
     # each kernel at the CLI default (fp32) and the B/32 image shape
     # (B=256, H=12, S=50, D=64).  launches: the zero-shot runs, the stage-1
-    # runs and the train-step phases that drive a kernel's path, each
-    # counted from 0.  The heads-first backward is reached through
+    # runs, the train-step phases and the serving phases that drive a
+    # kernel's path, each counted from 0.  The heads-first backward is reached through
     # bwd='fused' (the train-step phase); no flag of the CLI selects it, as
     # in the JAX package.
     shape = ("vitb32_image", "float32")

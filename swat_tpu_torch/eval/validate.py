@@ -43,10 +43,15 @@ class Evaluator:
 
     def validate(self, model: Optional[CLIPModel], head: torch.Tensor,
                  logit_scale: float, loader, *,
-                 return_confusion: bool = False):
+                 return_confusion: bool = False,
+                 predict_labels_path: Optional[str] = None):
         """Returns (acc_percent, mean_loss, confusion_matrix | None), the
         reference validate's signature (testing.py:403).  ``model`` may be
-        None when the loader yields 'features' instead of 'images'."""
+        None when the loader yields 'features' instead of 'images'.
+        ``predict_labels_path`` gets a '<pred> <max_logit>' line for each
+        valid row, in loader order (pseudo-labels, reference
+        testing.py:466-480); the rows stay on the device until the split
+        ends, so that path too syncs once."""
         dev = self.device
         c = self.num_classes
         correct = torch.zeros((), dtype=torch.int64, device=dev)
@@ -57,6 +62,7 @@ class Evaluator:
                                        device=dev))
         head = head.to(dev)
         batches = 0
+        predicted = []
         with torch.inference_mode():
             for batch in loader:
                 if "features" in batch:
@@ -76,7 +82,16 @@ class Evaluator:
                 count += nb
                 if return_confusion:
                     cm_scatter_add(cm, preds, labels, mask, c)
+                if predict_labels_path:
+                    predicted.append((preds, logits.amax(dim=-1), mask))
                 batches += 1
+        if predict_labels_path:
+            with open(predict_labels_path, "w") as f:
+                for preds, max_logits, mask in predicted:
+                    mask = mask.cpu()
+                    for pred, logit in zip(preds.cpu()[mask].tolist(),
+                                           max_logits.cpu()[mask].tolist()):
+                        f.write(f"{pred} {logit}\n")
         acc = int(correct) / max(int(count), 1) * 100.0
         return (acc, float(loss_sum) / max(batches, 1),
                 cm.cpu().numpy() if return_confusion else None)

@@ -49,6 +49,19 @@ backward kernels as its gradient, only x and x2 saved), as
 ``functional._transformer(use_mega=True)`` does; ``attention`` is then not
 used.  ``encode_image_tokens`` has no such route, as there.
 
+W8A8 int8 inference (``models/quant.py``).  ``CLIPModel.int8_`` swaps
+every dense weight of both ViT towers (the blocks' four products, the
+patch embedding and both projections) for int8 codes ``[out, in]`` and
+fp32 per-output-channel scales ``[out]``, held as buffers (``<name>_q``,
+``<name>_scale``), never as parameters; ``dense``, ``project`` and the
+patch embedding then run ``qdot``, the counterpart of
+``functional._qdot``: per-row dynamic activation codes, an int8 x int8 ->
+int32 product, and the fp32 dequantization.  The int32 product is
+``torch._int_mm`` (cuBLASLt's int8 product on the card), as ``swat_tpu``
+computes it in XLA outside any Pallas kernel; ``int8_matmul`` zero-pads
+its operands to that product's CUDA shape rules.  The attention stays the
+kernels'.  ``use_mega`` has no int8 path and raises, as in ``swat_tpu``.
+
 A ``ResNetConfig`` (the RN50 names) builds OpenAI's modified ResNet image
 tower instead (``models/resnet.py``): convolutions, BatchNorm and an
 attention pool in plain PyTorch, as ``swat_tpu`` runs them in XLA; remat,
@@ -65,7 +78,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Callable, Optional, Union
+from typing import Callable, NamedTuple, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -101,19 +114,79 @@ def layer_norm(ln: nn.LayerNorm, x: torch.Tensor, precision: Precision,
     return y.to(precision.compute_dtype)
 
 
-def dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+class Int8Weight(NamedTuple):
+    """A dense weight after ``CLIPModel.int8_``: int8 codes [out, in] and
+    fp32 scales [out], weight ~= codes * scale[:, None]."""
+    codes: torch.Tensor
+    scale: torch.Tensor
+
+
+def weight_of(module: nn.Module, name: str):
+    """``module``'s weight ``name``: the float parameter, or its
+    ``Int8Weight`` where ``CLIPModel.int8_`` put codes and scales."""
+    codes = getattr(module, f"{name}_q", None)
+    if codes is None:
+        return getattr(module, name)
+    return Int8Weight(codes, getattr(module, f"{name}_scale"))
+
+
+def int8_matmul(a: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """a [M, K] int8 times codes [N, K] int8, transposed -> [M, N] int32,
+    through ``torch._int_mm``.  Its CUDA shape rules (M > 16, K and N
+    multiples of 8, the second operand column-major) are met by zero
+    padding, which adds nothing to any int32 sum; the product is never
+    taken in floating point (its sums pass fp32's 2^24 exact integers)."""
+    m, k = a.shape
+    n = codes.shape[0]
+    if not (m and k and n) or codes.shape[1] != k:
+        raise ValueError(f"int8 product of {tuple(a.shape)} and "
+                         f"{tuple(codes.shape)}^T cannot be padded")
+    pad_m, pad_k, pad_n = max(17 - m, 0), -k % 8, -n % 8
+    if pad_m or pad_k:
+        a = F.pad(a, (0, pad_k, 0, pad_m))
+    if pad_k or pad_n:
+        codes = F.pad(codes, (0, pad_k, 0, pad_n))
+    y = torch._int_mm(a.contiguous(), codes.contiguous().t())
+    return y[:m, :n] if pad_m or pad_n else y
+
+
+def qdot(x: torch.Tensor, w: Int8Weight, precision: Precision,
+         out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The W8A8 product (functional._qdot): per-row activation scale
+    s = max(absmax(x), 1e-8) / 127 and codes clip(round(x / s), -127, 127)
+    (round half to even), the int8 x int8 -> int32 product, then
+    y * (s * scale) in fp32, cast to ``out_dtype`` or the compute dtype."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8)
+    # divided by a tensor: on CUDA, PyTorch turns a division by a Python
+    # number into a product by its fp32 reciprocal, which rounds some rows'
+    # scale otherwise than the true division of swat_tpu (and of the CPU)
+    s = amax / amax.new_full((), 127.0)
+    xq = torch.round(xf / s).clamp(-127, 127).to(torch.int8)
+    y = int8_matmul(xq.reshape(-1, xq.shape[-1]), w.codes)
+    y = y.reshape(*x.shape[:-1], -1).float() * (s * w.scale.float())
+    return y.to(out_dtype or precision.compute_dtype)
+
+
+def dense(x: torch.Tensor, weight, bias: Optional[torch.Tensor],
           precision: Precision) -> torch.Tensor:
     """x @ W^T (+ b) in the compute dtype; torch's [out, in] weight is the
-    JAX kernel transposed (functional._dense)."""
+    JAX kernel transposed (functional._dense).  An ``Int8Weight`` takes
+    the W8A8 product."""
     c = precision.compute_dtype
-    y = torch.matmul(x.to(c), weight.to(c).t())
+    if isinstance(weight, Int8Weight):
+        y = qdot(x, weight, precision)
+    else:
+        y = torch.matmul(x.to(c), weight.to(c).t())
     return y + bias.to(c) if bias is not None else y
 
 
-def project(x: torch.Tensor, proj: torch.Tensor,
-            precision: Precision) -> torch.Tensor:
+def project(x: torch.Tensor, proj, precision: Precision) -> torch.Tensor:
     """[B, width] x [width, embed] with compute-dtype operands and fp32
-    accumulation -> fp32 features."""
+    accumulation -> fp32 features; an ``Int8Weight`` (codes [embed,
+    width]) takes the W8A8 product with an fp32 result."""
+    if isinstance(proj, Int8Weight):
+        return qdot(x, proj, precision, out_dtype=torch.float32)
     c = precision.compute_dtype
     return torch.matmul(x.to(c).float(), proj.to(c).float())
 
@@ -191,18 +264,18 @@ class ResidualAttentionBlock(nn.Module):
     def forward(self, x: torch.Tensor, causal: bool, precision: Precision,
                 attention: Attention) -> torch.Tensor:
         h = layer_norm(self.ln_1, x, precision)
-        qkv = dense(h, self.attn.in_proj_weight, self.attn.in_proj_bias,
-                    precision)
+        qkv = dense(h, weight_of(self.attn, "in_proj_weight"),
+                    self.attn.in_proj_bias, precision)
         # the kernels read q, k, v in place from qkv and write its gradient
         # whole
         a = attention(qkv, self.heads, causal)
-        x = x + dense(a, self.attn.out_proj.weight, self.attn.out_proj.bias,
-                      precision)
+        x = x + dense(a, weight_of(self.attn.out_proj, "weight"),
+                      self.attn.out_proj.bias, precision)
         h = layer_norm(self.ln_2, x, precision)
-        h = dense(h, self.mlp["c_fc"].weight, self.mlp["c_fc"].bias,
-                  precision)
+        h = dense(h, weight_of(self.mlp["c_fc"], "weight"),
+                  self.mlp["c_fc"].bias, precision)
         h = quick_gelu(h) if self.quick else F.gelu(h)
-        return x + dense(h, self.mlp["c_proj"].weight,
+        return x + dense(h, weight_of(self.mlp["c_proj"], "weight"),
                          self.mlp["c_proj"].bias, precision)
 
 
@@ -221,6 +294,10 @@ class Transformer(nn.Module):
         """``remat`` applies where a graph is built; ``use_mega`` ignores
         it, as ``functional._transformer`` does."""
         if use_mega:
+            if hasattr(self.resblocks[0].attn, "in_proj_weight_q"):
+                raise ValueError(
+                    "use_mega has no int8 path: the block kernels read "
+                    "float weights (run --quantize int8 without use_mega)")
             return fused_transformer(
                 self.resblocks, x, heads=self.heads, quick_gelu=self.quick,
                 causal=causal, compute_dtype=precision.compute_dtype)
@@ -314,17 +391,22 @@ class VisionTower(nn.Module):
         cd = precision.compute_dtype
         x = images.to(cd).reshape(b, gh, p, gw, p, c).permute(0, 1, 3, 2, 4, 5)
         x = x.reshape(b, gh * gw, p * p * c)
-        # conv1 [width, 3, p, p] -> [(kh, kw, in), width], the NHWC unfold
-        # order (loader.py's patch_kernel)
-        kernel = self.conv1.weight.permute(2, 3, 1, 0).reshape(p * p * c, -1)
-        x = torch.matmul(x, kernel.to(cd))
+        conv = weight_of(self.conv1, "weight")
+        if isinstance(conv, Int8Weight):
+            # codes [width, (kh, kw, in)]
+            x = qdot(x, conv, precision)
+        else:
+            # conv1 [width, 3, p, p] -> [(kh, kw, in), width], the NHWC
+            # unfold order (loader.py's patch_kernel)
+            kernel = conv.permute(2, 3, 1, 0).reshape(p * p * c, -1)
+            x = torch.matmul(x, kernel.to(cd))
         cls = self.class_embedding.to(cd).expand(b, 1, -1)
         x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(cd)
         x = layer_norm(self.ln_pre, x, precision)
         x = self.transformer(x, False, precision, attention, use_mega,
                              remat)
         x = layer_norm(self.ln_post, x[:, 0] if pool else x, precision)
-        return project(x, self.proj, precision)
+        return project(x, weight_of(self, "proj"), precision)
 
 
 class TextTower(nn.Module):
@@ -354,7 +436,7 @@ class TextTower(nn.Module):
         x = layer_norm(self.ln_final, x, precision)
         eot = token_ids.argmax(dim=-1)
         x = x[torch.arange(x.shape[0], device=x.device), eot]
-        return project(x, self.text_projection, precision)
+        return project(x, weight_of(self, "text_projection"), precision)
 
 
 def _normalize(feats: torch.Tensor) -> torch.Tensor:
@@ -411,6 +493,60 @@ class CLIPModel(TextTower):
         feats = self.encode_text_features(token_ids, self.precision,
                                           attention, use_mega, self.remat)
         return _normalize(feats) if normalize else feats
+
+    def _dense_weights(self):
+        """(module, name, [out, in]) of every dense weight of both ViT
+        towers, as ``quant.quantize_tree`` finds them: each block's qkv,
+        out-proj, c_fc and c_proj, the patch embedding (its codes in the
+        (kh, kw, in) order of its product) and both projections."""
+        out = []
+        for tower in (self.visual.transformer, self.transformer):
+            for blk in tower.resblocks:
+                for module, name in ((blk.attn, "in_proj_weight"),
+                                     (blk.attn.out_proj, "weight"),
+                                     (blk.mlp["c_fc"], "weight"),
+                                     (blk.mlp["c_proj"], "weight")):
+                    out.append((module, name,
+                                tuple(getattr(module, name).shape)))
+        conv = self.visual.conv1.weight
+        out.append((self.visual.conv1, "weight",
+                    (conv.shape[0], conv[0].numel())))
+        out.append((self.visual, "proj", tuple(self.visual.proj.shape[::-1])))
+        out.append((self, "text_projection",
+                    tuple(self.text_projection.shape[::-1])))
+        return out
+
+    @property
+    def is_int8(self) -> bool:
+        return hasattr(self.visual, "proj_q")
+
+    def int8_(self) -> "CLIPModel":
+        """Swaps every dense weight (``_dense_weights``) for empty int8
+        codes ``<name>_q`` [out, in] and fp32 scales ``<name>_scale``
+        [out], buffers on the weight's device, for ``load_state_dict`` of
+        a quantized state dict (``loader.state_dict_from_jax_params`` of a
+        ``quant.quantize_tree`` tree) to fill.  Inference only; the RN50
+        tower has no int8 path (``quantize_tree`` refuses its tree)."""
+        if isinstance(self.visual, ModifiedResNet):
+            raise ValueError("the RN50 image tower has no int8 path")
+        if self.is_int8:
+            return self
+        for module, name, shape in self._dense_weights():
+            device = getattr(module, name).device
+            delattr(module, name)
+            module.register_buffer(f"{name}_q", torch.zeros(
+                shape, dtype=torch.int8, device=device))
+            module.register_buffer(f"{name}_scale", torch.zeros(
+                shape[0], dtype=torch.float32, device=device))
+        return self
+
+    def load_weights(self, state_dict) -> "CLIPModel":
+        """``load_state_dict``, into the int8 layout first (``int8_``)
+        when ``state_dict`` holds a quantized tree's codes."""
+        if "visual.proj_q" in state_dict:
+            self.int8_()
+        self.load_state_dict(state_dict)
+        return self
 
     @torch.no_grad()
     def init_random(self, generator: torch.Generator) -> "CLIPModel":

@@ -14,6 +14,15 @@ towers: the ViT, and the RN50 ``ModifiedResNet`` (``swat_tpu``'s
 ``[kh, kw, in, out]`` under ``conv/kernel``, blocks ``layer{s}_{i}`` with
 ``down_conv`` / ``down_bn``, BatchNorm leaves ``scale`` / ``bias`` /
 ``mean`` / ``var``, the blocks per stage read off the state dict.
+
+A W8A8 tree (``models/quant.py``) crosses both ways too: a dense leaf
+``{"kernel_q", "scale", "bias"?}`` is the state dict's ``<weight>_q``
+(int8, [out, in] per layer: the stacked ``[L, in, out]`` codes
+transposed) and ``<weight>_scale`` ([out] per layer, of the ``[L, out]``
+scales), beside its bias; the patch embedding's ``[(kh, kw, in), width]``
+codes become ``visual.conv1.weight_q`` ``[width, (kh, kw, in)]``, and the
+projections' dicts ``visual.proj_q`` / ``text_projection_q`` ``[embed,
+width]`` with their scales (``CLIPModel.int8_`` holds them).
 """
 
 from __future__ import annotations
@@ -27,8 +36,16 @@ import torch
 def load_torch_checkpoint(path: str) -> Tuple[dict, float]:
     """An OpenCLIP/CLIP ``.pt``/``.bin`` state dict (optionally wrapped in
     ``{"state_dict": ...}`` and/or carrying DataParallel's ``module.``
-    prefix), or OpenAI's TorchScript archive -> (state_dict of tensors,
-    logit_scale)."""
+    prefix), OpenAI's TorchScript archive, or a ``.msgpack`` bundle of
+    ``cli.convert`` (fp32 or int8, either package's) -> (state_dict of
+    tensors, logit_scale)."""
+    if path.endswith(".msgpack"):
+        from swat_tpu_torch.train.checkpoint import load_bundle
+
+        arrays, _ = load_bundle(path)
+        logit_scale = float(np.asarray(arrays["logit_scale"]))
+        return (state_dict_from_jax_params(arrays["clip"], logit_scale),
+                logit_scale)
     # weights_only=False as in swat_tpu: a TorchScript archive (OpenAI's
     # CLIP releases) cannot be loaded with weights_only=True
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
@@ -53,6 +70,22 @@ def state_dict_from_jax_params(params: Mapping[str, Any],
     def put(key, arr):
         out[key] = torch.from_numpy(np.array(arr, dtype=np.float32))
 
+    def put_weight(key, leaf, i=None):
+        """A flax kernel {"kernel": [in, out]} (torch's [out, in]
+        transposed), a bare projection [width, embed] (kept), or a
+        quantized leaf's codes (transposed) and scales; ``i`` picks a layer
+        of a stacked leaf."""
+        if isinstance(leaf, dict) and "kernel_q" in leaf:
+            codes, scale = (np.asarray(leaf[k]) for k in ("kernel_q", "scale"))
+            if i is not None:
+                codes, scale = codes[i], scale[i]
+            out[f"{key}_q"] = torch.from_numpy(np.array(codes.T, np.int8))
+            put(f"{key}_scale", scale)
+            return
+        arr = np.asarray(leaf["kernel"] if isinstance(leaf, dict) else leaf)
+        arr = arr if i is None else arr[i]
+        put(key, arr.T if isinstance(leaf, dict) else arr)
+
     def put_ln(flax_ln, name):
         put(f"{name}.weight", flax_ln["ln"]["scale"])
         put(f"{name}.bias", flax_ln["ln"]["bias"])
@@ -71,35 +104,38 @@ def state_dict_from_jax_params(params: Mapping[str, Any],
                 put(f"{pre}.{ln}.bias", np.asarray(blocks[ln]["ln"]["bias"])[i])
             for group, name, w_key, b_key in linears:
                 lin = blocks[group][name]
-                # flax kernels are [in, out]; torch weights [out, in]
-                put(f"{pre}.{w_key}", np.asarray(lin["kernel"])[i].T)
+                put_weight(f"{pre}.{w_key}", lin, i)
                 put(f"{pre}.{b_key}", np.asarray(lin["bias"])[i])
 
     vis, txt = params["visual"], params["text"]
     if "patch_embed" not in vis:
         _rn50_visual_to_torch(vis, put)
-        _put_text(txt, put, put_ln, put_blocks)
+        _put_text(txt, put, put_weight, put_ln, put_blocks)
         put("logit_scale", np.float32(logit_scale))
         return out
-    k = np.asarray(vis["patch_embed"]["kernel"], np.float32)  # [p*p*3, w]
-    ppc, w = k.shape
-    side = int(round((ppc // 3) ** 0.5))
-    put("visual.conv1.weight", k.reshape(side, side, 3, w).transpose(3, 2, 0, 1))
+    if "kernel_q" in vis["patch_embed"]:
+        put_weight("visual.conv1.weight", vis["patch_embed"])
+    else:
+        k = np.asarray(vis["patch_embed"]["kernel"], np.float32)  # [p*p*3, w]
+        ppc, w = k.shape
+        side = int(round((ppc // 3) ** 0.5))
+        put("visual.conv1.weight",
+            k.reshape(side, side, 3, w).transpose(3, 2, 0, 1))
     put("visual.class_embedding", vis["class_embedding"])
     put("visual.positional_embedding", vis["positional_embedding"])
-    put("visual.proj", vis["proj"])
+    put_weight("visual.proj", vis["proj"])
     put_ln(vis["ln_pre"], "visual.ln_pre")
     put_ln(vis["ln_post"], "visual.ln_post")
     put_blocks(vis["transformer"]["blocks"], "visual.transformer.resblocks.")
-    _put_text(txt, put, put_ln, put_blocks)
+    _put_text(txt, put, put_weight, put_ln, put_blocks)
     put("logit_scale", np.float32(logit_scale))
     return out
 
 
-def _put_text(txt, put, put_ln, put_blocks) -> None:
+def _put_text(txt, put, put_weight, put_ln, put_blocks) -> None:
     put("token_embedding.weight", txt["token_embedding"])
     put("positional_embedding", txt["positional_embedding"])
-    put("text_projection", txt["text_projection"])
+    put_weight("text_projection", txt["text_projection"])
     put_ln(txt["ln_final"], "ln_final")
     put_blocks(txt["transformer"]["blocks"], "transformer.resblocks.")
 
@@ -137,9 +173,13 @@ def _rn50_visual_to_torch(vis: Mapping[str, Any], put) -> None:
         put(f"visual.attnpool.{name}.bias", ap[name]["bias"])
 
 
-def _f32(t) -> np.ndarray:
+def _np(t) -> np.ndarray:
     return (t.detach().cpu().numpy() if isinstance(t, torch.Tensor)
-            else np.asarray(t)).astype(np.float32)
+            else np.asarray(t))
+
+
+def _f32(t) -> np.ndarray:
+    return _np(t).astype(np.float32)
 
 
 def _layers(sd: Mapping[str, Any], prefix: str) -> int:
@@ -207,6 +247,11 @@ def jax_params_from_state_dict(sd: Mapping[str, Any]) -> Tuple[dict, float]:
             return np.stack([m.T for m in mats] if transpose else mats)
 
         def linear(w, b):
+            if f"{prefix}0.{w}_q" in sd:
+                return {"kernel_q": np.stack([
+                            _np(sd[f"{prefix}{i}.{w}_q"]).T
+                            for i in range(n)]),
+                        "scale": stack(f"{w}_scale"), "bias": stack(b)}
             return {"kernel": stack(w, True), "bias": stack(b)}
 
         return {
@@ -226,19 +271,30 @@ def jax_params_from_state_dict(sd: Mapping[str, Any]) -> Tuple[dict, float]:
         return {"ln": {"scale": _f32(sd[f"{name}.weight"]),
                        "bias": _f32(sd[f"{name}.bias"])}}
 
+    def quantized(key):
+        return {"kernel_q": _np(sd[f"{key}_q"]).T,
+                "scale": _f32(sd[f"{key}_scale"])}
+
+    def projection(key):
+        return quantized(key) if f"{key}_q" in sd else _f32(sd[key])
+
     if "visual.layer1.0.conv1.weight" in sd:
         visual = _rn50_visual_params(sd)
     else:
-        conv1 = _f32(sd["visual.conv1.weight"])          # [w, 3, p, p]
-        w, c, p, _ = conv1.shape
+        if "visual.conv1.weight_q" in sd:
+            patch_embed = quantized("visual.conv1.weight")
+        else:
+            conv1 = _f32(sd["visual.conv1.weight"])      # [w, 3, p, p]
+            w, c, p, _ = conv1.shape
+            patch_embed = {"kernel": conv1.transpose(2, 3, 1, 0).reshape(
+                p * p * c, w)}
         visual = {
-            "patch_embed": {"kernel": conv1.transpose(2, 3, 1, 0).reshape(
-                p * p * c, w)},
+            "patch_embed": patch_embed,
             "class_embedding": _f32(sd["visual.class_embedding"]),
             "positional_embedding": _f32(sd["visual.positional_embedding"]),
             "ln_pre": ln("visual.ln_pre"),
             "ln_post": ln("visual.ln_post"),
-            "proj": _f32(sd["visual.proj"]),
+            "proj": projection("visual.proj"),
             "transformer": {"blocks": blocks(
                 "visual.transformer.resblocks.")},
         }
@@ -248,7 +304,7 @@ def jax_params_from_state_dict(sd: Mapping[str, Any]) -> Tuple[dict, float]:
             "token_embedding": _f32(sd["token_embedding.weight"]),
             "positional_embedding": _f32(sd["positional_embedding"]),
             "ln_final": ln("ln_final"),
-            "text_projection": _f32(sd["text_projection"]),
+            "text_projection": projection("text_projection"),
             "transformer": {"blocks": blocks("transformer.resblocks.")},
         },
     }

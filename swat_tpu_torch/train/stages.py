@@ -25,9 +25,13 @@ Stage 2 starts from that bundle (or from ``--stage1_model_path`` with
 ``--skip_stage1``): probing on the few-shot train-transform snapshot's
 features, then few-shot finetuning; the 11-field summary line follows.
 ``--model_path`` warm-starts stage 1, ``--save_ckpt`` / ``--resume`` write
-and restore train checkpoints.  The options still to port (a device mesh,
-``--trace_dir``, ``--test_imagenet_ood``) raise NotImplementedError naming
-their ROADMAP item.
+and restore train checkpoints, and ``--test_imagenet_ood`` sweeps the
+ImageNet OOD suite (``eval/ood.py``) with the most downstream bundle that
+ran.  ``--checkpoint_path`` takes an OpenCLIP ``.pt`` or a ``cli.convert``
+bundle, fp32 or int8; an int8 one gives the model the int8 layout
+(``CLIPModel.int8_``), for inference only.  The options still to port (a
+device mesh, ``--trace_dir``) raise NotImplementedError naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -63,6 +67,7 @@ from swat_tpu_torch.data.transforms import CANVAS_SIZE
 from swat_tpu_torch.eval.heatmap import (clip_attention_heatmap,
                                          clip_text_heatmap)
 from swat_tpu_torch.eval.metrics import calculate_scores
+from swat_tpu_torch.eval.ood import test_imagenet_ood
 from swat_tpu_torch.eval.resident import ResidentEval, make_scan_eval
 from swat_tpu_torch.eval.validate import (Evaluator, validate_features,
                                           validate_multitask)
@@ -190,7 +195,7 @@ class SwatPipeline:
         # ---- pretrained weights (reference set_model, utils/models.py:11)
         if cfg.checkpoint_path:
             state_dict, _ = load_torch_checkpoint(cfg.checkpoint_path)
-            self.model.load_state_dict(state_dict)
+            self.model.load_weights(state_dict)
             logger.info(f"Loaded model: {cfg.model_cfg} from "
                         f"{cfg.checkpoint_path}")
         else:
@@ -323,13 +328,13 @@ class SwatPipeline:
         return ev
 
     def _validate_images(self, model, head, logit_scale, split,
-                         return_confusion=False):
+                         return_confusion=False, bsz=128):
         ev = self._resident_eval_for(split)
         if ev is not None:
             acc, loss, cm = self._scan_eval(model, head, logit_scale, ev)
             return acc, loss, (cm if return_confusion else None)
         return self.evaluator.validate(
-            model, head, logit_scale, self._eval_loader(split),
+            model, head, logit_scale, self._eval_loader(split, bsz=bsz),
             return_confusion=return_confusion)
 
     def _cached_extract(self, cfg: RunConfig, fingerprint: str,
@@ -373,9 +378,9 @@ class SwatPipeline:
         return params, head, logit_scale, meta
 
     def _load_params(self, params) -> None:
-        """Loads a JAX param tree into the shared model (its own, unused
-        logit_scale kept)."""
-        self.model.load_state_dict(state_dict_from_jax_params(
+        """Loads a JAX param tree (fp32, or int8 from ``quant.quantize_tree``)
+        into the shared model (its own, unused logit_scale kept)."""
+        self.model.load_weights(state_dict_from_jax_params(
             params, self.model.logit_scale.item()))
 
     # ------------------------------------------------------------------
@@ -1079,6 +1084,31 @@ class SwatPipeline:
         return test_acc, path
 
     # ------------------------------------------------------------------
+    # ImageNet OOD sweep (reference main.py:599-602, testing.py:22-72)
+
+    def run_ood(self, model_path: Optional[str] = None) -> Dict[str, float]:
+        """The 4-dataset OOD sweep (``swat_tpu``'s ``run_ood``).  The
+        reference passes the live model after run_stage2_FSFT
+        (main.py:599-602), which by then holds the stage-2 FSFT weights, so
+        callers pass the most downstream stage bundle that ran (FSFT > LP >
+        stage 1); without one, the pretrained weights and the prompt head."""
+        head = self.zeroshot_head
+        if model_path:
+            params, head, _, _ = self._load_ckpt(model_path)
+            self._load_params(params)
+        else:
+            self.model.load_state_dict(self.zeroshot_state)
+
+        def make_loader(samples):
+            return EvalLoader(samples, batch_size=256,
+                              n_px=self.model_cfg.vision.image_size,
+                              num_workers=self.cfg.num_workers)
+
+        return test_imagenet_ood(
+            self.evaluator, self.model, head, None, self.cfg.dataset_path,
+            make_loader, self.logger)
+
+    # ------------------------------------------------------------------
     # full run (reference __main__, main.py:544-606)
 
     def _check_ported(self) -> None:
@@ -1093,8 +1123,6 @@ class SwatPipeline:
             raise ValueError(
                 f"--method {cfg.method} cannot take --loss_name WeightedCE: "
                 "its loss gets no source flag to weight by")
-        if cfg.test_imagenet_ood:
-            raise _not_ported("--test_imagenet_ood", "Queue A item 8")
 
     def run(self) -> str:
         self._check_ported()
@@ -1113,19 +1141,24 @@ class SwatPipeline:
             return ""
         logger.info(f"Stage 1 wall time: {time.perf_counter() - t0:.3f} s")
         stage2_lp_acc = stage2_fsft_acc = -1.0
+        ood_path = stage1_path
         if not cfg.skip_stage2 and stage1_path:
             t0 = time.perf_counter()
-            stage2_lp_acc, _ = self.run_stage2_probing(stage1_path)
+            stage2_lp_acc, lp_path = self.run_stage2_probing(stage1_path)
             logger.info("Stage 2 probing wall time: "
                         f"{time.perf_counter() - t0:.3f} s")
             t0 = time.perf_counter()
-            stage2_fsft_acc, _ = self.run_stage2_fsft(stage1_path)
+            stage2_fsft_acc, fsft_path = self.run_stage2_fsft(stage1_path)
             logger.info("Stage 2 FSFT wall time: "
                         f"{time.perf_counter() - t0:.3f} s")
+            ood_path = fsft_path or lp_path or stage1_path
         else:
             logger.info("Skip stage 2.")
         logger.info(
             f"Total time: {round((time.time() - start) / 60, 1)} mins.")
+        if cfg.test_imagenet_ood:
+            logger.info("Test ImageNet OOD ......")
+            self.run_ood(ood_path)
         summary = (f"{cfg.dataset},{cfg.method},{cfg.data_source},"
                    f"{cfg.cls_init},{cfg.shots},{cfg.seed},"
                    f"{cfg.retrieval_split},{round(stage1_acc, 1)},"

@@ -94,7 +94,14 @@ def create_train_state(model: CLIPModel, head: torch.Tensor, method: str, *,
     """Marks the model's frozen tensors (``requires_grad`` off), copies the
     head (and ``dataset_head``, finetune-multitask's, trained in the head
     group) and makes logit_scale on the model's device, and builds the
-    optimizer (``optim_type``: AdamW or SGD) over the labeled groups."""
+    optimizer (``optim_type``: AdamW or SGD) over the labeled groups.  A
+    model in the int8 layout (``CLIPModel.int8_``) is refused, as
+    ``swat_tpu`` refuses a quantized tree."""
+    if model.is_int8:
+        raise ValueError(
+            "refusing to train on an int8-quantized model: gradients "
+            "through the rounding are zero (models/quant.py is "
+            "inference-only; keep the fp32 weights for training)")
     labels = make_labels(model, method, locked_text)
     groups = {"backbone": [], "projector": [], "head": []}
     for name, p in model.named_parameters():

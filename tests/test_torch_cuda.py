@@ -840,3 +840,43 @@ def test_mega_refusals_raise_and_do_not_count(device):
         MB.megablock_mlp_bwd(x2, dy[:, :3], w, True)
     assert (MB.LAUNCHES_MEGA, MB.LAUNCHES_MEGA_MLP_BWD,
             MB.LAUNCHES_MEGA_ATTN_BWD) == before
+
+
+# ---------------------------------------------------------------------------
+# W8A8 int8 inference: the int8 product (torch._int_mm, cuBLASLt's, zero
+# padded to its CUDA shape rules) and the W8A8 product around it, on the
+# card against the CPU
+
+
+@pytest.mark.parametrize("m,k,n", [(5, 3072, 768), (16, 512, 512),
+                                   (300, 588, 1024), (50, 768, 2304),
+                                   (40, 12, 13)])
+def test_int8_matmul_cuda_equals_cpu(device, m, k, n):
+    """Integers: the card's padded product equals the CPU's, rows at and
+    below 16, K = 588 (ViT-L/14's patch embedding) and N off 8 included."""
+    from swat_tpu_torch.models.clip import int8_matmul
+
+    g = torch.Generator().manual_seed(m + k + n)
+    a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+    b = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8)
+    got = int8_matmul(a.to(device), b.to(device)).cpu()
+    assert torch.equal(got, int8_matmul(a, b))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_qdot_cuda_equals_cpu(device, dtype):
+    """The W8A8 product at a B/32 block's c_fc shape: the same activation
+    codes and int32 sums, and the dequantization's elementwise products
+    are correctly rounded on both, so the outputs are equal."""
+    from swat_tpu_torch.core.precision import DEFAULT_PRECISION, FP32_PRECISION
+    from swat_tpu_torch.models.clip import Int8Weight, qdot
+    from swat_tpu_torch.models.quant import quantize_weight
+
+    prec = FP32_PRECISION if dtype == "float32" else DEFAULT_PRECISION
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(4, 50, 768, generator=g)
+    codes, scale = quantize_weight(torch.randn(768, 3072, generator=g).numpy())
+    w = Int8Weight(torch.from_numpy(codes.T.copy()), torch.from_numpy(scale))
+    got = qdot(x.to(device), Int8Weight(w.codes.to(device),
+                                        w.scale.to(device)), prec).cpu()
+    assert torch.equal(got, qdot(x, w, prec))

@@ -21,20 +21,22 @@ from swat_tpu_torch.train import stages
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PORT_MODULES = [
-    "swat_tpu_torch", "swat_tpu_torch.cli.main", "swat_tpu_torch.core.config",
+    "swat_tpu_torch", "swat_tpu_torch.cli.convert", "swat_tpu_torch.cli.main",
+    "swat_tpu_torch.cli.test", "swat_tpu_torch.core.config",
     "swat_tpu_torch.core.precision", "swat_tpu_torch.data.features",
     "swat_tpu_torch.data.native", "swat_tpu_torch.data.pipeline",
     "swat_tpu_torch.data.prompts", "swat_tpu_torch.data.registry",
     "swat_tpu_torch.data.splits", "swat_tpu_torch.data.transforms",
     "swat_tpu_torch.eval.heatmap", "swat_tpu_torch.eval.metrics",
-    "swat_tpu_torch.eval.resident", "swat_tpu_torch.eval.validate",
+    "swat_tpu_torch.eval.ood", "swat_tpu_torch.eval.resident",
+    "swat_tpu_torch.eval.topk_prompts", "swat_tpu_torch.eval.validate",
     "swat_tpu_torch.kernels._ablate", "swat_tpu_torch.kernels._build",
     "swat_tpu_torch.kernels.attention",
     "swat_tpu_torch.kernels.augment", "swat_tpu_torch.kernels.flash_attention",
     "swat_tpu_torch.kernels.megablock", "swat_tpu_torch.kernels.randaugment",
     "swat_tpu_torch.models.clip", "swat_tpu_torch.models.configs",
     "swat_tpu_torch.models.head", "swat_tpu_torch.models.loader",
-    "swat_tpu_torch.models.resnet",
+    "swat_tpu_torch.models.quant", "swat_tpu_torch.models.resnet",
     "swat_tpu_torch.models.tokenizer", "swat_tpu_torch.train.checkpoint",
     "swat_tpu_torch.train.losses", "swat_tpu_torch.train.msgpack_tree",
     "swat_tpu_torch.train.optim",

@@ -16,7 +16,7 @@ import pytest
 import torch
 from torch_port_lib import (DATASET, RETRIEVAL_SPLIT, TORCH_THREADS,
                             make_dataset, random_state_dict,
-                            register_dataset, run_kwargs)
+                            register_dataset, run_kwargs, write_v2_tree)
 
 from swat_tpu.core.config import RunConfig as JaxRunConfig
 from swat_tpu.train.stages import SwatPipeline as JaxPipeline
@@ -187,7 +187,7 @@ def test_stage1_epochs0_matches_swat_tpu(setup, tmp_path):
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"test_imagenet_ood": True}, "--test_imagenet_ood .*Queue A item 8"),
+    ({"trace_dir": "trace"}, "--trace_dir .*Queue A item 11"),
 ])
 def test_unported_stage1_options_raise(setup, tmp_path, kw, match):
     dataset_path, ckpt = setup
@@ -196,6 +196,38 @@ def test_unported_stage1_options_raise(setup, tmp_path, kw, match):
         dataset_path, tmp_path, checkpoint_path=ckpt, **args))
     with pytest.raises(NotImplementedError, match=match):
         SwatPipeline(cfg).run()
+
+
+def test_stage1_test_imagenet_ood_matches_swat_tpu(setup, jax_run, tmp_path,
+                                                  capsys, monkeypatch):
+    """--test_imagenet_ood with --skip_stage2: the run is swat_tpu's, and
+    the sweep runs on the stage-1 bundle with the accuracies swat_tpu's
+    sweep gives its own run's bundle."""
+    dataset_path, ckpt = setup
+    write_v2_tree(dataset_path)
+    swept = []
+    real = SwatPipeline.run_ood
+
+    def record(self, model_path=None):
+        swept.append((model_path, real(self, model_path)))
+        return swept[-1][1]
+
+    monkeypatch.setattr(SwatPipeline, "run_ood", record)
+    kw = run_kwargs(dataset_path, tmp_path, checkpoint_path=ckpt,
+                    test_imagenet_ood=True, **STAGE1)
+    port = SwatPipeline(RunConfig(device="cpu", **kw).derived())
+    summary = port.run()
+    port.loss_logger.close()
+    assert _summary(capsys.readouterr().out) == summary
+    _check_against_jax(jax_run, port.cfg.output_dir, summary)
+    ((path, accs),) = swept
+    assert os.path.dirname(path) == port.cfg.output_dir
+    assert os.path.basename(path).startswith("stage1_model")
+    (jax_bundle,) = [f for f in os.listdir(jax_run[0])
+                     if f.startswith("stage1_model") and f.endswith(".msgpack")]
+    jax_pipe = JaxPipeline(JaxRunConfig(**kw).derived())
+    assert accs == jax_pipe.run_ood(os.path.join(jax_run[0], jax_bundle))
+    assert list(accs) == ["imagenet_v2"]
 
 
 def test_stage1_host_aug_matches_swat_tpu(setup, tmp_path):

@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 from torch_port_lib import (DATASET, TORCH_THREADS, make_dataset,
-                            random_state_dict, register_dataset, run_kwargs)
+                            random_state_dict, register_dataset, run_kwargs,
+                            write_v2_tree)
 
 from swat_tpu.core.config import RunConfig as JaxRunConfig
 from swat_tpu.train.stages import SwatPipeline as JaxPipeline
@@ -143,7 +144,7 @@ def test_cli_main_prints_the_summary_on_cpu(setup, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"method": "finetune", "test_imagenet_ood": True}, "Queue A"),
+    ({"method": "finetune", "mesh_model": 2}, "Queue A"),
 ])
 def test_unported_paths_raise(setup, tmp_path, kw, match):
     dataset_path, ckpt = setup
@@ -151,6 +152,34 @@ def test_unported_paths_raise(setup, tmp_path, kw, match):
         dataset_path, tmp_path, checkpoint_path=ckpt, **kw))
     with pytest.raises(NotImplementedError, match=match):
         SwatPipeline(cfg).run()
+
+
+def test_test_imagenet_ood_sweeps_the_last_bundle(setup, tmp_path,
+                                                  monkeypatch):
+    """--test_imagenet_ood after stage 1 and stage 2: the sweep runs on the
+    most downstream bundle (stage 2's few-shot finetuning, stage 3's file),
+    with swat_tpu's accuracies for that bundle."""
+    dataset_path, ckpt = setup
+    write_v2_tree(dataset_path)
+    swept = []
+    real = SwatPipeline.run_ood
+
+    def record(self, model_path=None):
+        swept.append((model_path, real(self, model_path)))
+        return swept[-1][1]
+
+    monkeypatch.setattr(SwatPipeline, "run_ood", record)
+    kw = run_kwargs(dataset_path, tmp_path, checkpoint_path=ckpt,
+                    method="finetune", epochs=1, no_wsft=True,
+                    test_imagenet_ood=True)
+    port = SwatPipeline(RunConfig(device="cpu", **kw))
+    port.run()
+    port.loss_logger.close()
+    ((path, accs),) = swept
+    assert os.path.basename(path).startswith("stage3_model")
+    jax_pipe = JaxPipeline(JaxRunConfig(**kw).derived())
+    assert accs == jax_pipe.run_ood(path)
+    assert list(accs) == ["imagenet_v2"]
 
 
 @pytest.mark.parametrize("kw", [{"mesh_data": 4}, {"trace_dir": "trace"}])

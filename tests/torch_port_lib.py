@@ -805,3 +805,54 @@ def mma_sum_dot(a, b, depth=32, rows=256):
             acc = acc + c.float()
         out.append(acc)
     return torch.cat(out).reshape(*lead, b.shape[1])
+
+
+# the ImageNet OOD sweep's trees (eval/ood.py) under a dataset_path:
+# ImageNet-V2's numeric class folders, ImageNet-A's and -R's wnid folders
+OOD_TREES = {"imagenet_v2": "imagenet_v2",
+             "imagenet_adv": os.path.join("imagenet_adv", "imagenet-a"),
+             "imagenet_ren": os.path.join("imagenet_ren", "imagenet-r")}
+
+
+def write_ood_trees(base, n_classes: int = 3, per_class: int = 2,
+                    seed: int = 0) -> dict:
+    """Class-colored JPEGs (mixed .jpg / .JPEG / .png) in each of
+    OOD_TREES under ``base``: V2 in numeric folders of spread ImageNet
+    indices, A and R in the wnid folders of classes of their 200-class
+    subsets -> {tree: [the ImageNet-1k index of each class]}."""
+    from swat_tpu_torch.eval.ood import _load_asset
+
+    asset = _load_asset()
+    rng = np.random.default_rng(seed)
+    picks = {"imagenet_v2": [int(i) for i in np.linspace(0, 999, n_classes)],
+             "imagenet_adv": asset["indices_in_1k_adv"][1:1 + n_classes],
+             "imagenet_ren": asset["indices_in_1k_ren"][-n_classes:]}
+    exts = (".jpg", ".JPEG", ".png")
+    for name, rel in OOD_TREES.items():
+        for c, idx in enumerate(picks[name]):
+            folder = str(idx) if name == "imagenet_v2" else \
+                asset["all_wnids"][idx]
+            d = os.path.join(str(base), rel, folder)
+            os.makedirs(d, exist_ok=True)
+            color = rng.integers(30, 225, 3)
+            for i in range(per_class):
+                arr = (color + rng.integers(-30, 30, (36, 44, 3))
+                       ).clip(0, 255).astype(np.uint8)
+                Image.fromarray(arr).save(
+                    os.path.join(d, f"img{i}{exts[(c + i) % 3]}"))
+    return picks
+
+
+def write_v2_tree(dataset_path) -> None:
+    """An ImageNet-V2 tree (numeric class folders) under ``dataset_path``
+    whose folders 0-2 hold images of make_dataset's three class colors, so
+    that the OOD sweep's accuracy under a 3-class head means something."""
+    rng = np.random.default_rng(7)
+    colors = np.asarray([[220, 40, 40], [40, 220, 40], [40, 40, 220]])
+    for c, color in enumerate(colors):
+        d = os.path.join(str(dataset_path), "imagenet_v2", str(c))
+        os.makedirs(d, exist_ok=True)
+        for i in range(3):
+            arr = (color + rng.integers(-90, 90, (40, 48, 3))
+                   ).clip(0, 255).astype(np.uint8)
+            Image.fromarray(arr).save(os.path.join(d, f"v2_{i}.jpeg"))
