@@ -63,7 +63,14 @@ synthetic ImageNet-V2 / -A / -R trees with a 1000-class prompt head, card
 against CPU; the W8A8 int8 towers card against CPU and against fp32,
 ViT-L/14's int8 image tower, ``--quantize int8``, and the image tower's
 forward at B = 256 in fp32, bf16 and int8 over each, timed, profiled and
-its peak memory.  The data are a synthetic
+its peak memory; then the retrieval pipeline through
+``swat_tpu_torch.retrieval.cli``: captionmap, extract of a synthetic mined
+tree (10 classes x 52 JPEGs) on the card in bf16 and with ``--quantize
+int8`` and on the CPU, sample with every strategy on the fused engine on
+the card, the per-class engine on the card and the fused engine on the
+CPU (the same files), filter-synonyms card against CPU, and the fused
+sampler against the per-class oracle at 1000 classes x 2000 candidates,
+timed by stage.  The data are a synthetic
 JPEG dataset (few-shot, retrieved, unlabeled and test splits, and
 dataset-cls's flagged splits over the first two) and a seeded
 OpenCLIP-format checkpoint.  Any failure raises and exits non-zero.  The
@@ -4062,6 +4069,493 @@ def _serving_phases(workdir, ckpt, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# retrieval: swat_tpu_torch.retrieval.cli (captionmap, extract, sample,
+# filter-synonyms) on a mined tree, and the fused sampler on a pool of an
+# ImageNet retrieval's size
+
+MINED_CLASSES, MINED_PER_CLASS = 10, 52
+EXTRACT_BSZ = 256
+CPU_EXTRACT_CLASSES = 2
+MINED_SAMPLES = 20
+MINED_FEWSHOT = 4
+# the sample runs read the extracted features rounded to multiples of
+# 2^-10 (|x| <= 1, D = 512): every product and sum of the ranking is then
+# exact in fp32 whatever the order of its terms, on the card and on the
+# CPU, so the engines and devices agree bit for bit and ties are real
+SAMPLE_GRID = 2.0 ** -10
+# class names and candidate synonyms for filter-synonyms: the seeded random
+# towers' text features lie close together, so these were picked for an
+# argmax margin (>= 4e-3 on the CPU) well past how far the card's and the
+# CPU's logits part; 7 land on their own class
+SYNONYMS = {
+    "0": ("red thing", ["ember", "rose"]),
+    "1": ("green thing", ["fern", "clover"]),
+    "2": ("blue thing", ["lagoon", "glacier"]),
+    "3": ("small dog", ["badger", "otter"]),
+    "4": ("large cat", ["jaguar", "owl"]),
+    "5": ("old car", ["castle", "carpet"]),
+    "6": ("tall tree", ["hazel", "hill"]),
+    "7": ("white bird", ["pigeon", "spider"]),
+    "8": ("wooden chair", ["comet", "squirrel"]),
+    "9": ("ocean wave", ["willow", "harbor"]),
+}
+# the pool of an ImageNet retrieval: 1000 classes x 2000 candidates at
+# D = 512, on a grid of 1/32 (products exact, as above); its C * N = 2e9 is
+# past rank.MAX_DENSE_ELEMS, so the ranking streams in chunks by itself
+RANK_CLASSES, RANK_PER_CLASS, RANK_DIM, RANK_SAMPLES = 1000, 2000, 512, 500
+RANK_FEWSHOT = 4
+
+
+def _write_mined(root, seed=2):
+    """<root>/mined/<class>/<i>.jpg: MINED_PER_CLASS seeded noise JPEGs of
+    varied sizes a class, and <root>/meta.json, the download metadata with a
+    caption an image."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    metadata = {}
+    for c in range(MINED_CLASSES):
+        os.makedirs(f"{root}/mined/{c}")
+        metadata[str(c)] = {}
+        for i in range(MINED_PER_CLASS):
+            h, w = 64 + 7 * (i % 9), 96 - 5 * (i % 7)
+            img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+            img[: h // 2] //= 1 + c % 3
+            Image.fromarray(img).save(f"{root}/mined/{c}/{i}.jpg")
+            metadata[str(c)][str(i)] = {
+                "caption": f"photo {i} of a {SYNONYMS[str(c)][0]}"}
+    with open(f"{root}/meta.json", "w") as f:
+        json.dump(metadata, f)
+
+
+def _retrieval_cli(argv, device=None):
+    """One run of swat_tpu_torch.retrieval.cli; the four counts are set to
+    0 just before it and read just after -> (counts, wall s, stdout)."""
+    import io
+
+    from swat_tpu_torch.kernels import flash_attention as FA
+    from swat_tpu_torch.retrieval.cli import main as retrieval_main
+
+    buf = io.StringIO()
+    _reset_counts(FA)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        retrieval_main(argv + (["--device", device] if device else []))
+    return _counts(FA), time.perf_counter() - t0, buf.getvalue()
+
+
+def _load_npz(path):
+    import numpy as np
+
+    with np.load(path) as data:
+        return {k: data[k] for k in data.files}
+
+
+def _cosine_rows(a, b):
+    import numpy as np
+
+    return np.sum(a * b, -1) / (np.linalg.norm(a, axis=-1)
+                                * np.linalg.norm(b, axis=-1))
+
+
+def _retrieval_extract(root, ckpt, smi):
+    """captionmap, then extract on the card (bf16, the default), again with
+    --quantize int8, and on the CPU over the first CPU_EXTRACT_CLASSES
+    classes; card against CPU at the towers' bf16 bound -> (the card's bf16
+    bundle path, mha_fwd launches)."""
+    import math
+    import shutil
+
+    import numpy as np
+
+    from swat_tpu_torch.models.configs import get_model_config
+
+    cfg = get_model_config(MODEL_CFG)
+    _retrieval_cli(["captionmap", "--metadata", f"{root}/meta.json",
+                    "--output", f"{root}/cmap.json"])
+    n = MINED_CLASSES * MINED_PER_CLASS
+    batches = math.ceil(n / EXTRACT_BSZ)
+    need = (cfg.vision.layers + cfg.text.layers) * batches
+    base = ["extract", "--mined_dir", f"{root}/mined", "--caption_map",
+            f"{root}/cmap.json", "--model_cfg", MODEL_CFG,
+            "--checkpoint_path", ckpt, "--bsz", str(EXTRACT_BSZ)]
+    # the CPU's run (bf16 on the host: ~0.2 s a pair there) takes the same
+    # command over the first CPU_EXTRACT_CLASSES class folders
+    for c in range(CPU_EXTRACT_CLASSES):
+        shutil.copytree(f"{root}/mined/{c}", f"{root}/mined_cpu/{c}")
+    runs = {}
+    for tag, device, extra in (("card", "cuda", []),
+                               ("int8", "cuda", ["--quantize", "int8"]),
+                               ("cpu", "cpu", ["--mined_dir",
+                                               f"{root}/mined_cpu"])):
+        out = f"{root}/mined_{tag}.npz"
+        counts, wall, _ = _retrieval_cli(base + extra + ["--output", out],
+                                         device)
+        runs[tag] = (_load_npz(out), counts, wall)
+        want = (need if device == "cuda" else 0, 0, 0, 0)
+        if counts != want:
+            raise AssertionError(f"[retrieval] extract {tag}: launches "
+                                 f"{counts}, need {want}")
+    card, cpu, int8 = (runs[t][0] for t in ("card", "cpu", "int8"))
+    m = CPU_EXTRACT_CLASSES * MINED_PER_CLASS
+    paths = [p.replace("/mined_cpu/", "/mined/") for p in cpu["file_paths"]]
+    ok = (paths == list(card["file_paths"][:m])
+          and np.array_equal(card["labels"][:m], cpu["labels"])
+          and np.array_equal(card["captions"][:m], cpu["captions"])
+          and all(np.array_equal(card[k], int8[k])
+                  for k in ("labels", "file_paths", "captions")))
+    notes = []
+    for k in ("image_features", "caption_features"):
+        got = card[k]
+        ok = ok and got.shape == (n, cfg.embed_dim) and bool(
+            np.isfinite(got).all()) and got.dtype == np.float32
+        cos = float(_cosine_rows(got[:m], cpu[k]).min())
+        cos8 = float(_cosine_rows(int8[k], got).mean())
+        tower = "image" if k.startswith("image") else "text"
+        ok = (ok and cos >= TOWER_MIN_COS["bfloat16"]
+              and cos8 > INT8_MIN_MEAN_COS[tower])
+        notes.append(f"{k}: card vs CPU min cosine {cos:.6f} (bound "
+                     f"{TOWER_MIN_COS['bfloat16']}), int8 vs bf16 card mean "
+                     f"{cos8:.6f} (bound {INT8_MIN_MEAN_COS[tower]})")
+    log(f"[retrieval] extract {n} pairs at bsz {EXTRACT_BSZ}, {MODEL_CFG} "
+        f"bf16: card {runs['card'][2]:.2f} s ({n / runs['card'][2]:.1f} "
+        f"pairs/s, decode included), int8 {runs['int8'][2]:.2f} s, CPU "
+        f"{runs['cpu'][2]:.2f} s for the first {m} (host clock); mha_fwd "
+        f"launches "
+        f"{runs['card'][1][0]} / {runs['int8'][1][0]} (need {need}: "
+        f"{batches} image + {batches} caption batches x 12 layers), CPU 0; "
+        + "; ".join(notes) + f" on {smi} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[retrieval] extract: card and CPU disagree")
+    return f"{root}/mined_card.npz", runs["card"][1][0] + runs["int8"][1][0]
+
+
+def _retrieval_sample(root, features, smi):
+    """Each strategy, and T2T-rank with --remove_duplicates and
+    --zeroshot_filter, through `sample` with the fused engine on the card,
+    the per-class engine on the card and the fused engine on the CPU, on
+    the extracted features rounded to SAMPLE_GRID: their four files
+    byte-equal."""
+    import numpy as np
+
+    from swat_tpu_torch.data.prompts import save_prompt_tensors
+    from swat_tpu_torch.retrieval.sampler import STRATEGIES
+
+    feats = _load_npz(features)
+    for k in ("image_features", "caption_features"):
+        feats[k] = (np.round(feats[k] / SAMPLE_GRID)
+                    * SAMPLE_GRID).astype(np.float32)
+    np.savez(f"{root}/mined_grid.npz", **feats)
+    # a class's prompt: the normalized sum of its images' and captions'
+    # normalized means (on the grid), so that the gates (0.25, 0.65) split
+    # the scores of the random towers' features
+    labels = feats["labels"]
+    prompts = {}
+    for c in range(MINED_CLASSES):
+        v = sum(m / np.linalg.norm(m) for m in (
+            feats[k][labels == c].mean(0)
+            for k in ("image_features", "caption_features")))
+        v = np.round(v / np.linalg.norm(v) / SAMPLE_GRID) * SAMPLE_GRID
+        prompts[str(c)] = {"all": v[None].astype(np.float32),
+                           "mean": v.astype(np.float32)}
+    save_prompt_tensors(f"{root}/prompts.npz", prompts)
+    # few-shot exemplars: MINED_FEWSHOT a class (a power of two, so their
+    # mean is exact too), each the normalized sum of a pool pair's image
+    # and caption features (on the grid), so that the I2I and I2T gates
+    # split the scores too
+    pick = np.concatenate([np.flatnonzero(labels == c)[:MINED_FEWSHOT]
+                           for c in range(MINED_CLASSES)])
+    fs = sum(x / np.linalg.norm(x, axis=1, keepdims=True) for x in (
+        feats[k][pick] for k in ("image_features", "caption_features")))
+    fs = np.round(fs / np.linalg.norm(fs, axis=1, keepdims=True)
+                  / SAMPLE_GRID) * SAMPLE_GRID
+    np.savez(f"{root}/fewshot.npz", image_features=fs.astype(np.float32),
+             labels=labels[pick])
+    cases = [(s, []) for s in STRATEGIES]
+    cases.append(("T2T-rank", ["--remove_duplicates", "--zeroshot_filter"]))
+    names = ("split.txt", "split_sampled_list.txt",
+             "split_filtered_list.txt", "split_num_imgs_sampled.json")
+    t0 = time.perf_counter()
+    sampled = []
+    for strategy, flags in cases:
+        outs = {}
+        for tag, engine, device in (("fused", "fused", "cuda"),
+                                    ("per-class", "per-class", "cuda"),
+                                    ("cpu", "fused", "cpu")):
+            d = f"{root}/sample/{strategy}{''.join(flags)}/{tag}"
+            _retrieval_cli([
+                "sample", "--features", f"{root}/mined_grid.npz",
+                "--prompts", f"{root}/prompts.npz", "--fewshot_features",
+                f"{root}/fewshot.npz", "--strategy", strategy,
+                "--num_samples", str(MINED_SAMPLES), "--engine", engine,
+                "--relative_to", f"{root}/mined", *flags,
+                "--output", f"{d}/split.txt"], device)
+            files = []
+            for name in names:
+                with open(f"{d}/{name}", "rb") as f:
+                    files.append(f.read())
+            outs[tag] = files
+        fused, oracle = outs["fused"], outs["per-class"]
+        extra = _filtered_beyond(fused[2], oracle[2])
+        ok = fused == outs["cpu"] and fused[:2] == oracle[:2] \
+            and fused[3] == oracle[3] and extra is not None
+        n_lines = fused[0].count(b"\n")
+        sampled.append(f"{strategy}{' ' + ' '.join(flags) if flags else ''}"
+                       f" {n_lines} ({extra} tied)")
+        if not ok or n_lines == 0:
+            raise AssertionError(f"[retrieval] sample {strategy} {flags}: "
+                                 f"fused, per-class and CPU files differ "
+                                 f"({n_lines} lines)")
+    log(f"[retrieval] sample, {len(cases)} runs x (fused card, per-class "
+        f"card, fused CPU) on {MINED_CLASSES * MINED_PER_CLASS} candidates, "
+        f"--num_samples {MINED_SAMPLES}: card and CPU files byte-equal, "
+        f"per-class split files, sampled lists and counts byte-equal to "
+        f"fused, its filtered lists fused's plus lines tied at a class's "
+        f"cutoff; lines kept (tied filtered lines): {', '.join(sampled)}; "
+        f"{time.perf_counter() - t0:.2f} s on {smi} ok")
+
+
+def _filtered_beyond(fused, oracle):
+    """The fused engine lists a filtered candidate only when it outranks its
+    class's cutoff strictly; the per-class walk also lists those tied with
+    the cutoff that it meets before the quota fills (as swat_tpu's engines
+    do) -> how many lines the oracle lists beyond the fused engine's, or
+    None when the fused engine lists one the oracle does not."""
+    got = fused.split(b"\n") if fused else []
+    ref = oracle.split(b"\n") if oracle else []
+    if not set(got) <= set(ref):
+        return None
+    return len(ref) - len(got)
+
+
+def _retrieval_synonyms(root, ckpt, smi):
+    """filter-synonyms on the card and on the CPU: the same kept lists;
+    each synonym's argmax margin beside how far the two devices' logits
+    part -> mha_fwd launches of the card's run."""
+    import numpy as np
+
+    from swat_tpu_torch.data.features import batched_encode, make_text_encoder
+    from swat_tpu_torch.models.tokenizer import get_tokenizer
+    from swat_tpu_torch.retrieval.cli import load_model
+
+    names = {k: {"query_name": q, "synonyms": {s: 1 for s in syns}}
+             for k, (q, syns) in SYNONYMS.items()}
+    with open(f"{root}/synonyms.json", "w") as f:
+        json.dump(names, f)
+    outs, counts = {}, {}
+    for device in ("cuda", "cpu"):
+        out = f"{root}/synonyms_{device}.json"
+        counts[device], _, _ = _retrieval_cli(
+            ["filter-synonyms", "--synonyms", f"{root}/synonyms.json",
+             "--model_cfg", MODEL_CFG, "--checkpoint_path", ckpt,
+             "--output", out], device)
+        with open(out, "rb") as f:
+            outs[device] = f.read()
+    texts = ([f"a photo of a {q}" for q, _ in SYNONYMS.values()]
+             + [f"a photo of a {s}" for _, syns in SYNONYMS.values()
+                for s in syns])
+    logits = {}
+    for device in ("cuda", "cpu"):
+        model = load_model(MODEL_CFG, ckpt, device)
+        tokens = get_tokenizer(None, vocab_size=model.cfg.text.vocab_size)(
+            texts, model.cfg.text.context_length)
+        f = batched_encode(make_text_encoder(model), np.asarray(tokens))
+        c = len(SYNONYMS)
+        logits[device] = f[c:] @ f[:c].T
+    top = np.sort(logits["cuda"], axis=1)
+    margin = float((top[:, -1] - top[:, -2]).min())
+    apart = float(np.abs(logits["cuda"] - logits["cpu"]).max())
+    kept = sum(len(v["synonyms_filtered"])
+               for v in json.loads(outs["cuda"]).values())
+    ok = (outs["cuda"] == outs["cpu"] and counts["cuda"] == (12, 0, 0, 0)
+          and counts["cpu"] == (0, 0, 0, 0) and margin > apart)
+    log(f"[retrieval] filter-synonyms, {len(texts)} prompts: card and CPU "
+        f"keep the same {kept} of {len(texts) - len(SYNONYMS)} synonyms "
+        f"(smallest argmax margin {margin:.2e} > card and CPU logits part "
+        f"by {apart:.2e}); mha_fwd launches {counts['cuda'][0]} (need 12: one "
+        f"batch x 12 layers) on {smi} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[retrieval] filter-synonyms: card and CPU "
+                             "disagree")
+    return counts["cuda"][0]
+
+
+def _rank_pool(seed=4):
+    """The ImageNet-sized pool, made on the card from a seeded generator and
+    brought to the host: each class's images a shared center plus noise,
+    its few-shot exemplars twice the center plus noise (so that the I2I
+    gate at 0.65 splits the pool), captions the class prompt plus noise
+    (scores on a grid of 2^-10: ties in every class); every 97th candidate
+    an exact copy of one three rows up, which the dedup drops -> (MinedPool,
+    prompts, few-shot exemplars)."""
+    import numpy as np
+    import torch
+
+    from swat_tpu_torch.retrieval.sampler import MinedPool
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    c, per, d = RANK_CLASSES, RANK_PER_CLASS, RANK_DIM
+    n = c * per
+
+    def draw(rows, lo, hi):
+        return torch.randint(lo, hi + 1, (rows, d), generator=g,
+                             device="cuda").float() / 32
+
+    center, prompt = draw(c, -1, 1), draw(c, -1, 1)
+    labels = torch.arange(c, device="cuda").repeat_interleave(per)
+    rows = torch.arange(n, device="cuda")
+    src = torch.where(rows % 97 == 5, rows - 3, rows)
+    img = (center[labels] + draw(n, -2, 2))[src].cpu().numpy()
+    cap = (prompt[labels] + draw(n, -2, 2))[src].cpu().numpy()
+    fewshot = (2 * center.repeat_interleave(RANK_FEWSHOT, 0)
+               + draw(c * RANK_FEWSHOT, -1, 1)).cpu().numpy()
+    files = [f"/pool/{i // per}/{i % per:05d}.jpg" for i in range(n)]
+    pool = MinedPool(files, labels.cpu().numpy(), img, cap)
+    prompts = {str(k): {"mean": v} for k, v in
+               enumerate(prompt.cpu().numpy())}
+    fs = {k: fewshot[k * RANK_FEWSHOT:(k + 1) * RANK_FEWSHOT]
+          for k in range(c)}
+    return pool, prompts, fs
+
+
+class _StageClock:
+    """Wraps module functions of the fused sampler: the host wall and the
+    CUDA-event time of each call, summed by stage."""
+
+    def __init__(self):
+        self.wall, self.device, self._saved = {}, {}, []
+
+    def wrap(self, module, name, stage):
+        import torch
+
+        fn = getattr(module, name)
+
+        def timed(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            torch.cuda.synchronize()
+            self.wall[stage] = (self.wall.get(stage, 0.0)
+                                + time.perf_counter() - t0)
+            self.device[stage] = (self.device.get(stage, 0.0)
+                                  + start.elapsed_time(end) / 1e3)
+            return out
+
+        self._saved.append((module, name, fn))
+        setattr(module, name, timed)
+
+    def restore(self):
+        for module, name, fn in self._saved:
+            setattr(module, name, fn)
+
+
+def _retrieval_rank(smi):
+    """sample_retrieved_fused (T2T-rank-I2I-tshd, RANK_SAMPLES a class,
+    dedup) against sample_retrieved on the card at RANK_CLASSES x
+    RANK_PER_CLASS candidates: the same selections, sampled lines and
+    counts, filtered lines as _filtered_beyond allows; the
+    fused sampler's time by stage, its rate and peak memory, and the
+    ranking's device busy share."""
+    import torch
+
+    from swat_tpu_torch.retrieval import rank as R
+    from swat_tpu_torch.retrieval import sampler as S
+
+    t0 = time.perf_counter()
+    pool, prompts, fs = _rank_pool()
+    n = len(pool.file_paths)
+    t_pool = time.perf_counter() - t0
+    kw = dict(strategy="T2T-rank-I2I-tshd", num_samples=RANK_SAMPLES,
+              fewshot_feats_by_class=fs, remove_duplicates=True,
+              device="cuda")
+    clock = _StageClock()
+    clock.wrap(R, "rank_candidates", "rank")
+    clock.wrap(R, "near_duplicate_indices_by_class", "dedup")
+    clock.wrap(R, "rowwise_p2p_scores", "scores")
+    clock.wrap(S, "_rowwise_scores", "scores")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        fused = S.sample_retrieved_fused(pool, prompts, **kw)
+        torch.cuda.synchronize()
+    finally:
+        clock.restore()
+    t_fused = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    t0 = time.perf_counter()
+    oracle = S.sample_retrieved(pool, prompts, **kw)
+    t_oracle = time.perf_counter() - t0
+    keys = ("file_list", "label_list", "num_sampled", "sampled_info")
+    tied = _filtered_beyond("\n".join(fused["filtered_info"]).encode(),
+                            "\n".join(oracle["filtered_info"]).encode())
+    ok = all(fused[k] == oracle[k] for k in keys) and tied is not None
+    kept = len(fused["file_list"])
+    full = sum(v == RANK_SAMPLES for v in fused["num_sampled"].values())
+    # the ranking alone, profiled: the device's busy share of its window
+    W, X, C = S._strategy_matrices(pool, prompts, kw["strategy"], fs)
+    X = R._f32(X, "cuda")
+    cls = pool.labels.copy()
+    prof, window = _trace(lambda: R.rank_candidates(W, X, cls, RANK_SAMPLES,
+                                                    device="cuda"), cpu=False)
+    kernels = _device_kernels(prof)
+    busy = sum(ms for ms, _ in kernels)
+    top = "; ".join(f"{name[:40]} {ms:.2f} ms" for ms, name in kernels[:3])
+    stages = ", ".join(f"{s} {clock.wall[s] * 1e3:.1f} ms wall / "
+                       f"{clock.device[s] * 1e3:.1f} ms device"
+                       for s in ("scores", "dedup", "rank"))
+    rest = t_fused - sum(clock.wall.values())
+    log(f"[retrieval] fused sampler at {RANK_CLASSES} classes x "
+        f"{RANK_PER_CLASS} = {n} candidates, D = {RANK_DIM} "
+        f"(T2T-rank-I2I-tshd, --num_samples {RANK_SAMPLES}, dedup; C * N = "
+        f"{RANK_CLASSES * n:.2e} > MAX_DENSE_ELEMS, chunked): {t_fused:.2f} s "
+        f"wall ({n / t_fused:,.0f} candidates/s; {stages}; host lines and "
+        f"masks {rest * 1e3:.1f} ms), peak allocated {peak:.3f} GiB; the "
+        f"ranking alone busy {busy:.2f} of {window:.2f} ms (idle "
+        f"{_idle(busy, window)}; most: {top}); per-class oracle {t_oracle:.2f} s; pool "
+        f"made in {t_pool:.2f} s; {kept} kept, {full} of {RANK_CLASSES} "
+        f"classes full, {len(fused['filtered_info'])} filtered lines (the "
+        f"oracle {tied} more, tied at a cutoff): fused and per-class "
+        f"selections {'equal' if ok else 'DIFFER'} on {smi} "
+        f"{'ok' if ok and kept else 'FAIL'}")
+    if not ok or not kept:
+        raise AssertionError("[retrieval] the fused sampler and the per-class "
+                             "oracle disagree at the pool's size")
+
+
+def phase_retrieval(workdir, ckpt, smi):
+    """[retrieval]: the CLI's captionmap, extract (card bf16 and int8, CPU),
+    sample (every strategy, fused and per-class, card and CPU) and
+    filter-synonyms on a synthetic mined tree of the full-width ViT-B/32,
+    then the fused sampler against the per-class oracle at an ImageNet
+    retrieval's pool size -> mha_fwd launches of the card's CLI runs."""
+    import os
+
+    from swat_tpu_torch.core.precision import DEFAULT_PRECISION
+
+    DEFAULT_PRECISION.apply_backend_flags()
+    root = f"{workdir}/retrieval"
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    _write_mined(root)
+    features, launches = _retrieval_extract(root, ckpt, smi)
+    _retrieval_sample(root, features, smi)
+    launches += _retrieval_synonyms(root, ckpt, smi)
+    t1 = time.perf_counter()
+    _retrieval_rank(smi)
+    log(f"[retrieval] CLI runs {t1 - t0:.1f} s, the pool's ranking "
+        f"{time.perf_counter() - t1:.1f} s; mha_fwd launches {launches}")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -4111,6 +4605,7 @@ def main() -> int:
         tower_counts = _new_tower_phases(workdir, smi)
         cli_counts = [c + t for c, t in zip(cli_counts, tower_counts)]
         cli_counts[0] += _serving_phases(workdir, ckpt, smi)
+        cli_counts[0] += phase_retrieval(workdir, ckpt, smi)
         worst_mega = phase_mega_kernels()
         times_mega = phase_mega_timing(smi)
         tower_mega = phase_mega_towers(ckpt, smi)

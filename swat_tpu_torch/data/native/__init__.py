@@ -1,4 +1,4 @@
-# Copied from swat_tpu/data/native/__init__.py, with the per-image fallback on the port's own transforms; the port keeps its own copy, permanently (it imports nothing of swat_tpu).
+# Copied from swat_tpu/data/native/__init__.py, with the per-image fallback on the port's own transforms and the locked, atomic build of utils/native_build.py; the port keeps its own copy, permanently (it imports nothing of swat_tpu).
 """ctypes bindings for the native image loader (decoder.cpp), with
 automatic build and per-image PIL fallback.
 
@@ -15,26 +15,22 @@ from __future__ import annotations
 import concurrent.futures as cf
 import ctypes
 import os
-import subprocess
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
 from swat_tpu_torch.data.transforms import eval_crop, load_image, train_canvas
+from swat_tpu_torch.utils import native_build
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
-_SO = os.path.join(_DIR, "libswatdecoder.so")
 
 
 def build_library(force: bool = False) -> Optional[str]:
-    if os.path.exists(_SO) and not force:
-        return _SO
-    try:
-        subprocess.run(["make", "-C", _DIR, "libswatdecoder.so"],
-                       check=True, capture_output=True)
-        return _SO if os.path.exists(_SO) else None
-    except (subprocess.CalledProcessError, FileNotFoundError):
-        return None
+    """The decoder's library, built at first use under a lock and moved
+    onto its name whole (``utils.native_build``), or None without g++ or
+    libjpeg."""
+    return native_build.build_library(_DIR, "libswatdecoder.so",
+                                      ("decoder.cpp",), force=force)
 
 
 _lib = None

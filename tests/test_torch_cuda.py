@@ -4,12 +4,14 @@ backward against their plain twins at ragged and main-path shapes, fp32 and
 bf16, strided and contiguous; the launch counts; determinism; the autograd
 Functions and the three backward modes; the wrappers' refusals; and the same
 for the three block-fused layer kernels (kernels/megablock.py); the
-tensor-core forward and backward templates at the edges of their tiling.  Run
-them on a GPU machine with ``python -m pytest tests/test_torch_cuda.py``."""
+tensor-core forward and backward templates at the edges of their tiling; the
+retrieval ranking and both samplers on the card against the CPU.  Run them on
+a GPU machine with ``python -m pytest tests/test_torch_cuda.py``."""
 
 import pytest
 import torch
-from torch_port_lib import mma_sum_dot
+from torch_port_lib import (gapped_pool, mma_sum_dot, rank_inputs,
+                            reference_pool)
 
 from swat_tpu_torch.kernels import flash_attention as FA
 from swat_tpu_torch.kernels import megablock as MB
@@ -880,3 +882,87 @@ def test_qdot_cuda_equals_cpu(device, dtype):
     got = qdot(x.to(device), Int8Weight(w.codes.to(device),
                                         w.scale.to(device)), prec).cpu()
     assert torch.equal(got, qdot(x, w, prec))
+
+
+# ---------------------------------------------------------------------------
+# retrieval (swat_tpu_torch.retrieval): on inputs of the dyadic grid every
+# product is exact, so the card's selections and scores equal the CPU's
+# bit for bit, ties broken lower index first on both
+
+
+@pytest.mark.parametrize("chunk", [None, 16])
+@pytest.mark.parametrize("top_k", [3, 5, 7, 20])
+def test_rank_candidates_cuda_equals_cpu(device, top_k, chunk):
+    import numpy as np
+
+    from swat_tpu_torch.retrieval import rank as R
+
+    prompts, cands, cls = rank_inputs()
+    got = R.rank_candidates(prompts, cands, cls, top_k, chunk=chunk,
+                            device=device)
+    ref = R.rank_candidates(prompts, cands, cls, top_k, chunk=chunk,
+                            device="cpu")
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g, r)
+    tied = [i for i in got[0][0] if i in (3, 14, 15, 16, 33)]
+    assert tied == sorted(tied)
+
+
+def test_select_keys_cuda_equals_cpu(device):
+    """Equal values, -0.0 and +0.0, -inf: one order on both devices."""
+    from swat_tpu_torch.retrieval import rank as R
+
+    sims = torch.tensor([[0.0, -0.0, 0.5, 0.0, -0.0, -torch.inf, 0.5]])
+    index = torch.arange(7)
+    ref = R._from_keys(R._select_top(sims, index, 7))
+    got = R._from_keys(R._select_top(sims.to(device), index.to(device), 7))
+    for g, r in zip(got, ref):
+        assert torch.equal(g.cpu(), r)
+    assert ref[1][0].tolist() == [2, 6, 0, 3, 1, 4, -1]
+
+
+def test_near_duplicates_cuda_equal_cpu(device):
+    import numpy as np
+
+    from swat_tpu_torch.retrieval import rank as R
+
+    _, labels, img, _ = reference_pool()[0]
+    for max_elems in (1 << 27, 20 * 20):
+        np.testing.assert_array_equal(
+            R.near_duplicate_indices_by_class(img, labels, threshold=0.9,
+                                              max_elems=max_elems,
+                                              device=device),
+            R.near_duplicate_indices_by_class(img, labels, threshold=0.9,
+                                              max_elems=max_elems,
+                                              device="cpu"))
+
+
+def _retrieval_strategies():
+    from swat_tpu_torch.retrieval.sampler import STRATEGIES
+
+    return STRATEGIES
+
+
+@pytest.mark.parametrize("engine", ["fused", "per-class"])
+@pytest.mark.parametrize("strategy", _retrieval_strategies())
+@pytest.mark.parametrize("pool_name", ["reference", "gapped"])
+def test_samplers_cuda_equal_cpu(device, pool_name, strategy, engine):
+    import numpy as np
+
+    from swat_tpu_torch.retrieval import sampler as S
+
+    arrays, prompts, fs = (reference_pool if pool_name == "reference"
+                           else gapped_pool)()
+    pool = S.MinedPool(*arrays, captions=[f"c{i}" for i in
+                                          range(len(arrays[0]))])
+    head = np.stack([np.asarray(prompts[k]["mean"]) for k in
+                     sorted(prompts, key=int)])
+    sample = (S.sample_retrieved_fused if engine == "fused"
+              else S.sample_retrieved)
+    kw = dict(num_samples=5, threshold=-0.1, t2i_threshold=0.1, seed=3,
+              fewshot_feats_by_class=fs, remove_duplicates=True)
+    if pool_name == "reference":
+        kw["zeroshot_filter_head"] = head
+    got = sample(pool, prompts, strategy, device=device, **kw)
+    ref = sample(pool, prompts, strategy, device="cpu", **kw)
+    assert got == ref

@@ -13,7 +13,7 @@ import pytest
 import torch
 from torch_port_lib import (OOD_TREES, TORCH_THREADS,
                             jax_params_from_state_dict, random_state_dict,
-                            write_ood_trees)
+                            same_native_decoders, write_ood_trees)
 
 import jax.numpy as jnp
 
@@ -51,6 +51,7 @@ def test_asset_is_a_byte_copy_of_swat_tpus():
 
 @pytest.fixture(scope="module")
 def trees(tmp_path_factory):
+    same_native_decoders()
     base = tmp_path_factory.mktemp("ood")
     return str(base), write_ood_trees(base)
 

@@ -37,12 +37,19 @@ PORT_MODULES = [
     "swat_tpu_torch.models.clip", "swat_tpu_torch.models.configs",
     "swat_tpu_torch.models.head", "swat_tpu_torch.models.loader",
     "swat_tpu_torch.models.quant", "swat_tpu_torch.models.resnet",
-    "swat_tpu_torch.models.tokenizer", "swat_tpu_torch.train.checkpoint",
+    "swat_tpu_torch.models.tokenizer", "swat_tpu_torch.retrieval",
+    "swat_tpu_torch.retrieval._unicode61", "swat_tpu_torch.retrieval.cli",
+    "swat_tpu_torch.retrieval.downloader", "swat_tpu_torch.retrieval.indexer",
+    "swat_tpu_torch.retrieval.ingest", "swat_tpu_torch.retrieval.mined",
+    "swat_tpu_torch.retrieval.query_synonyms", "swat_tpu_torch.retrieval.rank",
+    "swat_tpu_torch.retrieval.sampler", "swat_tpu_torch.retrieval.stringmatch",
+    "swat_tpu_torch.retrieval.synonyms", "swat_tpu_torch.train.checkpoint",
     "swat_tpu_torch.train.losses", "swat_tpu_torch.train.msgpack_tree",
     "swat_tpu_torch.train.optim",
     "swat_tpu_torch.train.resident", "swat_tpu_torch.train.stages",
     "swat_tpu_torch.train.state", "swat_tpu_torch.train.steps",
     "swat_tpu_torch.train.trainer", "swat_tpu_torch.utils.logging",
+    "swat_tpu_torch.utils.native_build",
 ]
 
 # a module of the JAX stack, or of the JAX package itself; and msgpack,

@@ -85,9 +85,28 @@ def write_dataset_cls_splits(dataset_path) -> None:
             f.write("\n".join(lines) + "\n")
 
 
+def same_native_decoders() -> None:
+    """Both packages' native JPEG decoders loaded from whole libraries, so
+    that both decode the same way (the PIL fallback differs by +-1 uint8
+    LSB).  swat_tpu's own build links its library in place, so a process
+    that loads it while another is still linking it gives up on it for good
+    (``_lib_tried``); the port's locked, atomic build makes swat_tpu's
+    library here first, and a given-up load is tried again."""
+    from swat_tpu.data import native as jax_native
+    from swat_tpu_torch.data import native
+    from swat_tpu_torch.utils import native_build
+
+    native_build.build_library(jax_native._DIR, "libswatdecoder.so",
+                               ("decoder.cpp",))
+    if jax_native._lib is None:
+        jax_native._lib_tried = False
+    assert jax_native._load() is not None and native._load() is not None
+
+
 def register_dataset():
     """Register DATASET in both packages' registries (each has its own
-    data.registry and data.prompts); returns an undo."""
+    data.registry and data.prompts), with both packages' native decoders
+    loaded (``same_native_decoders``); returns an undo."""
     from swat_tpu.data import prompts as jax_prompts
     from swat_tpu.data import registry as jax_registry
     from swat_tpu_torch.data import prompts, registry
@@ -97,6 +116,7 @@ def register_dataset():
     for num_classes, templates in tables:
         num_classes[DATASET] = NUM_CLASSES
         templates[DATASET] = ["a photo of a {}.", "a blurry photo of a {}."]
+    same_native_decoders()
 
     def undo():
         for num_classes, templates in tables:
@@ -856,3 +876,98 @@ def write_v2_tree(dataset_path) -> None:
             arr = (color + rng.integers(-90, 90, (40, 48, 3))
                    ).clip(0, 255).astype(np.uint8)
             Image.fromarray(arr).save(os.path.join(d, f"v2_{i}.jpeg"))
+
+
+
+def jax_retrieval_runs(argvs, texts, checkpoint_path: str, model_cfg: str,
+                       out_path: str) -> None:
+    """``swat_tpu.retrieval.cli`` once per argv of ``argvs`` (each writes
+    its outputs where its argv says), its towers in their default bf16
+    policy; then the normalized text features of ``texts`` from
+    ``swat_tpu``'s text encoder over the same checkpoint, saved to
+    ``out_path`` as 'text_features'.  Run it in a process whose XLA_FLAGS
+    hold ``--xla_allow_excess_precision=false``
+    (``excess_precision_subprocess``), so that XLA keeps the bf16 roundings
+    the port's towers make."""
+    from swat_tpu.data.features import make_text_encoder
+    from swat_tpu.models.clip import CLIPModel as JaxCLIPModel
+    from swat_tpu.models.configs import get_model_config as jax_model_config
+    from swat_tpu.models.loader import load_torch_checkpoint
+    from swat_tpu.models.tokenizer import get_tokenizer
+    from swat_tpu.retrieval.cli import main
+
+    for argv in argvs:
+        main(argv)
+    cfg = jax_model_config(model_cfg)
+    params, _ = load_torch_checkpoint(checkpoint_path, cfg.vision.layers,
+                                      cfg.text.layers)
+    tokens = get_tokenizer(None, vocab_size=cfg.text.vocab_size)(
+        list(texts), cfg.text.context_length)
+    encode = make_text_encoder(JaxCLIPModel(cfg), params)
+    np.savez(out_path, text_features=np.asarray(encode(np.asarray(tokens))))
+
+
+# ---------------------------------------------------------------------------
+# retrieval inputs on a dyadic grid: every fp32 product and sum over them is
+# exact whatever the order of its terms, so every framework and device gets
+# the same scores bit for bit, and duplicate rows tie exactly
+
+
+def grid(x, step=2.0 ** -8):
+    return (np.round(np.asarray(x) / step) * step).astype(np.float32)
+
+
+def rank_inputs(seed=0, c=4, n=64, d=8):
+    """Class 0 holds five copies of one candidate (rows 3, 14, 15, 16, 33:
+    across the 16-row chunk edge at 16), tied in its ranking."""
+    rng = np.random.default_rng(seed)
+    cands = grid(rng.normal(size=(n, d)) / 4)
+    dup = [3, 14, 15, 16, 33]
+    cands[dup] = cands[3]
+    cls = rng.integers(0, c, n).astype(np.int32)
+    cls[dup] = 0
+    prompts = grid(rng.normal(size=(c, d)) / 4)
+    return prompts, cands, cls
+
+
+def reference_pool():
+    """tests/test_retrieval.py's pool (3 classes x 20, candidate quality
+    rising with the index within a class) on the grid, with exact copies
+    of a class-1 candidate (a unit image) at 30, 33 and 38 tied in its
+    ranking."""
+    rng = np.random.default_rng(0)
+    c, per, d = 3, 20, 16
+    prompts = {str(k): {"mean": np.eye(c, d)[k].astype(np.float32)}
+               for k in range(c)}
+    labels = np.repeat(np.arange(c), per)
+    img = rng.normal(size=(c * per, d)) * 0.01
+    cap = rng.normal(size=(c * per, d)) * 0.01
+    for k in range(c):
+        for i in range(per):
+            w = i / per
+            cap[k * per + i] += w * np.eye(c, d)[k]
+            img[k * per + i] += w * np.eye(c, d)[k]
+    img, cap = grid(img), grid(cap)
+    img[30] = np.eye(c, d)[1]
+    for i in (33, 38):
+        img[i], cap[i] = img[30], cap[30]
+    files = [f"/pool/{k}/{i:05d}.jpg" for k in range(c) for i in range(per)]
+    fs = {k: grid(rng.normal(size=(4, d)) * 0.1 + np.eye(c, d)[k], 2.0 ** -6)
+          for k in range(c)}
+    return (files, labels, img, cap), prompts, fs
+
+
+def gapped_pool():
+    """Gapped class ids (1 and 3 absent), an under-filled class, and a
+    few-shot bundle covering a class absent from the pool."""
+    rng = np.random.default_rng(1)
+    d = 16
+    labels = np.array([0] * 10 + [2] * 3 + [4] * 8, np.int32)
+    img = grid(rng.normal(size=(len(labels), d)) / 4)
+    cap = grid(rng.normal(size=(len(labels), d)) / 4)
+    img[17], cap[17] = img[14], cap[14]
+    files = [f"/p/{i}.jpg" for i in range(len(labels))]
+    prompts = {str(k): {"mean": grid(rng.normal(size=d) / 4)}
+               for k in (0, 2, 4)}
+    fs = {k: grid(rng.normal(size=(4, d)) / 4, 2.0 ** -6) for k in range(5)}
+    return (files, labels, img, cap), prompts, fs
