@@ -70,7 +70,15 @@ int8`` and on the CPU, sample with every strategy on the fused engine on
 the card, the per-class engine on the card and the fused engine on the
 CPU (the same files), filter-synonyms card against CPU, and the fused
 sampler against the per-class oracle at 1000 classes x 2000 candidates,
-timed by stage.  The data are a synthetic
+timed by stage.  After the training phases through the CLI, ``[dist]``:
+the stage-1 cutmix fp32 streaming run through ``torch.distributed.run
+--nproc_per_node 1`` on NCCL (``--mesh_data 1``) beside the same run
+without a launcher (the same summary line, ``loss.csv`` and attention
+launches), and B/32's two towers
+cut into two tensor-parallel shards, both run in one process through the
+kernels at H / 2 heads with a sum in place of the all-reduce, forward and
+backward, fp32 and bf16, against the whole towers (the card has one GPU:
+no multi-GPU number comes from it).  The data are a synthetic
 JPEG dataset (few-shot, retrieved, unlabeled and test splits, and
 dataset-cls's flagged splits over the first two) and a seeded
 OpenCLIP-format checkpoint.  Any failure raises and exits non-zero.  The
@@ -2010,14 +2018,16 @@ def _train_loop_counts(FA):
 
 def _train_cli_run(workdir, ckpt, dataset, method, dtype, resident, smi,
                    extra=(), bsz=CLI_BSZ, tag="", rows_want=2, stage2=False,
-                   summary_row=True, model_cfg=MODEL_CFG):
+                   summary_row=True, model_cfg=MODEL_CFG, launcher=False):
     """One run of ``method`` through swat_tpu_torch.cli.main at full width
     (2 epochs at ``bsz`` unless ``extra`` says otherwise; --skip_stage2
     unless ``stage2``), its summary line, loss.csv (``rows_want`` rows) and
     output files checked; without ``summary_row`` (dataset-cls) the run
     must print no summary line and write no stage file.  The four counts
     are set to 0 just before the run and read just after -> dict of what
-    it gave."""
+    it gave.  ``launcher``: the run is one process started by
+    ``torch.distributed.run --standalone --nproc_per_node 1`` (on NCCL),
+    which counts its own launches (``_dist_child``)."""
     import csv
     import io
     import math
@@ -2028,24 +2038,29 @@ def _train_cli_run(workdir, ckpt, dataset, method, dtype, resident, smi,
     from swat_tpu_torch.kernels import flash_attention as FA
 
     folder = f"{workdir}/train_{model_cfg}_{method}_{dtype}_{resident}{tag}"
-    _reset_counts(FA)
-    buf = io.StringIO()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf), _train_loop_counts(FA) as loops:
-        cli_main(["--dataset", dataset, "--method", method,
-                  "--data_source", "fewshot+retrieved",
-                  "--retrieval_split", RETRIEVAL_SPLIT,
-                  "--shots", "4", "--epochs", "2",
-                  *(() if stage2 else ("--skip_stage2",)),
-                  "--bsz", str(bsz), "--model_cfg", model_cfg,
-                  "--checkpoint_path", ckpt,
-                  "--config_yml", f"{workdir}/config.yml",
-                  "--folder", folder, "--compute_dtype", dtype,
-                  "--resident", resident, "--num_workers", "8",
-                  "--recal_prompt", "--device", "cuda", *extra])
-    wall = time.perf_counter() - t0
-    counts = _counts(FA)
-    out = buf.getvalue()
+    argv = ["--dataset", dataset, "--method", method,
+            "--data_source", "fewshot+retrieved",
+            "--retrieval_split", RETRIEVAL_SPLIT,
+            "--shots", "4", "--epochs", "2",
+            *(() if stage2 else ("--skip_stage2",)),
+            "--bsz", str(bsz), "--model_cfg", model_cfg,
+            "--checkpoint_path", ckpt,
+            "--config_yml", f"{workdir}/config.yml",
+            "--folder", folder, "--compute_dtype", dtype,
+            "--resident", resident, "--num_workers", "8",
+            "--recal_prompt", "--device", "cuda", *extra]
+    if launcher:
+        out, counts, loops, wall = _launched_cli(workdir, argv)
+    else:
+        _reset_counts(FA)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf), \
+                _train_loop_counts(FA) as loops:
+            cli_main(argv)
+        wall = time.perf_counter() - t0
+        counts = _counts(FA)
+        out = buf.getvalue()
     summary = [ln for ln in out.splitlines()
                if ln.startswith(f"{dataset},{method},")]
     if not summary_row:
@@ -2092,7 +2107,8 @@ def _train_cli_run(workdir, ckpt, dataset, method, dtype, resident, smi,
     # the steps of the rows' stage: a resumed run counts on from its
     # checkpoint's iteration
     steps = len(rows) * (int(rows[0]["Iter"]) // int(rows[0]["Epoch"]))
-    log(f"[train-cli] {model_cfg} {method} {dtype} resident={resident}{tag}"
+    log(f"[{'dist' if launcher else 'train-cli'}] {model_cfg} {method} "
+        f"{dtype} resident={resident}{tag}"
         f"{' (resident epochs)' if resident_run else ' (streaming)'}: "
         f"{summary[0]} | train loss "
         f"{' -> '.join(f'{x:.6f}' for x in losses[:2])} | "
@@ -2466,6 +2482,12 @@ def phase_semi_cli(workdir, ckpt, dataset, smi):
                                          dscls["counts"])]
 
 
+# the stage-1 cutmix fp32 streaming run's flags: a one-device mesh, which
+# changes nothing without a launcher, so that [dist] (a) repeats the run
+# through the launcher as it is
+DIST_RUN_EXTRA = ("--mesh_data", "1")
+
+
 def phase_train_cli(workdir, ckpt, dataset, smi):
     """Training through swat_tpu_torch.cli.main at full width: the flagship
     run (stage 1 cutmix fp32 resident, then stage 2) and stage 2 alone from
@@ -2474,7 +2496,8 @@ def phase_train_cli(workdir, ckpt, dataset, smi):
     attentivemix (streaming, its heatmaps through the heads-first forward
     at every step: --mix_prob 1) and mixup (resident) in fp32.  -> (the four
     counts summed over the runs, each run counted from 0; the stage-2
-    counts of the flagship run)."""
+    counts of the flagship run; the stage-1 cutmix fp32 streaming run's
+    dict, which [dist] repeats through the launcher)."""
     from swat_tpu_torch.models.configs import get_model_config
 
     layers = get_model_config(MODEL_CFG).vision.layers
@@ -2482,7 +2505,7 @@ def phase_train_cli(workdir, ckpt, dataset, smi):
     total, stage2 = _flagship(workdir, ckpt, dataset, smi, layers)
     total = [t + c for t, c in zip(total, _resume(workdir, ckpt, dataset,
                                                   smi, layers))]
-    runs = [("cutmix", "float32", "off", (), False),
+    runs = [("cutmix", "float32", "off", DIST_RUN_EXTRA, False),
             ("cutmix", "bfloat16", "auto", (), True),
             ("cutmix", "float32", "auto", ("--aug_mode", "host"), False),
             ("attentivemix", "float32", "auto", ("--mix_prob", "1.0"), False),
@@ -2496,8 +2519,247 @@ def phase_train_cli(workdir, ckpt, dataset, smi):
             raise AssertionError(f"{method} resident={resident}: resident "
                                  f"epochs {run['resident']}, expected "
                                  f"{want_resident}")
+        if extra == DIST_RUN_EXTRA:
+            plain = run
         total = [t + c for t, c in zip(total, run["counts"])]
-    return total, stage2
+    return total, stage2, plain
+
+
+# ---------------------------------------------------------------------------
+# [dist]: the parallel layer on the one card (core/mesh.py,
+# core/distributed.py, models/clip.py's tensor parallelism).  The machine
+# has one GPU and NCCL takes one rank a device, so the card runs world size
+# 1 through the real launcher and the two tensor-parallel shards in one
+# process; the sharded math at world sizes 2 and 4 is held on gloo CPU
+# ranks by the tests (tests/test_torch_multichip.py, _multihost.py).
+
+
+def _dist_child(args_path: str) -> int:
+    """The launcher's one process: ``swat_tpu_torch.cli.main`` on the argv
+    in ``args_path``, its four counts set to 0 just before and read just
+    after, printed with the training loops' own as the last line."""
+    from swat_tpu_torch.cli.main import main as cli_main
+    from swat_tpu_torch.kernels import flash_attention as FA
+
+    with open(args_path) as f:
+        argv = json.load(f)
+    _reset_counts(FA)
+    t0 = time.perf_counter()
+    with _train_loop_counts(FA) as loops:
+        cli_main(argv)
+    wall = time.perf_counter() - t0
+    print("DIST_CHILD " + json.dumps({"counts": _counts(FA),
+                                      "loops": loops, "wall": wall}),
+          flush=True)
+    return 0
+
+
+def _launched_cli(workdir, argv):
+    """``argv`` through ``torch.distributed.run --standalone
+    --nproc_per_node 1`` -> (its standard output, counts, training-loop
+    counts, wall seconds of the CLI inside it)."""
+    import os
+
+    path = f"{workdir}/dist_argv.json"
+    with open(path, "w") as f:
+        json.dump(argv, f)
+    here = os.path.abspath(__file__)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", here, "--dist-child", path],
+        cwd=os.path.dirname(here), capture_output=True, text=True,
+        timeout=600)
+    launched = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the launched CLI run failed:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    line = [ln for ln in proc.stdout.splitlines()
+            if ln.startswith("DIST_CHILD ")][-1]
+    got = json.loads(line[len("DIST_CHILD "):])
+    log(f"[dist] launcher process: {launched:.3f} s wall, the CLI inside "
+        f"{got['wall']:.3f} s")
+    return (proc.stdout, tuple(got["counts"]),
+            [tuple(c) for c in got["loops"]], got["wall"])
+
+
+def phase_dist_launcher(workdir, ckpt, dataset, smi, plain):
+    """(a) The stage-1 cutmix fp32 streaming run through the launcher on
+    one card, ``--mesh_data 1``, on NCCL, beside the same run without a
+    launcher (``plain``, ``[train-cli]``'s): the same summary line,
+    ``loss.csv`` rows and mha_fwd / mha_bwd launches.  At world size 1 the
+    mesh runs no collective: only the process group's start and end touch
+    NCCL (``tests/test_torch_cuda.py`` drives every collective through a
+    one-rank NCCL group).  -> the launched run's counts."""
+    launched = _train_cli_run(
+        workdir, ckpt, dataset, "cutmix", "float32", "off", smi,
+        DIST_RUN_EXTRA, tag="_launcher", launcher=True)
+    rows = [[r[k] for k in r] for r in plain["rows"]]
+    rows_l = [[r[k] for k in r] for r in launched["rows"]]
+    group = [ln for ln in launched["out"].splitlines()
+             if "Process group:" in ln]
+    log(f"[dist] (a) launcher, 1 process, --mesh_data 1: {launched['summary']}"
+        f" | without: {plain['summary']} | {group[0].split(' - ')[-1] if group else 'no process group logged'}"
+        f" | launches fwd/bwd {launched['counts'][:2]} vs {plain['counts'][:2]}"
+        f" | wall {launched['wall']:.3f} / {plain['wall']:.3f} s on {smi}")
+    for a, b in zip(rows_l, rows):
+        log(f"    {','.join(a)} | {','.join(b)}")
+    if (launched["summary"] != plain["summary"] or rows_l != rows
+            or launched["counts"][:2] != plain["counts"][:2]
+            or not any("backend nccl, 1 process" in g for g in group)):
+        raise AssertionError("the launched run differs from the run "
+                             "without a launcher")
+    return list(launched["counts"])
+
+
+# the two tensor-parallel shards of a tower against the whole tower
+# through its 12 layers (B/32 image) or 12 (text): fp32 differs in the
+# order the shards' partial products are summed; in bf16 each shard's
+# partial output is rounded before the sum, which a flipped rounding then
+# carries through every later layer
+TP_REL_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+TP_MIN_COSINE = {"float32": 1 - 1e-7, "bfloat16": 0.999}
+# (name, batch, seq, heads of a shard, width of a shard, causal): the
+# attention calls of B/32's towers cut in two
+TP_SHAPES = [("vitb32_image_tp2", 256, 50, 6, 384, False),
+             ("text_tp2", 1024, 77, 4, 256, True)]
+
+
+def _rel_err(got, ref):
+    return float((got.float() - ref.float()).abs().max()
+                 / ref.float().abs().max())
+
+
+def _cosine(got, ref):
+    a, b = got.double().flatten(), ref.double().flatten()
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+def phase_dist_tp(ckpt, smi):
+    """(b) B/32's image and text towers cut into two tensor-parallel shards
+    by the port's splitter (models.clip.tp_shard_state_dict), both shards'
+    blocks run on cuda:0 through mha_qkv with H / 2 heads, their partial
+    outputs summed where the all-reduce would stand
+    (models.clip.lockstep_transformer), forward and backward, fp32 and bf16:
+    the output and the gradients of a fixed loss (the input's, and the
+    first block's qkv weight, the shards' joined) against the whole tower;
+    the H / 2-head kernel calls against their plain versions at those
+    shapes, with the bit-equal share in bf16.  -> the launches of the
+    sharded towers (fwd, bwd)."""
+    import torch
+
+    from swat_tpu_torch.core.precision import (DEFAULT_PRECISION,
+                                               FP32_PRECISION)
+    from swat_tpu_torch.kernels import flash_attention as FA
+    from swat_tpu_torch.models.clip import (CLIPModel, TensorParallel,
+                                            lockstep_transformer, tp_join,
+                                            tp_shard_state_dict)
+    from swat_tpu_torch.models.configs import get_model_config
+    from swat_tpu_torch.models.loader import load_torch_checkpoint
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for name, b, s, h, w, causal in TP_SHAPES:
+        for dname, dtype in (("float32", torch.float32),
+                             ("bfloat16", torch.bfloat16)):
+            atol, rtol = TOLERANCE[dname]
+            batl, brtol = TOLERANCE_BWD[dname]
+            q, k, v = _qkv(b, s, w, dtype, gen, True)
+            do = torch.randn(b, s, w, generator=gen, device="cuda").to(dtype)
+            got = FA.mha_packed_fwd(q, k, v, h, causal)
+            ref = FA.mha_packed_reference(q, k, v, h, causal)
+            grads = FA.mha_packed_bwd(q, k, v, do, h, causal).split(w, -1)
+            grads_ref = FA.mha_bwd_reference(q, k, v, do, h, causal)
+            torch.cuda.synchronize()
+            errs = [float((got.float() - ref.float()).abs().max())]
+            ok = bool(((got.float() - ref.float()).abs()
+                       <= atol + rtol * ref.float().abs()).all())
+            shares = [float((got == ref).float().mean())]
+            for g, r in zip(grads, grads_ref):
+                e = (g.float() - r.float()).abs()
+                ok &= bool((e <= batl + brtol * r.float().abs()).all())
+                errs.append(float(e.max()))
+                shares.append(float((g == r).float().mean()))
+            if dtype == torch.bfloat16:
+                ok &= (shares[0] >= FWD_MIN_EQUAL_SHARE
+                       and min(shares[1:]) >= BWD_MIN_EQUAL_SHARE)
+            log(f"[dist] (b) kernel {name} B={b} S={s} H={h} HD={w} "
+                f"causal={causal} {dname}: max_abs_err out={errs[0]:.3e} "
+                f"dq/dk/dv={'/'.join(f'{x:.3e}' for x in errs[1:])}, "
+                f"bit-equal {'/'.join(f'{x:.5f}' for x in shares)} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"H/2 kernels disagree at {name} "
+                                     f"{dname}")
+
+    cfg = get_model_config(MODEL_CFG)
+    sd, _ = load_torch_checkpoint(ckpt)
+    fwd = bwd = 0
+    for dname, precision in (("float32", FP32_PRECISION),
+                             ("bfloat16", DEFAULT_PRECISION)):
+        full = CLIPModel(cfg, precision=precision)
+        full.load_state_dict(sd)
+        full.cuda()
+        shards = []
+        for r in range(2):
+            m = CLIPModel(cfg, precision=precision).tensor_parallel_(
+                TensorParallel(2, r, lambda t: t))
+            m.load_state_dict(tp_shard_state_dict(sd, cfg, 2, r))
+            shards.append(m.cuda())
+        for tower, causal, b, seq, width, heads in (
+                ("image", False, 64, 50, cfg.vision.width, cfg.vision.heads),
+                ("text", True, 64, 77, cfg.text.width, cfg.text.heads)):
+            def stack(m):
+                return m.visual.transformer if tower == "image" \
+                    else m.transformer
+            x0 = torch.randn(b, seq, width, generator=gen, device="cuda")
+            wt = torch.randn(b, seq, width, generator=gen, device="cuda")
+            outs = []
+            for models in ([full], shards):
+                x = x0.to(precision.compute_dtype).detach().clone() \
+                    .requires_grad_(True)
+                for m in models:
+                    m.zero_grad(set_to_none=True)
+                _reset_counts(FA)
+                if len(models) == 1:
+                    y = stack(full)(x, causal, precision, FA.mha_qkv)
+                else:
+                    y = lockstep_transformer([stack(m) for m in models], x,
+                                             causal, precision, FA.mha_qkv)
+                (y.float() * wt).sum().backward()
+                torch.cuda.synchronize()
+                if len(models) == 2:
+                    fwd += FA.LAUNCHES
+                    bwd += FA.LAUNCHES_BWD
+                    launched = (FA.LAUNCHES, FA.LAUNCHES_BWD)
+                w_grad = tp_join("qkv", [stack(m).resblocks[0].attn
+                                         .in_proj_weight.grad
+                                         for m in models], heads) \
+                    if len(models) == 2 else \
+                    stack(full).resblocks[0].attn.in_proj_weight.grad
+                outs.append((y.detach(), x.grad, w_grad))
+            layers = len(stack(full).resblocks)
+            checks = []
+            for what, got, ref in zip(("out", "d_in", "d_qkv_w"), outs[1],
+                                      outs[0]):
+                checks.append((what, _rel_err(got, ref), _cosine(got, ref)))
+            ok = all(e <= TP_REL_TOL[dname] and c >= TP_MIN_COSINE[dname]
+                     for _, e, c in checks)
+            ok &= launched == (2 * layers, 2 * layers)
+            log(f"[dist] (b) {tower} tower B={b} S={seq} {layers} layers, "
+                f"2 shards x {heads // 2} heads, {dname}: "
+                + ", ".join(f"{what} max rel err {e:.3e} cosine {c:.9f}"
+                            for what, e, c in checks)
+                + f" (tol {TP_REL_TOL[dname]:g}, cosine >= "
+                f"{TP_MIN_COSINE[dname]}) | launches fwd/bwd {launched} "
+                f"(need {2 * layers} each) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"the tensor-parallel {tower} tower "
+                                     f"differs from the whole ({dname})")
+        del full, shards
+        torch.cuda.empty_cache()
+    log(f"[dist] (b) on {smi}: one process, the all-reduce a sum; the "
+        "card has one GPU, so no multi-GPU number is measured here")
+    return fwd, bwd
 
 
 # ---------------------------------------------------------------------------
@@ -3508,6 +3770,9 @@ def _new_tower_phases(workdir, smi):
 # ImageNet OOD sweep and W8A8 int8 inference
 
 SERVE_BSZ = 256
+# the best_tau_head and wsft_head runs (card and CPU) read the first
+# SERVE_HEAD_TEST images of the test split: the CPU's run is the slow one
+SERVE_HEAD_TEST, SERVE_HEAD_SPLIT = 64, "test_head64.txt"
 # the OOD sweep's batch: its trees are small, and the CPU's run encodes
 # whole padded batches
 OOD_BSZ = 32
@@ -3535,6 +3800,8 @@ def _cli_test(argv, device, bsz=SERVE_BSZ):
     from swat_tpu_torch.kernels import flash_attention as FA
 
     dataset = argv[argv.index("--dataset") + 1]
+    split = (argv[argv.index("--split") + 1] if "--split" in argv
+             else "test.txt")
     buf = io.StringIO()
     _reset_counts(FA)
     t0 = time.perf_counter()
@@ -3545,7 +3812,7 @@ def _cli_test(argv, device, bsz=SERVE_BSZ):
     counts = _counts(FA)
     out = buf.getvalue()
     lines = [ln for ln in out.splitlines()
-             if ln.startswith(f"{dataset},test.txt,")]
+             if ln.startswith(f"{dataset},{split},")]
     ood = [ln for ln in out.splitlines() if ln.startswith('{"imagenet')]
     if len(lines) != 1 or len(ood) > 1:
         raise AssertionError(f"cli.test printed no result line:\n"
@@ -3609,10 +3876,11 @@ def phase_convert(workdir, ckpt, smi):
 def phase_eval_cli(workdir, ckpt, bundle, converted, smi):
     """swat_tpu_torch.cli.test at full ViT-B/32 width on the flagship run's
     stage-1 bundle, each --which_head (head with --predict_labels and
-    --utrain_out, best_tau_head with --tau 0.5, wsft_head), on the card and
-    then on the CPU: the same line, the same predicted labels and the same
-    utrain file; then --checkpoint_path given the converted .msgpack
-    against the .pt.  -> mha_fwd launches of the card's runs."""
+    --utrain_out over the test split; best_tau_head with --tau 0.5 and
+    wsft_head over its first SERVE_HEAD_TEST images, ``--split``), on the
+    card and then on the CPU: the same line, the same predicted labels and
+    the same utrain file; then --checkpoint_path given the converted
+    .msgpack against the .pt.  -> mha_fwd launches of the card's runs."""
     import math
 
     import numpy as np
@@ -3620,15 +3888,20 @@ def phase_eval_cli(workdir, ckpt, bundle, converted, smi):
     base = ["--dataset", "smoke10", "--dataset_path", workdir,
             "--retrieved_path", workdir, "--model_cfg", MODEL_CFG,
             "--folder", f"{workdir}/serve/eval"]
-    batches = math.ceil(N_TEST / SERVE_BSZ)
+    with open(f"{workdir}/smoke10/test.txt") as f:
+        head_lines = f.readlines()[:SERVE_HEAD_TEST]
+    with open(f"{workdir}/smoke10/{SERVE_HEAD_SPLIT}", "w") as f:
+        f.writelines(head_lines)
     total = 0
     heads = (("head", ["--which_head", "head", "--predict_labels",
                        "{d}/pred_{dev}.txt", "--utrain_out",
-                       "{d}/utrain_{dev}.txt"]),
+                       "{d}/utrain_{dev}.txt"], N_TEST),
              ("best_tau_head", ["--which_head", "best_tau_head", "--tau",
-                                "0.5"]),
-             ("wsft_head", ["--which_head", "wsft_head"]))
-    for name, extra in heads:
+                                "0.5", "--split", SERVE_HEAD_SPLIT],
+              SERVE_HEAD_TEST),
+             ("wsft_head", ["--which_head", "wsft_head", "--split",
+                            SERVE_HEAD_SPLIT], SERVE_HEAD_TEST))
+    for name, extra, n_images in heads:
         runs = {}
         for dev in ("cuda", "cpu"):
             args = [a.format(d=f"{workdir}/serve", dev=dev) for a in extra]
@@ -3636,6 +3909,7 @@ def phase_eval_cli(workdir, ckpt, bundle, converted, smi):
                                           "--model_path", bundle, *args],
                                   dev)
         card, cpu = runs["cuda"], runs["cpu"]
+        batches = math.ceil(n_images / SERVE_BSZ)
         need = _need_fwd(card, batches)
         _check_counts(f"[eval-cli] {name}", card, need)
         _check_counts(f"[eval-cli] {name} on the CPU", cpu, 0)
@@ -3669,6 +3943,7 @@ def phase_eval_cli(workdir, ckpt, bundle, converted, smi):
             raise AssertionError(f"cli.test --which_head {name}: card and "
                                  "CPU disagree")
         total += card["counts"][0]
+    batches = math.ceil(N_TEST / SERVE_BSZ)
     runs = {}
     for tag, path in (("pt", ckpt), ("msgpack", converted["none"])):
         runs[tag] = _cli_test(base + ["--checkpoint_path", path], "cuda")
@@ -4076,7 +4351,7 @@ def _serving_phases(workdir, ckpt, smi):
 
 MINED_CLASSES, MINED_PER_CLASS = 10, 52
 EXTRACT_BSZ = 256
-CPU_EXTRACT_CLASSES = 2
+CPU_EXTRACT_CLASSES = 1
 MINED_SAMPLES = 20
 MINED_FEWSHOT = 4
 # the sample runs read the extracted features rounded to multiples of
@@ -4556,7 +4831,23 @@ def phase_retrieval(workdir, ckpt, smi):
     return launches
 
 
+# wall seconds of each phase of main(), printed before the total
+PHASE_SECONDS: dict = {}
+
+
+def timed(name, fn, *args):
+    """``fn(*args)``, its wall seconds added to ``PHASE_SECONDS[name]``."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        PHASE_SECONDS[name] = (PHASE_SECONDS.get(name, 0.0)
+                               + time.perf_counter() - t0)
+
+
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--dist-child":
+        return _dist_child(sys.argv[2])
     try:
         import torch
     except ImportError:
@@ -4576,40 +4867,55 @@ def main() -> int:
     import tempfile
 
     t_start = time.perf_counter()
-    smi, name = phase_card()
-    phase_build()
-    worst = phase_kernel_vs_plain()
-    times = phase_timing(smi)
-    worst_bwd = phase_bwd_kernel_vs_plain()
-    times_bwd = phase_bwd_timing(smi)
-    worst_flash = phase_flash_kernels_vs_plain()
-    times_flash = phase_flash_timing(smi)
+    smi, name = timed("card", phase_card)
+    timed("build", phase_build)
+    worst = timed("kernel-vs-plain", phase_kernel_vs_plain)
+    times = timed("timing", phase_timing, smi)
+    worst_bwd = timed("bwd-kernel-vs-plain", phase_bwd_kernel_vs_plain)
+    times_bwd = timed("bwd-timing", phase_bwd_timing, smi)
+    worst_flash = timed("flash-kernels-vs-plain",
+                        phase_flash_kernels_vs_plain)
+    times_flash = timed("flash-timing", phase_flash_timing, smi)
     with tempfile.TemporaryDirectory(prefix="swat_smoke_") as workdir:
-        ckpt = phase_towers(workdir, smi)
-        launches = phase_cli(workdir, ckpt, smi)
-        phase_train_step(ckpt, smi)
-        step_flash = phase_attentive_step(ckpt, smi)
-        step_flash_bwd = phase_fused_step(ckpt, smi)
-        cli_counts, stage2_counts = phase_train_cli(workdir, ckpt,
-                                                    "smoke10", smi)
-        twin_counts = phase_twin_cli(workdir, ckpt, "smoke10", smi)
-        method_counts = phase_method_cli(workdir, ckpt, "smoke10", smi)
-        semi_counts = phase_semi_cli(workdir, ckpt, "smoke10", smi)
-        cli_counts = [c + t + m + f for c, t, m, f in zip(
-            cli_counts, twin_counts, method_counts, semi_counts)]
-        phase_twin_step(ckpt, smi)
-        phase_flyp_step(ckpt, smi)
-        phase_fixmatch_step(ckpt, smi)
-        phase_head_steps(ckpt, smi)
-        phase_memory(ckpt, smi)
-        tower_counts = _new_tower_phases(workdir, smi)
+        ckpt = timed("towers", phase_towers, workdir, smi)
+        launches = timed("cli", phase_cli, workdir, ckpt, smi)
+        timed("train-step", phase_train_step, ckpt, smi)
+        step_flash = timed("attentive-step", phase_attentive_step, ckpt, smi)
+        step_flash_bwd = timed("fused-step", phase_fused_step, ckpt, smi)
+        cli_counts, stage2_counts, plain = timed(
+            "train-cli", phase_train_cli, workdir, ckpt, "smoke10", smi)
+        twin_counts = timed("twin-cli", phase_twin_cli, workdir, ckpt,
+                            "smoke10", smi)
+        method_counts = timed("method-cli", phase_method_cli, workdir, ckpt,
+                              "smoke10", smi)
+        semi_counts = timed("semi-cli", phase_semi_cli, workdir, ckpt,
+                            "smoke10", smi)
+        t_dist = time.perf_counter()
+        dist_counts = timed("dist", phase_dist_launcher, workdir, ckpt,
+                            "smoke10", smi, plain)
+        tp_fwd, tp_bwd = timed("dist", phase_dist_tp, ckpt, smi)
+        dist_counts[0] += tp_fwd
+        dist_counts[1] += tp_bwd
+        log(f"[dist] {time.perf_counter() - t_dist:.1f} s of the run, "
+            f"launches fwd {dist_counts[0]} bwd {dist_counts[1]}, on {smi}")
+        cli_counts = [c + t + m + f + d for c, t, m, f, d in zip(
+            cli_counts, twin_counts, method_counts, semi_counts,
+            dist_counts)]
+        timed("twin-step", phase_twin_step, ckpt, smi)
+        timed("flyp-step", phase_flyp_step, ckpt, smi)
+        timed("fixmatch-step", phase_fixmatch_step, ckpt, smi)
+        timed("head-steps", phase_head_steps, ckpt, smi)
+        timed("memory", phase_memory, ckpt, smi)
+        tower_counts = timed("new-towers", _new_tower_phases, workdir, smi)
         cli_counts = [c + t for c, t in zip(cli_counts, tower_counts)]
-        cli_counts[0] += _serving_phases(workdir, ckpt, smi)
-        cli_counts[0] += phase_retrieval(workdir, ckpt, smi)
-        worst_mega = phase_mega_kernels()
-        times_mega = phase_mega_timing(smi)
-        tower_mega = phase_mega_towers(ckpt, smi)
-        step_mega = phase_mega_step(ckpt, smi)
+        cli_counts[0] += timed("serving", _serving_phases, workdir, ckpt,
+                               smi)
+        cli_counts[0] += timed("retrieval", phase_retrieval, workdir, ckpt,
+                               smi)
+        worst_mega = timed("mega-kernels", phase_mega_kernels)
+        times_mega = timed("mega-timing", phase_mega_timing, smi)
+        tower_mega = timed("mega-towers", phase_mega_towers, ckpt, smi)
+        step_mega = timed("mega-step", phase_mega_step, ckpt, smi)
     # each kernel at the CLI default (fp32) and the B/32 image shape
     # (B=256, H=12, S=50, D=64).  launches: the zero-shot runs, the stage-1
     # runs, the train-step phases and the serving phases that drive a
@@ -4663,6 +4969,9 @@ def main() -> int:
     log(f"[launches] mha_fwd {kernels[0]['launches']}, of which stage 2 "
         f"{probe[0] + fsft[0]} (probing {probe[0]}, FSFT {fsft[0]}); mha_bwd "
         f"{kernels[1]['launches']}, of which stage 2 {fsft[1]} (FSFT)")
+    log("[phases] " + ", ".join(f"{k} {v:.1f} s"
+                                for k, v in PHASE_SECONDS.items())
+        + f" on {smi}")
     log(f"[total] {time.perf_counter() - t_start:.1f} s, the kernels' build "
         f"included, on {smi}")
     for k in kernels:

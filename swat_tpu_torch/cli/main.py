@@ -11,7 +11,11 @@ here they come from a converted checkpoint file).
 The port adds ``--device {cuda,cpu}``.  ``--use_pallas`` is accepted and
 does nothing (the kernels always run on the card); ``--remat`` and
 ``--accum`` act in training only (``--accum`` in streaming epochs only, as
-in ``swat_tpu``); a mesh other than one device raises.  Ported so far:
+in ``swat_tpu``).  Under ``torch.distributed.run`` the run is
+data-parallel over ``--mesh_data`` processes, one a GPU (``--mesh_model M``
+makes data groups of world / M ranks whose M ranks compute the same rows,
+as ``swat_tpu``'s CLI does not shard the towers); rank 0 writes the files
+and prints the summary, which equals the one-process run's.  Ported so far:
 ``--method zeroshot``; stage 1 of ``--method finetune`` / ``cutmix`` /
 ``mixup`` / ``resizemix`` / ``saliencymix`` / ``attentivemix`` /
 ``finetune-mixed`` / ``cutmix-fs`` / ``mixup-fs`` / ``CMO`` / ``probing`` /
@@ -32,6 +36,10 @@ other's.
 
 Usage:
     python -m swat_tpu_torch.cli.main --dataset semi-aves --method zeroshot \
+        --checkpoint_path /path/to/openclip_vitb32.pt
+    python -m torch.distributed.run --standalone --nproc_per_node 4 \
+        -m swat_tpu_torch.cli.main --dataset semi-aves --method cutmix \
+        --data_source fewshot+retrieved --mesh_data 4 \
         --checkpoint_path /path/to/openclip_vitb32.pt
     python -m swat_tpu_torch.cli.main --dataset semi-aves --method cutmix \
         --data_source fewshot+retrieved --epochs 10 \
@@ -266,10 +274,15 @@ def parse_config(argv=None):
 
 def main(argv=None):
     cfg = parse_config(argv)
+    import torch.distributed as dist
+
     from swat_tpu_torch.train.stages import SwatPipeline
 
+    started_here = not dist.is_initialized()
     pipeline = SwatPipeline(cfg)
     pipeline.run()
+    if started_here and dist.is_initialized():
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -7,17 +7,24 @@ host arrays go in and come out as numpy.  The cache is the JAX package's:
 of the weights taken over the JAX package's param tree
 (``models.loader.jax_params_from_state_dict``), so the same weights give
 the same file name in both packages.
+
+Under a data-parallel mesh (``mesh=``) every rank encodes its rows of each
+batch (a text batch padded to a multiple of the data axis, an image batch
+as its loader shards it) and gathers the features in the loader's order,
+so every rank ends with the whole split's features.
 """
 
 from __future__ import annotations
 
 import hashlib
 import os
-from typing import Callable, Dict, List, Mapping
+from typing import Callable, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
 
+from swat_tpu_torch.core.mesh import (Mesh, active, encode_batch, on_rows,
+                                      pad_to_multiple)
 from swat_tpu_torch.models.clip import CLIPModel
 
 
@@ -25,15 +32,24 @@ def _device(model: CLIPModel) -> torch.device:
     return model.logit_scale.device
 
 
-def make_text_encoder(model: CLIPModel) -> Callable[[np.ndarray], np.ndarray]:
-    """``tokens [N, context] -> [N, D]`` normalized fp32 text features."""
+def make_text_encoder(model: CLIPModel, mesh: Optional[Mesh] = None
+                      ) -> Callable[[np.ndarray], np.ndarray]:
+    """``tokens [N, context] -> [N, D]`` normalized fp32 text features;
+    under a mesh each rank encodes its rows (padded with the last row to a
+    multiple of the data axis) and gathers them."""
     device = _device(model)
+    mesh = active(mesh)
 
     def encode_fn(tokens: np.ndarray) -> np.ndarray:
+        tokens = np.asarray(tokens)
+        n = tokens.shape[0]
+        if mesh is not None and n % mesh.data:
+            tokens = np.concatenate([tokens, np.repeat(
+                tokens[-1:], pad_to_multiple(n, mesh.data) - n, 0)])
         with torch.inference_mode():
-            ids = torch.as_tensor(np.asarray(tokens), dtype=torch.long,
-                                  device=device)
-            return model.encode_text(ids, normalize=True).cpu().numpy()
+            ids = torch.as_tensor(tokens, dtype=torch.long, device=device)
+            return on_rows(mesh, lambda t: model.encode_text(
+                t, normalize=True), ids).cpu().numpy()[:n]
 
     return encode_fn
 
@@ -77,15 +93,18 @@ def encode_prompts(encode_fn, tokenized: Mapping[str, np.ndarray],
     return out
 
 
-def extract_image_features(model: CLIPModel, loader) -> Dict[str, np.ndarray]:
+def extract_image_features(model: CLIPModel, loader,
+                           mesh: Optional[Mesh] = None
+                           ) -> Dict[str, np.ndarray]:
     """loader: EvalLoader-style (padded batches with masks) -> {
-    'image_features': [N, D] normalized fp32, 'labels': [N], 'source': [N]}."""
+    'image_features': [N, D] normalized fp32, 'labels': [N], 'source': [N]};
+    under a mesh the features of every rank's rows, on every rank."""
     device = _device(model)
+    mesh = active(mesh)
     feats, labels, source = [], [], []
     with torch.inference_mode():
         for batch in loader:
-            images = torch.from_numpy(batch["images"]).to(device)
-            out = model.encode_image(images, normalize=True).cpu().numpy()
+            out = encode_batch(mesh, model, batch, device).cpu().numpy()
             m = np.asarray(batch["mask"])
             feats.append(out[m])
             labels.append(np.asarray(batch["labels"])[m])
@@ -112,15 +131,19 @@ def load_features(path: str) -> dict:
         return {k: data[k] for k in data.files}
 
 
-def extract_or_load(path: str, recalc: bool, extract_fn, logger=None):
+def extract_or_load(path: str, recalc: bool, extract_fn, logger=None,
+                    save: bool = True):
     """The reference's pre_extract_feature contract
     (utils/dataloader.py:35-104): reuse the features on disk across runs
-    unless ``recalc`` (--recal_fea)."""
+    unless ``recalc`` (--recal_fea).  ``save`` False: extract without
+    writing (a rank other than 0)."""
     if not recalc and os.path.exists(path):
         if logger:
             logger.info(f"Loading pre-extracted features: {path}")
         return load_features(path)
     feats = extract_fn()
+    if not save:
+        return feats
     try:
         save_features(path, feats)
         if logger:

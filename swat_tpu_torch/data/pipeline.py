@@ -14,6 +14,13 @@ train features through the train transform, once an image, and
 methods cycle a second loader (``CyclingLoader``): the few-shot split, or
 for CMO the train split drawn with inverse class frequencies
 (``WeightedTrainLoader``).
+
+Under a device mesh (``mesh=``, ``core/mesh.py``) every rank builds the
+same batches from the same seed, and decodes only its rows of each: the
+keys of ``LOCAL_KEYS`` hold those rows, every other key (labels, source,
+mask, prompt tokens) the whole batch.  An eval batch is padded to a
+multiple of the data axis and its pad rows masked; a train batch must
+divide it.
 """
 
 from __future__ import annotations
@@ -26,11 +33,35 @@ from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from swat_tpu_torch.core.mesh import Mesh, active, pad_to_multiple
 from swat_tpu_torch.data import native
 from swat_tpu_torch.data.splits import Sample
 from swat_tpu_torch.data.transforms import (CANVAS_SIZE, eval_preprocess,
                                             host_train_preprocess,
                                             load_image, normalize_u8)
+
+
+# the keys of a batch that hold only this rank's rows under a mesh (the
+# decoded ones); the trainer gathers them (``Mesh.gather_batch``)
+LOCAL_KEYS = ("canvases", "valid_hw", "images")
+# the suffixes of a second loader's keys in a composed batch: the twin
+# split's (``train.trainer.compose_twin``) and FixMatch's unlabeled one
+SECOND_LOADER_SUFFIXES = ("_fs", "_u")
+
+
+def local_keys(batch: Dict) -> List[str]:
+    """The keys of ``batch`` that hold this rank's rows alone under a mesh:
+    ``LOCAL_KEYS``, also with a second loader's suffix."""
+    return [k for k in batch
+            if any(k == base + suffix for base in LOCAL_KEYS
+                   for suffix in ("",) + SECOND_LOADER_SUFFIXES)]
+
+
+def _check_divides(batch_size: int, mesh: Optional[Mesh]) -> None:
+    if mesh is not None and batch_size % mesh.data:
+        raise ValueError(
+            f"batch size {batch_size} is not divisible by the data axis "
+            f"({mesh.data} ranks)")
 
 
 def _prefetch(gen, depth: int = 2):
@@ -85,16 +116,19 @@ def eval_pixels_u8(samples: Sequence[Sample], n_px: int,
 class EvalLoader:
     """Deterministic order, fixed batch shape, final batch padded + masked.
     Yields numpy batches: images [bs, n_px, n_px, 3] float32 (normalized),
-    labels, source, mask."""
+    labels, source, mask.  Under a ``mesh`` a batch is padded to a multiple
+    of the data axis and ``images`` holds this rank's rows of it."""
 
     def __init__(self, samples: Sequence[Sample], batch_size: int = 256,
-                 n_px: int = 224, num_workers: int = 16):
+                 n_px: int = 224, num_workers: int = 16,
+                 mesh: Optional[Mesh] = None):
         self.samples = list(samples)
         self.batch_size = batch_size
         self.n_px = n_px
         # torch DataLoader semantics: num_workers=0 loads in-process; a
         # 1-thread pool is the threaded equivalent
         self.num_workers = max(1, num_workers)
+        self.mesh = active(mesh)
 
     def __len__(self):
         return (len(self.samples) + self.batch_size - 1) // self.batch_size
@@ -105,16 +139,22 @@ class EvalLoader:
                                            self.num_workers))
 
     def _batches(self) -> Iterator[Dict[str, np.ndarray]]:
-        bs = self.batch_size
+        step = self.batch_size
+        bs = (step if self.mesh is None
+              else pad_to_multiple(step, self.mesh.data))
+        mine = slice(0, bs) if self.mesh is None else self.mesh.rows(bs)
+        k = mine.stop - mine.start
         with cf.ThreadPoolExecutor(self.num_workers) as pool:
-            for start in range(0, len(self.samples), bs):
-                chunk = self.samples[start: start + bs]
-                images = self._load_chunk(chunk, pool)
-                n = len(chunk)
-                if n < bs:  # pad with zeros, masked out
+            for start in range(0, len(self.samples), step):
+                chunk = self.samples[start: start + step]
+                part = chunk[mine]
+                images = (self._load_chunk(part, pool) if part else
+                          np.zeros((0, self.n_px, self.n_px, 3), np.float32))
+                if len(part) < k:  # pad with zeros, masked out
                     images = np.concatenate(
-                        [images, np.zeros((bs - n,) + images.shape[1:],
+                        [images, np.zeros((k - len(part),) + images.shape[1:],
                                           images.dtype)])
+                n = len(chunk)
                 yield {
                     "images": images,
                     "labels": np.array(
@@ -146,14 +186,15 @@ class TrainSnapshotLoader(EvalLoader):
 
     def __init__(self, samples, batch_size: int = 256, n_px: int = 224,
                  num_workers: int = 16, seed: int = 1,
-                 shuffle_drop_bsz: int = 0, mode: str = "train"):
+                 shuffle_drop_bsz: int = 0, mode: str = "train",
+                 mesh: Optional[Mesh] = None):
         samples = list(samples)
         if shuffle_drop_bsz:
             order = np.random.default_rng(seed).permutation(len(samples))
             keep = max(1, len(samples) // shuffle_drop_bsz) \
                 * shuffle_drop_bsz
             samples = [samples[i] for i in order[:keep]]
-        super().__init__(samples, batch_size, n_px, num_workers)
+        super().__init__(samples, batch_size, n_px, num_workers, mesh)
         self.seed = seed
         self.mode = mode
 
@@ -190,18 +231,24 @@ class TrainLoader:
     ``tokenized_prompts`` (class id -> [n, context] token rows; FLYP): each
     batch also carries ``prompt_tokens`` [B, context] int32, one row of its
     class's prompts a sample, drawn from the loader's own generator after
-    the batch's images and host-aug seeds, as in ``swat_tpu``."""
+    the batch's images and host-aug seeds, as in ``swat_tpu``.
+    Under a ``mesh`` every rank draws the whole batch's order, seeds and
+    prompt rows, and decodes its rows of the batch alone (``LOCAL_KEYS``)."""
 
     def __init__(self, samples: Sequence[Sample], batch_size: int = 32,
                  seed: int = 1, mode: str = "canvas", n_px: int = 224,
                  num_workers: int = 16,
-                 tokenized_prompts: Optional[Dict[str, np.ndarray]] = None):
+                 tokenized_prompts: Optional[Dict[str, np.ndarray]] = None,
+                 mesh: Optional[Mesh] = None):
         if mode not in ("canvas", "host", "eval"):
             raise ValueError(f"unknown --aug_mode {mode!r}")
         if batch_size > len(samples):
             raise ValueError(
                 f"batch_size {batch_size} > dataset size {len(samples)} "
                 "(drop_last leaves no batches)")
+        _check_divides(batch_size, mesh)
+        self.rows = slice(0, batch_size) if mesh is None else mesh.rows(
+            batch_size)
         self.samples = list(samples)
         self.batch_size = batch_size
         self.mode = mode
@@ -219,6 +266,7 @@ class TrainLoader:
         with cf.ThreadPoolExecutor(self.num_workers) as pool:
             for start in range(0, len(order) - bs + 1, bs):
                 chunk = [self.samples[i] for i in order[start: start + bs]]
+                mine = chunk[self.rows]
                 batch: Dict[str, np.ndarray] = {
                     "labels": np.array([s.label for s in chunk], np.int32),
                     "source": np.array([s.is_fewshot for s in chunk],
@@ -226,12 +274,12 @@ class TrainLoader:
                 }
                 if self.mode == "canvas":
                     batch["canvases"], batch["valid_hw"] = train_canvases(
-                        chunk, self.num_workers)
+                        mine, self.num_workers)
                 elif self.mode == "eval":
                     batch["images"] = np.stack(list(pool.map(
                         lambda s: eval_preprocess(load_image(s.path),
                                                   self.n_px),
-                        chunk))).astype(np.float32)
+                        mine))).astype(np.float32)
                 else:
                     # one generator an image (a Generator is not thread
                     # safe), seeded in the batch's order
@@ -240,7 +288,7 @@ class TrainLoader:
                         lambda task: host_train_preprocess(
                             load_image(task[0].path),
                             np.random.default_rng(task[1]), self.n_px),
-                        zip(chunk, seeds)))).astype(np.float32)
+                        zip(mine, seeds[self.rows])))).astype(np.float32)
                 if self.tokenized_prompts is not None:
                     rows = [self.tokenized_prompts[str(s.label)]
                             for s in chunk]

@@ -7,15 +7,21 @@ normalizes, encodes and scores batch after batch on the device, with one
 host sync at the end.  The loss is the mean over all samples, the JAX scan
 engine's definition (scan_loop.py:316), not the streaming Evaluator's mean
 of per-batch means.
+
+Under a data-parallel mesh each rank decodes and holds its rows of every
+batch (the batch size must divide by the data axis); a pass encodes them
+and gathers the features into the batch, so every rank scores the whole
+split in the single-device order.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from swat_tpu_torch.core.mesh import Mesh, active, on_rows
 from swat_tpu_torch.data.splits import Sample
 from swat_tpu_torch.data.pipeline import eval_pixels_u8
 from swat_tpu_torch.data.transforms import CLIP_MEAN, CLIP_STD
@@ -26,33 +32,58 @@ from swat_tpu_torch.train.losses import LossFn, cross_entropy
 
 class ResidentEval:
     """An eval split on the device: uint8 pixels [N_pad, n_px, n_px, 3],
-    labels, mask and source, N_pad a multiple of the batch size."""
+    labels, mask and source, N_pad a multiple of the batch size.  With a
+    ``mesh`` the pixels are this rank's rows of each batch,
+    [N_pad / data, ...], the rest whole."""
 
-    def __init__(self, images_u8, labels, mask, source):
+    def __init__(self, images_u8, labels, mask, source,
+                 mesh: Optional[Mesh] = None):
         self.images_u8 = images_u8
         self.labels = labels
         self.mask = mask
         self.source = source
+        self.mesh = active(mesh)
 
     @classmethod
     def from_samples(cls, samples: Sequence[Sample], device: torch.device,
                      n_px: int = 224,
-                     batch_size: int = 256, num_workers: int = 16):
-        images = eval_pixels_u8(samples, n_px, num_workers)
+                     batch_size: int = 256, num_workers: int = 16,
+                     mesh: Optional[Mesh] = None):
+        mesh = active(mesh)
         n = len(samples)
         pad = (-n) % batch_size
+        if mesh is None:
+            images = eval_pixels_u8(samples, n_px, num_workers)
+        else:
+            rows = held_rows(n, batch_size, mesh)
+            held = rows[rows < n]
+            images = (eval_pixels_u8([samples[i] for i in held], n_px,
+                                     num_workers) if len(held) else
+                      np.zeros((0, n_px, n_px, 3), np.uint8))
+            pad = len(rows) - len(held)
         if pad:
             images = np.concatenate(
                 [images, np.zeros((pad,) + images.shape[1:], np.uint8)])
-        labels = np.asarray([s.label for s in samples] + [0] * pad, np.int64)
-        source = np.asarray([s.is_fewshot for s in samples] + [0] * pad,
+        total = n + (-n) % batch_size
+        labels = np.asarray([s.label for s in samples] + [0] * (total - n),
                             np.int64)
-        mask = np.arange(n + pad) < n
+        source = np.asarray(
+            [s.is_fewshot for s in samples] + [0] * (total - n), np.int64)
+        mask = np.arange(total) < n
 
         def put(x):
             return torch.from_numpy(x).to(device)
 
-        return cls(put(images), put(labels), put(mask), put(source))
+        return cls(put(images), put(labels), put(mask), put(source), mesh)
+
+
+def held_rows(n: int, batch_size: int, mesh: Mesh) -> np.ndarray:
+    """The rows of a split of ``n`` padded to a batch multiple that this
+    rank holds: its rows of every batch, in order."""
+    mine = mesh.rows(batch_size)
+    return np.concatenate([np.arange(b + mine.start, b + mine.stop)
+                           for b in range(0, n + (-n) % batch_size,
+                                          batch_size)])
 
 
 def normalize_u8(images: torch.Tensor) -> torch.Tensor:
@@ -80,12 +111,14 @@ def make_scan_eval(num_classes: int, batch_size: int = 256,
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
         cm = torch.zeros(num_classes * num_classes, dtype=torch.int64,
                          device=dev)
+        rows = batch_size // (ev.mesh.data if ev.mesh is not None else 1)
         with torch.inference_mode():
-            for i in range(0, ev.images_u8.shape[0], batch_size):
+            for b, i in enumerate(range(0, ev.labels.shape[0], batch_size)):
                 sl = slice(i, i + batch_size)
                 lb, mk, sc = ev.labels[sl], ev.mask[sl], ev.source[sl]
-                feats = model.encode_image(normalize_u8(ev.images_u8[sl]),
-                                           normalize=True)
+                feats = on_rows(ev.mesh, lambda x: model.encode_image(
+                    normalize_u8(x), normalize=True),
+                    ev.images_u8[b * rows: (b + 1) * rows], local=True)
                 logits = head_logits(head, feats)
                 preds = logits.argmax(dim=-1)
                 correct += ((preds == lb) & mk).sum()

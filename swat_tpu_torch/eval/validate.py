@@ -7,6 +7,12 @@ Per batch: encode -> head logits -> argmax and masked loss, with the
 matrix kept on the device, so a split costs one host sync at its end.  The
 loss is the mean of per-batch means, the JAX package's definition
 (validate.py:132), not the resident engine's mean over samples.
+
+Under a data-parallel mesh (``Evaluator(mesh=...)``) each rank encodes its
+rows of a batch (the loader's, or its slice of a whole batch) and gathers
+the features, so every rank scores the whole batch in the single-device
+order: the same counts, confusion matrix and loss sums on every rank, with
+no reduction order of their own.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from swat_tpu_torch.core.mesh import Mesh, active, encode_batch
 from swat_tpu_torch.models.clip import CLIPModel
 from swat_tpu_torch.models.head import head_logits
 from swat_tpu_torch.train.losses import LossFn, cross_entropy
@@ -36,10 +43,12 @@ class Evaluator:
     batches) for a fixed number of classes and loss."""
 
     def __init__(self, num_classes: int, loss: LossFn = cross_entropy,
-                 device: torch.device = torch.device("cpu")):
+                 device: torch.device = torch.device("cpu"),
+                 mesh: Optional[Mesh] = None):
         self.num_classes = num_classes
         self.loss = loss
         self.device = torch.device(device)
+        self.mesh = active(mesh)
 
     def validate(self, model: Optional[CLIPModel], head: torch.Tensor,
                  logit_scale: float, loader, *,
@@ -68,8 +77,7 @@ class Evaluator:
                 if "features" in batch:
                     feats = torch.from_numpy(batch["features"]).to(dev)
                 else:
-                    images = torch.from_numpy(batch["images"]).to(dev)
-                    feats = model.encode_image(images, normalize=True)
+                    feats = encode_batch(self.mesh, model, batch, dev)
                 labels = torch.from_numpy(batch["labels"]).to(dev).long()
                 source = torch.from_numpy(batch["source"]).to(dev)
                 mask = torch.from_numpy(batch["mask"]).to(dev)
@@ -122,8 +130,7 @@ def validate_multitask(evaluator: Evaluator, model: CLIPModel,
     batches = 0
     with torch.inference_mode():
         for batch in loader:
-            images = torch.from_numpy(batch["images"]).to(dev)
-            feats = model.encode_image(images, normalize=True)
+            feats = encode_batch(evaluator.mesh, model, batch, dev)
             labels = torch.from_numpy(batch["labels"]).to(dev).long()
             source = torch.from_numpy(batch["source"]).to(dev).long()
             mask = torch.from_numpy(batch["mask"]).to(dev)

@@ -72,13 +72,43 @@ statistics and fills ``updates`` with them (``swat_tpu``'s
 ``encode_image_bn_train``); every other encode uses the running
 statistics.  A ViT tower holds no normalization state and leaves
 ``updates`` empty.
+
+Tensor parallelism (``swat_tpu``'s ``param_partition_spec`` /
+``partition_specs``, ``swat_tpu/models/clip.py:413-458``; a library
+feature there, as here: the CLI does not shard the towers).
+``tp_shard_state_dict`` cuts a state dict into one rank's shard of a model
+group of ``size`` ranks and ``tp_join_state_dicts`` is its inverse:
+
+* ``attn.in_proj`` rows split by heads within each of q, k and v, so a
+  rank's packed qkv is ``[B, S, 3 * (H / tp) * D]`` and goes straight into
+  the attention kernels with ``H / tp`` heads (``swat_tpu`` cuts the
+  ``[W, 3W]`` kernel into contiguous column blocks and GSPMD relays them
+  out: the math agrees, the layout does not);
+* ``mlp.c_fc`` split by output rows;
+* ``attn.out_proj`` and ``mlp.c_proj`` split by input columns, their bias
+  added once, after the sum;
+* ``token_embedding`` split by vocabulary rows: each rank looks up its rows
+  with the others masked, then the sum;
+* everything else whole on every rank (RN50's image tower among it).
+
+``CLIPModel.tensor_parallel_(tp)`` gives a model the shard's shapes; its
+blocks then run ``parallel_block``: ``tp.enter`` (identity forward,
+all-reduce backward) before each column-parallel product and ``tp.leave``
+(all-reduce forward, identity backward) after each row-parallel one, the
+collective being ``TensorParallel``'s ``all_reduce`` argument, so
+``lockstep_transformer`` runs every shard of a stack in one process with a
+plain sum in its place.  ``use_mega`` under tensor parallelism gathers each
+block's whole weights and runs the fused kernels on every rank, as GSPMD
+runs ``swat_tpu``'s Pallas block (a custom call it cannot partition) with
+the weights gathered.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Callable, NamedTuple, Optional, Union
+import types
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -248,6 +278,123 @@ class MultiheadAttentionParams(nn.Module):
         self.out_proj = nn.Linear(width, width)
 
 
+class _Enter(torch.autograd.Function):
+    """Identity forward, all-reduce backward: the input of a
+    column-parallel product."""
+
+    @staticmethod
+    def forward(ctx, x, all_reduce):
+        ctx.all_reduce = all_reduce
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.all_reduce(grad.contiguous().clone()), None
+
+
+class _Leave(torch.autograd.Function):
+    """All-reduce forward, identity backward: the output of a row-parallel
+    product."""
+
+    @staticmethod
+    def forward(ctx, x, all_reduce):
+        return all_reduce(x.contiguous().clone())
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _Unshard(torch.autograd.Function):
+    """The whole tensor from every rank's shard (``tp_join``); the gradient
+    is this rank's shard of it (every rank computes the same whole
+    gradient)."""
+
+    @staticmethod
+    def forward(ctx, shard, tp, kind, heads):
+        ctx.tp, ctx.kind, ctx.heads = tp, kind, heads
+        return tp_join(kind, tp.all_gather(shard), heads)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (tp_split(ctx.kind, grad, ctx.tp.size, ctx.tp.rank,
+                         ctx.heads), None, None, None)
+
+
+class TensorParallel:
+    """A model group of ``size`` ranks, this rank's place in it, and its
+    collectives: ``all_reduce(t) -> the sum of every rank's t`` (out of
+    place), and ``all_gather(t) -> [every rank's t]`` (``use_mega`` only).
+    Passed as functions, so that a group of shards in one process can stand
+    in for the ranks."""
+
+    def __init__(self, size: int, rank: int,
+                 all_reduce: Callable[[torch.Tensor], torch.Tensor],
+                 all_gather: Optional[Callable] = None):
+        self.size, self.rank = size, rank
+        self.all_reduce = all_reduce
+        self.all_gather = all_gather
+
+    @classmethod
+    def of(cls, mesh) -> "TensorParallel":
+        """The model group of a ``core.mesh.Mesh``."""
+        import torch.distributed as dist
+
+        group = mesh.model_group
+
+        def all_reduce(t):
+            dist.all_reduce(t, group=group)
+            return t
+
+        def all_gather(t):
+            parts = [torch.empty_like(t) for _ in range(mesh.model)]
+            dist.all_gather(parts, t.contiguous(), group=group)
+            return parts
+
+        return cls(mesh.model, mesh.model_rank, all_reduce, all_gather)
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        return _Enter.apply(x, self.all_reduce)
+
+    def leave(self, x: torch.Tensor) -> torch.Tensor:
+        return _Leave.apply(x, self.all_reduce)
+
+
+def parallel_block(blocks: Sequence["ResidualAttentionBlock"],
+                   x: torch.Tensor, causal: bool, precision: Precision,
+                   attention: Attention,
+                   enter: Callable[[torch.Tensor], torch.Tensor],
+                   reduce: Callable[[List[torch.Tensor]], torch.Tensor]
+                   ) -> torch.Tensor:
+    """One block over the shards ``blocks`` of a model group: the layer
+    norms of the first (they are whole on every shard), each shard's
+    column-parallel then row-parallel product, ``reduce`` of the partial
+    outputs, the bias once.  On a rank of a group: ``blocks`` its own
+    shard, ``enter`` / ``reduce`` the conjugate collectives; in one
+    process: every shard, the identity and ``sum``."""
+    b0 = blocks[0]
+    cd = precision.compute_dtype
+    h = enter(layer_norm(b0.ln_1, x, precision))
+    out = reduce([b.attn_partial(h, causal, precision, attention)
+                  for b in blocks])
+    x = x + (out + b0.attn.out_proj.bias.to(cd))
+    h = enter(layer_norm(b0.ln_2, x, precision))
+    out = reduce([b.mlp_partial(h, precision) for b in blocks])
+    return x + (out + b0.mlp["c_proj"].bias.to(cd))
+
+
+def lockstep_transformer(stacks: Sequence["Transformer"], x: torch.Tensor,
+                         causal: bool, precision: Precision,
+                         attention: Attention) -> torch.Tensor:
+    """Every shard of a tensor-parallel block stack in one process, layer
+    by layer, the partial outputs summed where the all-reduce would stand
+    (the card's check of the sharded shapes)."""
+    for layer in range(len(stacks[0].resblocks)):
+        x = parallel_block([st.resblocks[layer] for st in stacks], x,
+                           causal, precision, attention, lambda t: t, sum)
+    return x
+
+
 class ResidualAttentionBlock(nn.Module):
     """One pre-LN transformer block (functional._block)."""
 
@@ -261,8 +408,33 @@ class ResidualAttentionBlock(nn.Module):
         self.mlp = nn.ModuleDict({"c_fc": nn.Linear(width, 4 * width),
                                   "c_proj": nn.Linear(4 * width, width)})
 
+    def attn_partial(self, h: torch.Tensor, causal: bool,
+                     precision: Precision,
+                     attention: Attention) -> torch.Tensor:
+        """The attention half's product over this block's heads, without
+        the out-projection's bias."""
+        qkv = dense(h, weight_of(self.attn, "in_proj_weight"),
+                    self.attn.in_proj_bias, precision)
+        a = attention(qkv, self.heads, causal)
+        return dense(a, weight_of(self.attn.out_proj, "weight"), None,
+                     precision)
+
+    def mlp_partial(self, h: torch.Tensor,
+                    precision: Precision) -> torch.Tensor:
+        """The MLP half over this block's hidden rows, without the
+        projection's bias."""
+        h = dense(h, weight_of(self.mlp["c_fc"], "weight"),
+                  self.mlp["c_fc"].bias, precision)
+        h = quick_gelu(h) if self.quick else F.gelu(h)
+        return dense(h, weight_of(self.mlp["c_proj"], "weight"), None,
+                     precision)
+
     def forward(self, x: torch.Tensor, causal: bool, precision: Precision,
-                attention: Attention) -> torch.Tensor:
+                attention: Attention,
+                tp: Optional[TensorParallel] = None) -> torch.Tensor:
+        if tp is not None:
+            return parallel_block([self], x, causal, precision, attention,
+                                  tp.enter, lambda ps: tp.leave(ps[0]))
         h = layer_norm(self.ln_1, x, precision)
         qkv = dense(h, weight_of(self.attn, "in_proj_weight"),
                     self.attn.in_proj_bias, precision)
@@ -287,6 +459,34 @@ class Transformer(nn.Module):
         self.resblocks = nn.ModuleList(
             ResidualAttentionBlock(width, heads, quick)
             for _ in range(layers))
+        # the model group of a tensor-parallel shard (tensor_parallel_)
+        self.tp: Optional[TensorParallel] = None
+
+    def _whole_blocks(self):
+        """Each block's whole weights gathered from the model group, as
+        stand-ins that ``fused_transformer`` reads (``use_mega`` under
+        tensor parallelism)."""
+        tp, heads = self.tp, self.heads * self.tp.size
+
+        def whole(kind, t):
+            return _Unshard.apply(t, tp, kind, heads)
+
+        ns = types.SimpleNamespace
+        out = []
+        for b in self.resblocks:
+            out.append(ns(
+                ln_1=b.ln_1, ln_2=b.ln_2,
+                attn=ns(in_proj_weight=whole("qkv", b.attn.in_proj_weight),
+                        in_proj_bias=whole("qkv", b.attn.in_proj_bias),
+                        out_proj=ns(weight=whole("out",
+                                                 b.attn.out_proj.weight),
+                                    bias=b.attn.out_proj.bias)),
+                mlp={"c_fc": ns(weight=whole("fc", b.mlp["c_fc"].weight),
+                                bias=whole("fc", b.mlp["c_fc"].bias)),
+                     "c_proj": ns(weight=whole("proj",
+                                               b.mlp["c_proj"].weight),
+                                  bias=b.mlp["c_proj"].bias)}))
+        return out
 
     def forward(self, x, causal: bool, precision: Precision,
                 attention: Attention, use_mega: bool = False,
@@ -298,8 +498,11 @@ class Transformer(nn.Module):
                 raise ValueError(
                     "use_mega has no int8 path: the block kernels read "
                     "float weights (run --quantize int8 without use_mega)")
+            blocks, heads = self.resblocks, self.heads
+            if self.tp is not None:
+                blocks, heads = self._whole_blocks(), self.heads * self.tp.size
             return fused_transformer(
-                self.resblocks, x, heads=self.heads, quick_gelu=self.quick,
+                blocks, x, heads=heads, quick_gelu=self.quick,
                 causal=causal, compute_dtype=precision.compute_dtype)
         enabled, saved_ops, first_k = resolve_remat_policy(remat)
         enabled = enabled and torch.is_grad_enabled()
@@ -310,10 +513,10 @@ class Transformer(nn.Module):
         for i, block in enumerate(self.resblocks):
             if enabled and (first_k is None or i < first_k):
                 x = checkpoint(block, x, causal, precision, attention,
-                               use_reentrant=False, preserve_rng_state=False,
-                               **kw)
+                               self.tp, use_reentrant=False,
+                               preserve_rng_state=False, **kw)
             else:
-                x = block(x, causal, precision, attention)
+                x = block(x, causal, precision, attention, self.tp)
         return x
 
 
@@ -430,13 +633,116 @@ class TextTower(nn.Module):
                              use_mega: bool = False,
                              remat: Remat = False) -> torch.Tensor:
         cd = precision.compute_dtype
-        x = self.token_embedding.weight[token_ids].to(cd)
+        tp = self.transformer.tp
+        if tp is None:
+            x = self.token_embedding.weight[token_ids]
+        else:
+            # this rank's vocabulary rows, the others masked, then the sum
+            rows = self.token_embedding.weight.shape[0]
+            local = token_ids - vocab_rows(self.text_cfg.vocab_size,
+                                           tp.size, tp.rank).start
+            held = (local >= 0) & (local < rows)
+            x = tp.leave(self.token_embedding.weight[local.clamp(0, rows - 1)]
+                         * held[..., None])
+        x = x.to(cd)
         x = x + self.positional_embedding.to(cd)
         x = self.transformer(x, True, precision, attention, use_mega, remat)
         x = layer_norm(self.ln_final, x, precision)
         eot = token_ids.argmax(dim=-1)
         x = x[torch.arange(x.shape[0], device=x.device), eot]
         return project(x, weight_of(self, "text_projection"), precision)
+
+
+def vocab_rows(vocab: int, size: int, rank: int) -> slice:
+    """A rank's contiguous rows of a vocabulary of ``vocab`` split over
+    ``size`` ranks (the first ``vocab % size`` ranks one row more)."""
+    per, extra = divmod(vocab, size)
+    start = rank * per + min(rank, extra)
+    return slice(start, start + per + (rank < extra))
+
+
+def _tp_kind(name: str) -> Optional[str]:
+    """How ``tp_shard_state_dict`` cuts the tensor ``name`` of a ViT /
+    text block stack, or None (whole on every rank)."""
+    if ".resblocks." not in name:
+        return None
+    if name.endswith("attn.in_proj_weight") or name.endswith(
+            "attn.in_proj_bias"):
+        return "qkv"
+    if name.endswith("attn.out_proj.weight"):
+        return "out"
+    if name.endswith("mlp.c_fc.weight") or name.endswith("mlp.c_fc.bias"):
+        return "fc"
+    if name.endswith("mlp.c_proj.weight"):
+        return "proj"
+    return None
+
+
+def tp_split(kind: str, t: torch.Tensor, size: int, rank: int,
+             heads: int) -> torch.Tensor:
+    """Rank ``rank``'s shard of ``t`` of a ``kind`` (``_tp_kind``; "vocab"
+    for the token embedding), ``heads`` the tower's."""
+    if kind == "qkv":            # [3W(, W)]: by heads within q, k, v
+        h = heads // size
+        v = t.reshape(3, heads, -1, *t.shape[1:])
+        return v[:, rank * h: (rank + 1) * h].reshape(-1, *t.shape[1:])
+    if kind == "out":            # [W, W]: input columns, by heads
+        w = t.shape[1] // size
+        return t[:, rank * w: (rank + 1) * w]
+    if kind == "fc":             # [F(, W)]: output rows
+        f = t.shape[0] // size
+        return t[rank * f: (rank + 1) * f]
+    if kind == "proj":           # [W, F]: input columns
+        f = t.shape[1] // size
+        return t[:, rank * f: (rank + 1) * f]
+    if kind == "vocab":
+        return t[vocab_rows(t.shape[0], size, rank)]
+    raise ValueError(kind)
+
+
+def tp_join(kind: str, parts: Sequence[torch.Tensor],
+            heads: int) -> torch.Tensor:
+    """The inverse of ``tp_split`` over every rank's shard."""
+    if kind == "qkv":
+        rest = parts[0].shape[1:]
+        return torch.cat([p.reshape(3, -1, *rest) for p in parts],
+                         dim=1).reshape(-1, *rest)
+    if kind in ("out", "proj"):
+        return torch.cat(list(parts), dim=1)
+    return torch.cat(list(parts), dim=0)
+
+
+def _tower_heads(name: str, cfg: CLIPConfig) -> int:
+    return cfg.vision.heads if name.startswith("visual.") else cfg.text.heads
+
+
+def tp_shard_state_dict(state_dict: Dict[str, torch.Tensor],
+                        cfg: CLIPConfig, size: int,
+                        rank: int) -> Dict[str, torch.Tensor]:
+    """One rank's shard of a state dict over a model group of ``size``
+    (the rules of the module docstring): the counterpart of ``swat_tpu``'s
+    ``partition_specs``, cut on the host."""
+    out = {}
+    for name, t in state_dict.items():
+        kind = ("vocab" if name == "token_embedding.weight"
+                else _tp_kind(name))
+        out[name] = (t if kind is None else
+                     tp_split(kind, t, size, rank, _tower_heads(name, cfg)))
+    return out
+
+
+def tp_join_state_dicts(shards: Sequence[Dict[str, torch.Tensor]],
+                        cfg: CLIPConfig) -> Dict[str, torch.Tensor]:
+    """The whole state dict from every rank's shard, in rank order (the
+    inverse of ``tp_shard_state_dict``, for saving)."""
+    out = {}
+    for name, t in shards[0].items():
+        kind = ("vocab" if name == "token_embedding.weight"
+                else _tp_kind(name))
+        out[name] = (t if kind is None else
+                     tp_join(kind, [s[name] for s in shards],
+                             _tower_heads(name, cfg)))
+    return out
 
 
 def _normalize(feats: torch.Tensor) -> torch.Tensor:
@@ -519,6 +825,37 @@ class CLIPModel(TextTower):
     @property
     def is_int8(self) -> bool:
         return hasattr(self.visual, "proj_q")
+
+    def tensor_parallel_(self, tp: TensorParallel) -> "CLIPModel":
+        """Gives every sharded tensor of the model (``tp_shard_state_dict``'s
+        rules) this rank's shard's shape, empty, and the blocks ``H / tp``
+        heads, for ``load_state_dict`` of a ``tp_shard_state_dict`` shard
+        to fill; the towers then run their blocks through ``parallel_block``
+        over ``tp``.  The int8 layout has no such path."""
+        if self.is_int8:
+            raise ValueError("tensor parallelism has no int8 path")
+        towers = [self.transformer]
+        if isinstance(self.visual, VisionTower):
+            towers.append(self.visual.transformer)
+        for tower in towers:
+            if tower.heads % tp.size:
+                raise ValueError(f"{tower.heads} heads do not split over "
+                                 f"{tp.size} ranks")
+        shapes = {k: tuple(v.shape) for k, v in tp_shard_state_dict(
+            {k: v for k, v in self.state_dict().items()},
+            self.cfg, tp.size, tp.rank).items()}
+        for name, p in list(self.named_parameters()):
+            if tuple(p.shape) != shapes[name]:
+                mod_name, _, leaf = name.rpartition(".")
+                module = self.get_submodule(mod_name) if mod_name else self
+                setattr(module, leaf, nn.Parameter(
+                    p.new_empty(shapes[name]), requires_grad=p.requires_grad))
+        for tower in towers:
+            tower.heads //= tp.size
+            for blk in tower.resblocks:
+                blk.heads //= tp.size
+            tower.tp = tp
+        return self
 
     def int8_(self) -> "CLIPModel":
         """Swaps every dense weight (``_dense_weights``) for empty int8

@@ -39,7 +39,7 @@ such leaf, and an integer tensor would not mix in WiSE-FT).  The math is
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -48,9 +48,18 @@ from torch import nn
 from swat_tpu_torch.core.precision import Precision
 from swat_tpu_torch.models.configs import ResNetConfig
 
-# AffineBN module -> (batch mean, unbiased batch variance), filled by a
-# train-mode forward
-BNUpdates = Dict[nn.Module, tuple]
+
+
+class BNUpdates(dict):
+    """AffineBN module -> (batch mean, unbiased batch variance), filled by
+    a train-mode forward.  ``mesh``: the data-parallel mesh whose global
+    batch the statistics cover (each rank holds its rows of it; the sums
+    are all-reduced over the data group), or None for a batch on one
+    device."""
+
+    def __init__(self, mesh=None):
+        super().__init__()
+        self.mesh = mesh
 
 # images of the batch-statistics pass that sets a random tower's running
 # statistics (``ModifiedResNet.init_random``)
@@ -84,7 +93,19 @@ class AffineBN(nn.Module):
                 updates: Optional[BNUpdates] = None) -> torch.Tensor:
         """x [B, C, H, W] in the compute dtype; ``updates`` None: eval
         mode, else train mode, this module's batch statistics added."""
-        if updates is not None:
+        mesh = getattr(updates, "mesh", None)
+        if updates is not None and mesh is not None and mesh.data > 1:
+            # the global batch's statistics, as swat_tpu's AffineBN takes
+            # them over the sharded batch: mean = sum / n, then the biased
+            # variance from the centred squares, each sum all-reduced
+            x32 = x.float()
+            n = x.numel() // x.shape[1] * mesh.data
+            mean = mesh.reduce_sum(x32.sum(dim=(0, 2, 3))) / n
+            d = x32 - mean.view(1, -1, 1, 1)
+            var = mesh.reduce_sum((d * d).sum(dim=(0, 2, 3))) / n
+            updates[self] = (mean.detach(),
+                             (var * (n / max(n - 1, 1))).detach())
+        elif updates is not None:
             x32 = x.float()
             mean = x32.mean(dim=(0, 2, 3))
             var = x32.var(dim=(0, 2, 3), correction=0)

@@ -19,8 +19,10 @@ and flag of ``swat_tpu``'s, and the same files out:
 (default cuda; cpu runs the plain PyTorch path on the host).  Every fp32
 product runs in full fp32 (no TF32).  Without ``--checkpoint_path`` the
 towers are ``CLIPModel.init_random`` from seed 0 (not flax's init), with
-a WARNING.  ``extract --mesh_data`` above 1 raises (ROADMAP Queue A
-item 10).
+a WARNING.  Under ``torch.distributed.run`` ``extract --mesh_data N`` runs
+over N processes, each encoding its rows of every batch, and ``sample``
+over all of the launcher's processes, each ranking its block of the
+candidates; rank 0 writes the files, equal to the one-process run's.
 
 Usage:
     python -m swat_tpu_torch.retrieval.cli extract --mined_dir mined/ \
@@ -252,17 +254,31 @@ def cmd_captionmap(args):
     print(f"Wrote caption map for {len(cmap)} classes to {args.output}")
 
 
+def _start_mesh(device, mesh_data=-1):
+    """The data-parallel mesh of a subcommand run under a launcher (or with
+    ``mesh_data`` other than -1 / 1, which on one process warns and runs
+    on it) -> (mesh or None, whether this is rank 0)."""
+    import torch.distributed as dist
+
+    from swat_tpu_torch.core.distributed import maybe_initialize_distributed
+    from swat_tpu_torch.core.mesh import MeshSpec, active, create_mesh
+
+    started = maybe_initialize_distributed(device=device.type)
+    if not started and mesh_data in (-1, 1):
+        return None, True
+    mesh = active(create_mesh(MeshSpec(mesh_data, 1)))
+    return mesh, not started or dist.get_rank() == 0
+
+
 def cmd_extract(args):
     from swat_tpu_torch.models.tokenizer import get_tokenizer
     from swat_tpu_torch.retrieval.mined import (extract_mined_features,
                                                 find_mined_images,
                                                 save_mined_features)
-    from swat_tpu_torch.retrieval.rank import _mesh_not_ported
     from swat_tpu_torch.train.stages import resolve_device
 
-    # -1 (every device) and 1 both mean the one card
-    _mesh_not_ported(None if args.mesh_data in (-1, 1) else args.mesh_data)
     device = resolve_device(args.device)
+    mesh, main = _start_mesh(device, args.mesh_data)
     model = load_model(args.model_cfg, args.checkpoint_path, device,
                        args.quantize)
 
@@ -273,13 +289,16 @@ def cmd_extract(args):
     t0 = time.time()
     feats = extract_mined_features(
         model, samples, cmap, tok, batch_size=args.bsz,
-        image_size=model.cfg.vision.image_size)
+        image_size=model.cfg.vision.image_size, mesh=mesh)
     n = len(samples)
     dt = time.time() - t0
-    print(f"Encoded {n} images + captions in {dt:.1f}s "
-          f"({n / dt:.1f} pairs/s)")
-    save_mined_features(args.output, feats)
-    print(f"Wrote {args.output}")
+    if main:
+        print(f"Encoded {n} images + captions in {dt:.1f}s "
+              f"({n / dt:.1f} pairs/s)")
+        save_mined_features(args.output, feats)
+        print(f"Wrote {args.output}")
+    if mesh is not None:
+        mesh.barrier()
 
 
 def cmd_sample(args):
@@ -296,6 +315,7 @@ def cmd_sample(args):
     from swat_tpu_torch.train.stages import resolve_device
 
     device = resolve_device(args.device)
+    mesh, main = _start_mesh(device)
     feats = load_mined_features(args.features)
     pool = MinedPool(
         [str(p) for p in feats["file_paths"]], feats["labels"],
@@ -325,7 +345,7 @@ def cmd_sample(args):
     if args.engine == "fused":
         extra = {"approx": (args.rank_mode if args.rank_mode == "auto"
                             else args.rank_mode == "approx"),
-                 "rank_chunk": args.rank_chunk}
+                 "rank_chunk": args.rank_chunk, "mesh": mesh}
     res = sampler(
         pool, prompts, strategy=args.strategy,
         num_samples=args.num_samples, threshold=args.threshold,
@@ -335,6 +355,9 @@ def cmd_sample(args):
         zeroshot_filter_head=zs_head, seed=args.seed, device=device,
         **extra)
     total = len(res["file_list"])
+    if not main:
+        mesh.barrier()
+        return
     print(f"Sampled {total} images "
           f"({args.strategy}) in {time.time() - t0:.1f}s")
     write_split_file(args.output, res["file_list"], res["label_list"],
@@ -349,6 +372,8 @@ def cmd_sample(args):
         json.dump({str(k): v for k, v in res["num_sampled"].items()}, f,
                   indent=4)
     print(f"Wrote {args.output}")
+    if mesh is not None:
+        mesh.barrier()
 
 
 def _add_device(parser):
@@ -447,7 +472,8 @@ def main(argv=None):
     ex.add_argument("--bpe_path", default=None)
     ex.add_argument("--bsz", type=int, default=256)
     ex.add_argument("--mesh_data", type=int, default=-1,
-                    help="-1 or 1: the one card (more raises)")
+                    help="data-parallel processes under a launcher (-1: "
+                         "every one); 1 without one")
     ex.add_argument("--quantize", default="none", choices=["none", "int8"],
                     help="int8 = W8A8 quantized inference "
                          "(models/quant.py)")
@@ -489,12 +515,17 @@ def main(argv=None):
     if args.cmd == "stringmatch" and not (args.captions or args.index_dir
                                           or args.index_path):
         p.error("stringmatch needs --captions, --index_dir or --index_path")
+    import torch.distributed as dist
+
+    started_here = not dist.is_initialized()
     {"stringmatch": cmd_stringmatch, "captionmap": cmd_captionmap,
      "extract": cmd_extract, "sample": cmd_sample, "ingest": cmd_ingest,
      "mine-synonyms": cmd_mine_synonyms,
      "make-urls": cmd_make_urls,
      "filter-synonyms": cmd_filter_synonyms,
      "check-metrics": cmd_check_metrics}[args.cmd](args)
+    if started_here and dist.is_initialized():
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

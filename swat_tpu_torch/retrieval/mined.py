@@ -69,22 +69,24 @@ def extract_mined_features(model, samples: List[Sample],
                            tokenizer, batch_size: int = 256,
                            num_workers: int = 16,
                            image_size: int = 224,
-                           context_length: Optional[int] = None
-                           ) -> Dict[str, np.ndarray]:
+                           context_length: Optional[int] = None,
+                           mesh=None) -> Dict[str, np.ndarray]:
     """Encodes on the model's device -> {'image_features',
     'caption_features', 'labels', 'file_paths', 'captions'}, the
     reference's {ds}_{model}_mined.pth bundle
-    (extract_mined_feature.py:252-280)."""
+    (extract_mined_feature.py:252-280).  Under a data-parallel ``mesh``
+    each rank decodes and encodes its rows of every batch, and every rank
+    ends with the whole bundle."""
     loader = EvalLoader(samples, batch_size=batch_size, n_px=image_size,
-                        num_workers=num_workers)
-    img = extract_image_features(model, loader)
+                        num_workers=num_workers, mesh=mesh)
+    img = extract_image_features(model, loader, mesh)
 
     captions = [lookup_caption(caption_map, s.path) or "" for s in samples]
     if context_length is None:
         context_length = model.cfg.text.context_length
     tokens = tokenizer(captions, context_length)
-    cap_feats = batched_encode(make_text_encoder(model), np.asarray(tokens),
-                               batch_size)
+    cap_feats = batched_encode(make_text_encoder(model, mesh),
+                               np.asarray(tokens), batch_size)
     return {
         "image_features": img["image_features"],
         "caption_features": cap_feats,

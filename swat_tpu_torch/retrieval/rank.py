@@ -22,8 +22,16 @@ reversed index below), which no two candidates share.
 Departures from ``swat_tpu``: ``approx=True`` / ``"auto"`` take the exact
 path (``jax.lax.approx_max_k`` has no torch counterpart; exact is what it
 re-ranks to whenever its shortlist holds the true top-k, and on the CPU
-``swat_tpu``'s is exact too); a ``mesh`` raises (one card; ROADMAP Queue A
-item 10).
+``swat_tpu``'s is exact too).
+
+Under a data-parallel mesh (``mesh=``, ``core/mesh.py``) each rank ranks
+its contiguous block of candidates, when the data axis divides N, into a
+per-class top-k of keys carrying global indices; the ranks' ``[C, top_k]``
+keys are all-gathered and merged by one more top-k under the same key, so
+ties at the cutoff fall as in the one-device ranking.  When the axis does
+not divide N every rank ranks the whole pool, as ``swat_tpu`` leaves it
+unsharded (``rank.py:245-248``).  The chunked path streams its block
+through the running merge inside each rank.
 """
 
 from __future__ import annotations
@@ -32,6 +40,8 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from swat_tpu_torch.core.mesh import active
 
 # Dense [C, N] similarity matrices beyond this many elements (1 GiB f32)
 # switch to the chunked streaming merge
@@ -47,13 +57,6 @@ def _f32(x, device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device, torch.float32)
     return torch.as_tensor(np.asarray(x, np.float32), device=device)
-
-
-def _mesh_not_ported(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "a device mesh is not ported to swat_tpu_torch yet (see ROADMAP, "
-            "Queue A item 10); run on one device")
 
 
 def _sim(embeddings, exemplars, device) -> torch.Tensor:
@@ -202,32 +205,66 @@ def rank_candidates(prompt_matrix, candidate_embeddings, candidate_class,
     chunk: stream candidates through a running per-class top-k merge in
     chunks of this many rows, bounding device memory at [C, chunk]
     instead of [C, N]; auto-engages when C*N exceeds MAX_DENSE_ELEMS.
+    mesh: a data-parallel mesh; each rank ranks its block of candidates
+    and the blocks' top-k are merged (module docstring).
     Returns (top_idx [C, top_k] indices into N, top_sim [C, top_k]);
     entries beyond a class's candidate count hold -1 / -inf.
     """
-    _mesh_not_ported(mesh)
     del approx   # exact in every mode
     C = prompt_matrix.shape[0]
     N = candidate_embeddings.shape[0]
     if chunk is None and C * N > MAX_DENSE_ELEMS:
         chunk = max(top_k, (MAX_DENSE_ELEMS // max(C, 1)) // 1024 * 1024
                     or 1024)
-    if chunk is not None:
-        return _rank_candidates_chunked(prompt_matrix, candidate_embeddings,
-                                        candidate_class, top_k,
-                                        chunk=int(chunk), device=device)
-    cls = torch.as_tensor(np.asarray(candidate_class), dtype=torch.int32,
-                          device=device)
-    sims = _masked_sims(_f32(prompt_matrix, device),
-                        _f32(candidate_embeddings, device), cls, C)
-    keys = _select_top(sims, torch.arange(N, device=sims.device), top_k)
+    mesh = active(mesh)
+    classes = np.asarray(candidate_class, np.int32)
+    if mesh is not None and N % mesh.data == 0:
+        mine = mesh.rows(N)
+        keys = _top_keys(prompt_matrix, candidate_embeddings[mine],
+                         classes[mine], top_k, chunk, device,
+                         offset=mine.start, pad=True)
+        every = mesh.gather(keys[None])            # [data, C, top_k]
+        keys = torch.topk(every.permute(1, 0, 2).reshape(C, -1), top_k,
+                          dim=1).values
+    else:
+        keys = _top_keys(prompt_matrix, candidate_embeddings, classes,
+                         top_k, chunk, device)
     top_sim, top_idx = _from_keys(keys)
     return top_idx.cpu().numpy(), top_sim.cpu().numpy()
 
 
-def _rank_candidates_chunked(prompt_matrix, candidate_embeddings,
-                             candidate_class, top_k: int, *, chunk: int,
-                             device="cuda"):
+def _padding_keys(rows: int, k: int, device) -> torch.Tensor:
+    """Keys that rank below every candidate (-inf, index -1)."""
+    return _keys(torch.full((rows, k), -torch.inf, device=device),
+                 torch.full((k,), -1, device=device))
+
+
+def _top_keys(prompt_matrix, candidate_embeddings, classes: np.ndarray,
+              top_k: int, chunk: Optional[int], device, offset: int = 0,
+              pad: bool = False) -> torch.Tensor:
+    """The per-class top-k keys [C, top_k] of candidates whose global
+    indices start at ``offset``: one dense pass, or the chunked merge when
+    ``chunk`` is set; ``pad``: fill a block of fewer than top_k candidates
+    with padding keys (a dense pass over the whole pool needs top_k <= N,
+    as ``jax.lax.top_k`` does)."""
+    C = prompt_matrix.shape[0]
+    if chunk is not None:
+        return _chunked_keys(prompt_matrix, candidate_embeddings, classes,
+                             top_k, int(chunk), device, offset)
+    n = candidate_embeddings.shape[0]
+    cls = torch.as_tensor(classes, dtype=torch.int32, device=device)
+    sims = _masked_sims(_f32(prompt_matrix, device),
+                        _f32(candidate_embeddings, device), cls, C)
+    index = torch.arange(offset, offset + n, device=sims.device)
+    if not pad or n >= top_k:
+        return _select_top(sims, index, top_k)
+    return torch.cat([_select_top(sims, index, n),
+                      _padding_keys(C, top_k - n, sims.device)], dim=1)
+
+
+def _chunked_keys(prompt_matrix, candidate_embeddings, classes: np.ndarray,
+                  top_k: int, chunk: int, device, offset: int = 0
+                  ) -> torch.Tensor:
     """Streaming per-class top-k: fold candidate chunks into a running
     [C, top_k] carry of keys.  The carry comes before the chunk, and its
     keys hold global indices, so an earlier candidate wins a tie as in the
@@ -237,20 +274,17 @@ def _rank_candidates_chunked(prompt_matrix, candidate_embeddings,
     C = prompt_matrix.shape[0]
     N = candidate_embeddings.shape[0]
     prompts = _f32(prompt_matrix, device)
-    classes = np.asarray(candidate_class, np.int32)
-    carry = _keys(torch.full((C, top_k), -torch.inf, device=prompts.device),
-                  torch.full((top_k,), -1, device=prompts.device))
+    carry = _padding_keys(C, top_k, prompts.device)
     for b in range(0, N, chunk):
         cands = _f32(candidate_embeddings[b: b + chunk], device)
         cls = torch.from_numpy(classes[b: b + chunk]).to(device)
         sims = _masked_sims(prompts, cands, cls, C)
-        index = torch.arange(b, b + cands.shape[0], dtype=torch.int32,
-                             device=prompts.device)
+        index = torch.arange(offset + b, offset + b + cands.shape[0],
+                             dtype=torch.int32, device=prompts.device)
         chunk_top = _select_top(sims, index, min(top_k, cands.shape[0]))
         carry = torch.topk(torch.cat([carry, chunk_top], dim=1), top_k,
                            dim=1).values
-    top_sim, top_idx = _from_keys(carry)
-    return top_idx.cpu().numpy(), top_sim.cpu().numpy()
+    return carry
 
 
 def _block_pair(a, b, ia: int, ib: int, threshold: float) -> torch.Tensor:

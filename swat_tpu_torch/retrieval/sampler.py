@@ -28,8 +28,9 @@ Output: ``{prefix}.txt`` with ``path label 0`` lines
 
 Both engines take an explicit ``device`` (default the card); the Random
 strategies walk the host ``np.random.default_rng(seed)`` as ``swat_tpu``
-does, so their draws are identical.  A ``mesh`` raises (ROADMAP Queue A
-item 10).
+does, so their draws are identical.  ``mesh=`` ranks the fused sampler's
+candidates over a data-parallel mesh (``rank.rank_candidates``); the masks
+and the host walk are the same on every rank.
 """
 
 from __future__ import annotations
@@ -309,7 +310,6 @@ def sample_retrieved_fused(
 
     Random strategies keep host-rng ordering (identical draws to the
     oracle) over one fused threshold-gate pass."""
-    R._mesh_not_ported(mesh)
     if strategy not in STRATEGIES:
         raise NotImplementedError(f"strategy {strategy}")
     if t2i_threshold is None:
@@ -402,8 +402,8 @@ def sample_retrieved_fused(
     # the fused selection: class-masked product + top-k on the device
     cls_for_rank = np.where(keep, labels, -1).astype(np.int32)
     top_by_class, _ = R.rank_candidates(W, X, cls_for_rank, num_samples,
-                                        approx=approx, chunk=rank_chunk,
-                                        device=device)
+                                        mesh=mesh, approx=approx,
+                                        chunk=rank_chunk, device=device)
     cutoff = np.full(C, -np.inf, np.float32)
 
     for cls in pool.classes():

@@ -17,6 +17,13 @@ The resident epoch takes no ``--accum``: it trains whole batches, as
 ``swat_tpu``'s scan epoch does.  Its steps are the streaming steps, so an
 RN50 epoch folds each step's BN statistics after the step's update
 (``scan_loop.py:140-150``), through ``TrainState.apply_update``.
+
+Under a data-parallel mesh the split is sharded by
+``core.mesh.resident_sharding``: each rank decodes and holds its
+contiguous rows (the whole split on every rank when the data axis does not
+divide it), and a step's batch is assembled from the ranks that hold its
+rows by one all-reduce of the rows each contributes.  Labels, source and
+valid_hw are small and held whole on every rank, where the draws are made.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from swat_tpu_torch.core.mesh import Mesh, active, resident_sharding
 from swat_tpu_torch.data.splits import Sample
 from swat_tpu_torch.data.pipeline import train_canvases
 from swat_tpu_torch.train.state import TrainState
@@ -34,31 +42,54 @@ from swat_tpu_torch.train.state import TrainState
 class ResidentData:
     """A train split on the device: uint8 canvases [N, C, C, 3], labels
     and source; valid_hw [N, 2] stays on the host, where the crops are
-    drawn."""
+    drawn.  With a ``mesh`` and ``shard`` (this rank's rows, from
+    ``resident_sharding``) the canvases are those rows alone."""
 
     def __init__(self, canvases: torch.Tensor, valid_hw: np.ndarray,
-                 labels: torch.Tensor, source: torch.Tensor):
+                 labels: torch.Tensor, source: torch.Tensor,
+                 mesh: Optional[Mesh] = None,
+                 shard: Optional[slice] = None):
         self.canvases = canvases
         self.valid_hw = valid_hw
         self.labels = labels
         self.source = source
-        self.n = int(canvases.shape[0])
+        self.n = int(labels.shape[0])
+        self.mesh = active(mesh) if shard is not None else None
+        self.shard = shard
 
     @classmethod
     def from_samples(cls, samples: Sequence[Sample], device: torch.device,
-                     num_workers: int = 16) -> "ResidentData":
-        canvases, valid_hw = train_canvases(samples, num_workers)
+                     num_workers: int = 16,
+                     mesh: Optional[Mesh] = None) -> "ResidentData":
+        shard = resident_sharding(mesh, len(samples))
+        mine = samples if shard is None else samples[shard]
+        canvases, valid_hw = train_canvases(mine, num_workers)
+        canvases = torch.from_numpy(canvases).to(device)
+        valid_hw = np.asarray(valid_hw, np.int32)
+        if shard is not None:
+            valid_hw = mesh.gather(torch.from_numpy(valid_hw).to(
+                device)).cpu().numpy()
         labels = np.asarray([s.label for s in samples], np.int64)
         source = np.asarray([s.is_fewshot for s in samples], np.int64)
-        return cls(torch.from_numpy(canvases).to(device),
-                   np.asarray(valid_hw, np.int32),
-                   torch.from_numpy(labels).to(device),
-                   torch.from_numpy(source).to(device))
+        return cls(canvases, valid_hw, torch.from_numpy(labels).to(device),
+                   torch.from_numpy(source).to(device), mesh, shard)
 
     def batch(self, idx: np.ndarray) -> dict:
-        """The batch at rows ``idx``: device tensors, host valid_hw."""
+        """The batch at rows ``idx``: device tensors, host valid_hw.  A
+        sharded split's canvases come from the ranks that hold them: each
+        fills the rows it holds, zeros elsewhere, and one all-reduce sums
+        them."""
         at = torch.as_tensor(idx, device=self.canvases.device)
-        return {"canvases": self.canvases[at], "valid_hw": self.valid_hw[idx],
+        if self.mesh is None:
+            canvases = self.canvases[at]
+        else:
+            start, stop = self.shard.start, self.shard.stop
+            held = (at >= start) & (at < stop)
+            canvases = self.canvases.new_zeros(
+                (len(idx),) + tuple(self.canvases.shape[1:]))
+            canvases[held] = self.canvases[at[held] - start]
+            self.mesh.all_reduce(canvases)
+        return {"canvases": canvases, "valid_hw": self.valid_hw[idx],
                 "labels": self.labels[at], "source": self.source[at]}
 
 

@@ -29,9 +29,22 @@ and restore train checkpoints, and ``--test_imagenet_ood`` sweeps the
 ImageNet OOD suite (``eval/ood.py``) with the most downstream bundle that
 ran.  ``--checkpoint_path`` takes an OpenCLIP ``.pt`` or a ``cli.convert``
 bundle, fp32 or int8; an int8 one gives the model the int8 layout
-(``CLIPModel.int8_``), for inference only.  The options still to port (a
-device mesh, ``--trace_dir``) raise NotImplementedError naming their
-ROADMAP item.
+(``CLIPModel.int8_``), for inference only.  ``--trace_dir`` is still to
+port and raises NotImplementedError naming its ROADMAP item.
+
+Under a launcher (``torch.distributed.run``) the pipeline starts the
+process group (``core.distributed``) and runs data-parallel over a
+``--mesh_data x --mesh_model`` mesh of the processes (``core/mesh.py``):
+each rank decodes its rows of every batch, the towers encode them, the
+features and gradients are gathered and summed, and every rank holds the
+numbers one device computes.  As in ``swat_tpu``'s CLI the towers are not
+sharded by ``--mesh_model``: the ranks of a model group compute the same
+rows (tensor parallelism is the library's, ``models/clip.py``).  Rank 0
+alone writes the log, ``loss.csv``, the feature and prompt caches, the
+score files and the bundles, and prints the summary line; the others wait
+at a barrier and read what it wrote.  Without a launcher and with the
+default ``--mesh_data -1 --mesh_model 1`` there is no process group and
+no mesh.
 """
 
 from __future__ import annotations
@@ -45,7 +58,11 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from swat_tpu_torch.core.distributed import (local_device,
+                                             maybe_initialize_distributed)
+from swat_tpu_torch.core.mesh import MeshSpec, active, create_mesh
 from swat_tpu_torch.data import prompts as P
 from swat_tpu_torch.data.splits import (Sample, class_counts,
                                         read_pseudo_split, read_split)
@@ -80,7 +97,8 @@ from swat_tpu_torch.models.loader import (jax_params_from_state_dict,
                                           load_torch_checkpoint,
                                           state_dict_from_jax_params)
 from swat_tpu_torch.models.tokenizer import get_tokenizer
-from swat_tpu_torch.train.checkpoint import (load_best_model,
+from swat_tpu_torch.train.checkpoint import (best_model_path,
+                                             load_best_model,
                                              save_best_model,
                                              save_test_scores)
 from swat_tpu_torch.train.losses import set_loss
@@ -100,8 +118,9 @@ from swat_tpu_torch.train.trainer import compose_twin, train_loop
 
 
 def resolve_device(name: str) -> torch.device:
-    """The run's device; 'cuda' without a usable GPU raises."""
-    device = torch.device(name)
+    """The run's device, ``cuda:LOCAL_RANK`` under a launcher; 'cuda'
+    without a usable GPU raises."""
+    device = local_device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "--device cuda requested but no CUDA device is available; pass "
@@ -165,21 +184,39 @@ class SwatPipeline:
     def __init__(self, cfg: RunConfig):
         self.cfg = cfg.derived()
         cfg = self.cfg
-        if cfg.mesh_data not in (1, -1) or cfg.mesh_model not in (1, -1):
-            raise _not_ported("a device mesh (--mesh_data/--mesh_model)",
-                              "Queue A item 10")
         if cfg.trace_dir:
             raise _not_ported("--trace_dir", "Queue A item 11")
         self.device = resolve_device(cfg.device)
-        self.logger, self.loss_logger = set_logger(cfg)
+        started = maybe_initialize_distributed(device=self.device.type)
+        world = dist.get_world_size() if started else 1
+        self.main = not started or dist.get_rank() == 0
+        self.logger, self.loss_logger = set_logger(cfg, main=self.main)
         logger = self.logger
+        if started:
+            logger.info(f"Process group: backend {dist.get_backend()}, "
+                        f"{world} process(es), rank {dist.get_rank()}")
+        # the mesh of every process; one without a launcher only when a
+        # mesh was asked for (it then warns and holds the one process)
+        self.mesh = None
+        if started or (cfg.mesh_data, cfg.mesh_model) not in ((-1, 1),
+                                                               (1, 1)):
+            self.mesh = create_mesh(MeshSpec(cfg.mesh_data, cfg.mesh_model),
+                                    logger=logger)
+        if active(self.mesh) is not None:
+            logger.info(f"Data-parallel over {self.mesh.data} x "
+                        f"{self.mesh.model} ranks ({world} processes)")
+            if cfg.bsz % self.mesh.data:
+                raise ValueError(
+                    f"--bsz {cfg.bsz} is not divisible by the data axis "
+                    f"({self.mesh.data} ranks)")
 
         self.model_cfg = get_model_config(cfg.model_cfg)
         self.precision = (FP32_PRECISION if cfg.compute_dtype == "float32"
                           else DEFAULT_PRECISION)
         self.precision.apply_backend_flags()
         remat, accum = auto_memory_policy(cfg.model_cfg, cfg.remat,
-                                          cfg.accum, cfg.bsz, 1, cfg.method)
+                                          cfg.accum, cfg.bsz, world,
+                                          cfg.method)
         if (remat, accum) != (cfg.remat, cfg.accum):
             logger.warning(
                 f"{cfg.model_cfg} at bsz {cfg.bsz} on one device: "
@@ -240,7 +277,7 @@ class SwatPipeline:
         self.zeroshot_head = head
 
         self.evaluator = Evaluator(cfg.num_classes, loss=self._loss(),
-                                   device=self.device)
+                                   device=self.device, mesh=self.mesh)
         self._resident_eval_cache: Dict[str, Optional[ResidentEval]] = {}
         self._scan_eval = None
 
@@ -275,14 +312,23 @@ class SwatPipeline:
             cfg.dataset_root, "prompts",
             f"{cfg.dataset}_{cfg.model_cfg}_{cfg.prompt_name}"
             "_prompt_tensors.npz")
+        self._barrier()
         if not cfg.recal_prompt and os.path.exists(cache):
             tensors = P.load_prompt_tensors(cache)
             self.logger.info(f"Loaded prompt tensors from {cache}")
         else:
-            tensors = encode_prompts(make_text_encoder(self.model), tokenized)
-            P.save_prompt_tensors(cache, tensors)
-            self.logger.info(f"Saved prompt tensors to {cache}")
+            tensors = encode_prompts(make_text_encoder(self.model, self.mesh),
+                                     tokenized)
+            if self.main:
+                P.save_prompt_tensors(cache, tensors)
+                self.logger.info(f"Saved prompt tensors to {cache}")
+            self._barrier()
         return tensors
+
+    def _barrier(self) -> None:
+        """Under a mesh, the other ranks wait here for what rank 0 wrote."""
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     def _samples(self, split):
         return read_split(self.cfg.dataset_root, split)
@@ -302,7 +348,7 @@ class SwatPipeline:
     def _eval_loader(self, split, bsz: int = 128):
         return EvalLoader(self._samples(split), batch_size=bsz,
                           n_px=self.model_cfg.vision.image_size,
-                          num_workers=self.cfg.num_workers)
+                          num_workers=self.cfg.num_workers, mesh=self.mesh)
 
     def _resident_eval_for(self, split) -> Optional[ResidentEval]:
         """ResidentEval for a split when enabled and within budget;
@@ -320,7 +366,8 @@ class SwatPipeline:
             self._resident_eval_cache[tag] = None
             return None
         ev = ResidentEval.from_samples(samples, self.device, n_px=n_px,
-                                       num_workers=cfg.num_workers)
+                                       num_workers=cfg.num_workers,
+                                       mesh=self.mesh)
         if self._scan_eval is None:
             self._scan_eval = make_scan_eval(cfg.num_classes,
                                              loss=self._loss())
@@ -355,7 +402,8 @@ class SwatPipeline:
 
         def extract():
             t0 = time.perf_counter()
-            feats = extract_image_features(self.model, loader_fn())
+            feats = extract_image_features(self.model, loader_fn(),
+                                           self.mesh)
             secs = time.perf_counter() - t0
             n = len(feats["labels"])
             self.logger.info(
@@ -364,8 +412,22 @@ class SwatPipeline:
                 f"{self.device})")
             return feats
 
-        return extract_or_load(path, cfg.recal_fea, extract,
-                               logger=self.logger)
+        self._barrier()
+        feats = extract_or_load(path, cfg.recal_fea, extract,
+                                logger=self.logger, save=self.main)
+        self._barrier()
+        return feats
+
+    def _save_best_model(self, output_dir: str, stage: int, **kw) -> str:
+        """``save_best_model`` on rank 0, then the barrier -> the bundle's
+        path on every rank."""
+        if self.main:
+            path = save_best_model(output_dir, stage, **kw)
+        else:
+            path = best_model_path(output_dir, stage,
+                                   kw["best_records"].get("best_epoch", -1))
+        self._barrier()
+        return path
 
     def _load_ckpt(self, path: str):
         """A stage bundle or warm-start file -> (JAX param tree, head on
@@ -423,6 +485,12 @@ class SwatPipeline:
                 f"{method!r} (FLYP's contrastive loss couples the whole "
                 "batch; frozen-encoder methods don't need it)")
         check_accum(self.model, cfg.accum)
+        data = active(self.mesh)
+        if data is not None and cfg.accum > 1 and (
+                cfg.bsz % cfg.accum or (cfg.bsz // cfg.accum) % data.data):
+            raise ValueError(
+                f"--accum {cfg.accum} cuts --bsz {cfg.bsz} into microbatches "
+                f"that the data axis ({data.data} ranks) does not divide")
 
         if frozen:
             # val / test features of the eval transform are deterministic,
@@ -441,7 +509,8 @@ class SwatPipeline:
                     else "train_evalaug",
                     lambda: TrainSnapshotLoader(
                         samples, 256, image_size, cfg.num_workers,
-                        seed=cfg.training_seed, mode=snap_mode),
+                        seed=cfg.training_seed, mode=snap_mode,
+                        mesh=self.mesh),
                     samples=samples)
                 train_loader = FeatureBatches(
                     train_feats["image_features"], train_feats["labels"],
@@ -452,7 +521,7 @@ class SwatPipeline:
                 train_loader = TrainLoader(
                     samples, batch_size=cfg.bsz, seed=cfg.training_seed,
                     mode=cfg.aug_mode, n_px=image_size,
-                    num_workers=cfg.num_workers)
+                    num_workers=cfg.num_workers, mesh=self.mesh)
             feats = {}
             for tag, split in (("val", cfg.val_split),
                                ("test", cfg.test_split)):
@@ -460,7 +529,7 @@ class SwatPipeline:
                 feats[tag] = self._cached_extract(
                     cfg, fingerprint, tag,
                     lambda smp=smp: EvalLoader(smp, 256, image_size,
-                                               cfg.num_workers),
+                                               cfg.num_workers, self.mesh),
                     samples=smp)
         else:
             train_loader = TrainLoader(
@@ -468,7 +537,8 @@ class SwatPipeline:
                 mode=cfg.aug_mode, n_px=image_size,
                 num_workers=cfg.num_workers,
                 tokenized_prompts=(self.tokenized_prompts
-                                   if method == "FLYP" else None))
+                                   if method == "FLYP" else None),
+                mesh=self.mesh)
 
         # the twin-loader methods' second batch: for CMO the train split
         # drawn with inverse class frequencies, else the few-shot split
@@ -483,12 +553,12 @@ class SwatPipeline:
             twin_loader = WeightedTrainLoader(
                 samples, cfg.num_classes, cfg.cmo_alpha, batch_size=twin_bsz,
                 seed=cfg.training_seed, mode=cfg.aug_mode, n_px=image_size,
-                num_workers=cfg.num_workers)
+                num_workers=cfg.num_workers, mesh=self.mesh)
         elif method in TWIN_METHODS:
             twin_loader = TrainLoader(
                 self._samples(cfg.fewshot_data), batch_size=twin_bsz,
                 seed=cfg.training_seed + 7, mode=cfg.aug_mode,
-                n_px=image_size, num_workers=cfg.num_workers)
+                n_px=image_size, num_workers=cfg.num_workers, mesh=self.mesh)
 
         # the resident path: the split's uint8 canvases on the device (and
         # the twin's: the few-shot split, or CMO's train split, the same
@@ -505,13 +575,14 @@ class SwatPipeline:
                 * CANVAS_SIZE * 3
             if cfg.resident == "on" or est <= cfg.resident_budget_bytes:
                 resident_data = ResidentData.from_samples(
-                    samples, self.device, num_workers=cfg.num_workers)
+                    samples, self.device, num_workers=cfg.num_workers,
+                    mesh=self.mesh)
                 if method == "CMO":
                     resident_twin = resident_data
                 elif twin_samples:
                     resident_twin = ResidentData.from_samples(
                         twin_samples, self.device,
-                        num_workers=cfg.num_workers)
+                        num_workers=cfg.num_workers, mesh=self.mesh)
                 logger.info(
                     f"Resident train data: {len(samples)}"
                     f"{' + ' + str(len(twin_samples)) if twin_samples else ''}"
@@ -526,7 +597,8 @@ class SwatPipeline:
             u_loader = TrainLoader(
                 self._samples(cfg.unlabeled_data),
                 batch_size=cfg.bsz * cfg.mu, seed=cfg.training_seed,
-                mode="canvas", n_px=image_size, num_workers=cfg.num_workers)
+                mode="canvas", n_px=image_size, num_workers=cfg.num_workers,
+                mesh=self.mesh)
             steps_per_epoch = len(u_loader)
         else:
             steps_per_epoch = len(train_loader)
@@ -545,7 +617,7 @@ class SwatPipeline:
             lr_backbone=cfg.lr_backbone, total_iter=total_iter, wd=cfg.wd,
             optim_type=cfg.optim, lr_projector=cfg.lr_projector,
             temperature=cfg.temperature, locked_text=cfg.locked_text,
-            dataset_head=dataset_head)
+            dataset_head=dataset_head, mesh=self.mesh)
 
         heatmap_fn = (self._heatmap_fn() if method == "attentivemix"
                       else None)
@@ -630,7 +702,7 @@ class SwatPipeline:
             def flagged(split):
                 return EvalLoader([Sample(s.path, s.is_fewshot, s.is_fewshot)
                                    for s in self._samples(split)], 128,
-                                  image_size, cfg.num_workers)
+                                  image_size, cfg.num_workers, self.mesh)
 
             def validate_fn(state):
                 return self.evaluator.validate(
@@ -710,7 +782,8 @@ class SwatPipeline:
             test_fn=test_fn, logger=logger, loss_logger=self.loss_logger,
             epoch_runner=epoch_runner,
             ckpt_dir=os.path.join(cfg.output_dir, "model_ckpts"),
-            post_epoch=self._flyp_post_epoch if method == "FLYP" else None)
+            post_epoch=self._flyp_post_epoch if method == "FLYP" else None,
+            mesh=self.mesh)
 
     def _encode_attribute_prompts(self):
         """The attribute-augmented class prompts of
@@ -728,13 +801,14 @@ class SwatPipeline:
         tokenized = P.tokenize_prompts(prompts, self.tokenizer,
                                        self.model_cfg.text.context_length)
         self.logger.info(f"CMLP: attribute prompts from {path}")
-        return encode_prompts(make_text_encoder(self.model), tokenized)
+        return encode_prompts(make_text_encoder(self.model, self.mesh),
+                              tokenized)
 
     def _flyp_post_epoch(self, state, epoch: int) -> None:
         """FLYP's head, rebuilt in place from the trained text tower
         (reference build_classifier_head, utils/models.py:75-82;
         ``swat_tpu``'s ``_flyp_post_epoch``)."""
-        tensors = encode_prompts(make_text_encoder(state.model),
+        tensors = encode_prompts(make_text_encoder(state.model, state.mesh),
                                  self.tokenized_prompts)
         with torch.no_grad():
             state.head.copy_(torch.from_numpy(
@@ -808,7 +882,8 @@ class SwatPipeline:
             texts[class_id] = [name]
         tokenized = P.tokenize_prompts(texts, self.tokenizer,
                                        self.model_cfg.text.context_length)
-        tensors = encode_prompts(make_text_encoder(self.model), tokenized)
+        tensors = encode_prompts(make_text_encoder(self.model, self.mesh),
+                                 tokenized)
         return torch.from_numpy(np.stack(
             [np.asarray(tensors[cid]["mean"])
              for cid in sorted(tensors, key=int)])).to(self.device)
@@ -900,7 +975,8 @@ class SwatPipeline:
                        f"{cfg.cls_init},{cfg.shots},{cfg.seed},"
                        f"{cfg.retrieval_split},{round(zs_acc, 1)}")
             logger.info(summary)
-            print(summary)
+            if self.main:
+                print(summary)
             return zs_acc, None, -1.0
 
         if cfg.skip_stage1:
@@ -926,9 +1002,9 @@ class SwatPipeline:
         logit_scale = float(best_trainable["logit_scale"])
         self.model.load_state_dict(best_params)
         val_feats = extract_image_features(
-            self.model, self._eval_loader(cfg.val_split, 256))
+            self.model, self._eval_loader(cfg.val_split, 256), self.mesh)
         test_feats = extract_image_features(
-            self.model, self._eval_loader(cfg.test_split, 256))
+            self.model, self._eval_loader(cfg.test_split, 256), self.mesh)
         logger.info("Extracted val, test features for fast testing "
                     "after training.")
 
@@ -938,7 +1014,8 @@ class SwatPipeline:
             test_feats["labels"], cfg.num_classes, loss)
         scores = calculate_scores(test_cm)
         logger.info(f"+++++ Test Acc: {round(test_acc, 3)}")
-        save_test_scores(scores, test_cm, cfg.output_dir, "test", stage=1)
+        if self.main:
+            save_test_scores(scores, test_cm, cfg.output_dir, "test", stage=1)
 
         # ---- tau normalization.  With --no_tau unset but --tau_norm off
         # the reference still stores a copy of the best head with
@@ -954,7 +1031,7 @@ class SwatPipeline:
                 best_tau_head = best_head.clone()
                 best_tau, best_tau_test_acc = 0.0, 0.0
 
-        path = save_best_model(
+        path = self._save_best_model(
             cfg.output_dir, 1, best_records=best.records,
             model_params=best_params, head=best_head,
             logit_scale=best_trainable["logit_scale"], test_acc=test_acc,
@@ -994,12 +1071,13 @@ class SwatPipeline:
             lambda: TrainSnapshotLoader(fs_smp, 128, n_px, cfg.num_workers,
                                         seed=cfg.training_seed,
                                         shuffle_drop_bsz=128,
-                                        mode=snap_mode),
+                                        mode=snap_mode, mesh=self.mesh),
             samples=fs_smp)
         test_smp = self._samples(cfg.test_split)
         test_feats = self._cached_extract(
             cfg, fingerprint, "test",
-            lambda: EvalLoader(test_smp, 256, n_px, cfg.num_workers),
+            lambda: EvalLoader(test_smp, 256, n_px, cfg.num_workers,
+                               self.mesh),
             samples=test_smp)
 
         loss = self._loss(stage2)
@@ -1014,7 +1092,7 @@ class SwatPipeline:
             lr_classifier=stage2.lr_classifier,
             lr_backbone=stage2.lr_backbone,
             total_iter=len(train_loader) * stage2.epochs, wd=stage2.wd,
-            optim_type=stage2.optim)
+            optim_type=stage2.optim, mesh=self.mesh)
 
         def validate_fn(state):
             return validate_features(
@@ -1034,7 +1112,8 @@ class SwatPipeline:
             sample_fn=make_sampler("probing"),
             train_batches=lambda: iter(train_loader),
             steps_per_epoch=len(train_loader), validate_fn=validate_fn,
-            test_fn=test_fn, logger=logger, loss_logger=self.loss_logger)
+            test_fn=test_fn, logger=logger, loss_logger=self.loss_logger,
+            mesh=self.mesh)
 
         best_head = best.trainable["head"]
         best_scale = float(best.trainable["logit_scale"])
@@ -1042,9 +1121,10 @@ class SwatPipeline:
             best_head, best_scale, test_feats["image_features"],
             test_feats["labels"], stage2.num_classes, loss)
         logger.info(f"+++++ stage 2 Test Acc: {round(test_acc, 3)}")
-        save_test_scores(calculate_scores(test_cm), test_cm, cfg.output_dir,
-                         "test", stage=2)
-        path = save_best_model(
+        if self.main:
+            save_test_scores(calculate_scores(test_cm), test_cm,
+                             cfg.output_dir, "test", stage=2)
+        path = self._save_best_model(
             cfg.output_dir, 2, best_records=best.records,
             model_params=best.trainable["model"], head=best_head,
             logit_scale=best.trainable["logit_scale"], test_acc=test_acc)
@@ -1075,9 +1155,10 @@ class SwatPipeline:
             self.model, best_head, best_scale, cfg.test_split,
             return_confusion=True)
         logger.info(f"+++++ Stage 2 FSFT Test Acc: {round(test_acc, 3)}")
-        save_test_scores(calculate_scores(test_cm), test_cm, cfg.output_dir,
-                         "test", stage=3)
-        path = save_best_model(
+        if self.main:
+            save_test_scores(calculate_scores(test_cm), test_cm,
+                             cfg.output_dir, "test", stage=3)
+        path = self._save_best_model(
             cfg.output_dir, 3, best_records=best.records,
             model_params=best.trainable["model"], head=best_head,
             logit_scale=best.trainable["logit_scale"], test_acc=test_acc)
@@ -1102,7 +1183,8 @@ class SwatPipeline:
         def make_loader(samples):
             return EvalLoader(samples, batch_size=256,
                               n_px=self.model_cfg.vision.image_size,
-                              num_workers=self.cfg.num_workers)
+                              num_workers=self.cfg.num_workers,
+                              mesh=self.mesh)
 
         return test_imagenet_ood(
             self.evaluator, self.model, head, None, self.cfg.dataset_path,
@@ -1165,7 +1247,8 @@ class SwatPipeline:
                    f"{round(wsft_acc, 1)},{round(stage2_lp_acc, 1)},"
                    f"{round(stage2_fsft_acc, 1)}")
         logger.info(summary)
-        print(summary)
+        if self.main:
+            print(summary)
         return summary
 
 

@@ -13,6 +13,15 @@ which are buffers, not parameters (``swat_tpu`` labels them ``frozen``,
 batch's statistics on the state (``bn_updates``), and the optimizer update
 folds them into the running ones, as ``swat_tpu``'s ``_fold_bn`` folds its
 sown values after ``_apply_update``.
+
+Under a data-parallel mesh (``mesh``) the update first sums the gradients
+over the data group (``core.mesh.Mesh.sync_grads``): the towers' are
+partial sums over each rank's rows; the head's and logit_scale's are whole
+on every rank and are not summed.  The model is not wrapped in
+``DistributedDataParallel``, so its state dict keeps its names (the
+bundles and ``cli.convert`` read them), the frozen tensors stay out of the
+sum as they stay out of the groups, and ``--accum`` needs no ``no_sync``:
+the sum runs once an update.
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from swat_tpu_torch.core.mesh import Mesh, active
 from swat_tpu_torch.models.clip import CLIPModel
 from swat_tpu_torch.models.resnet import BNUpdates, fold_bn_updates
 from swat_tpu_torch.train.optim import (build_optimizer, label_params,
@@ -44,11 +54,21 @@ class TrainState:
     # the last train-mode encode's BatchNorm batch statistics (the RN50
     # tower's; empty for a ViT), folded by the next update
     bn_updates: Optional[BNUpdates] = None
+    # the data-parallel mesh the steps run on, or None for one device
+    mesh: Optional[Mesh] = None
 
     def apply_update(self) -> None:
         """One optimizer step with this count's learning rates, the
         pending BatchNorm statistics folded, then the count moves on (the
-        gradients are already in .grad)."""
+        gradients are already in .grad; under a mesh they are summed over
+        the data group first)."""
+        mesh = active(self.mesh)
+        if mesh is not None:
+            # the towers' parameters only: the head, dataset head and
+            # logit_scale act on the gathered features, so every rank
+            # holds their whole gradient already
+            mesh.sync_grads(p for p in self.model.parameters()
+                            if p.requires_grad)
         set_lr(self.optimizer, self.step)
         self.optimizer.step()
         if self.bn_updates:
@@ -89,8 +109,8 @@ def create_train_state(model: CLIPModel, head: torch.Tensor, method: str, *,
                        lr_projector: Optional[float] = None,
                        temperature: float = 0.07,
                        locked_text: bool = False,
-                       dataset_head: Optional[torch.Tensor] = None
-                       ) -> TrainState:
+                       dataset_head: Optional[torch.Tensor] = None,
+                       mesh: Optional[Mesh] = None) -> TrainState:
     """Marks the model's frozen tensors (``requires_grad`` off), copies the
     head (and ``dataset_head``, finetune-multitask's, trained in the head
     group) and makes logit_scale on the model's device, and builds the
@@ -129,4 +149,4 @@ def create_train_state(model: CLIPModel, head: torch.Tensor, method: str, *,
                                 optim_type=optim_type,
                                 lr_projector=lr_projector)
     return TrainState(model, head_p, scale_p, optimizer,
-                      dataset_head=dataset_p)
+                      dataset_head=dataset_p, mesh=mesh)

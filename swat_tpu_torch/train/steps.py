@@ -32,6 +32,15 @@ encodes in train mode (``encode_train``): RN50's BatchNorm normalizes with
 the batch's statistics and the update writes the new running statistics
 (``TrainState.apply_update``), FixMatch's three views as one BN batch; the
 frozen probes encode with the running ones.
+
+Under a data-parallel mesh (the state's ``mesh``) a step takes the global
+batch, as one device does, draws included: the towers encode this rank's
+rows of it alone and gather the features (``core.mesh.on_rows``), so the
+mixes, the [B, B] FLYP logits, FixMatch's mask and every loss are those of
+the global batch on every rank; RN50's BatchNorm all-reduces its sums; the
+update sums the towers' gradients over the data group
+(``TrainState.apply_update``).  ``--accum`` cuts the global batch into
+microbatches, each encoded in its ranks' rows.
 """
 
 from __future__ import annotations
@@ -42,6 +51,7 @@ from typing import Callable, Mapping, Optional, Union
 import numpy as np
 import torch
 
+from swat_tpu_torch.core.mesh import Mesh, active, on_rows
 from swat_tpu_torch.kernels import augment as aug
 from swat_tpu_torch.kernels.flash_attention import mha_qkv
 from swat_tpu_torch.kernels.randaugment import (RandAugmentDraws,
@@ -50,6 +60,7 @@ from swat_tpu_torch.kernels.randaugment import (RandAugmentDraws,
 from swat_tpu_torch.models.clip import Attention
 from swat_tpu_torch.models.configs import ResNetConfig
 from swat_tpu_torch.models.head import head_logits
+from swat_tpu_torch.models.resnet import BNUpdates
 from swat_tpu_torch.train.losses import (LossFn, cross_entropy,
                                          mixup_criterion,
                                          mixup_criterion_lam_vector)
@@ -98,6 +109,11 @@ class FixmatchDraws:
     weak: Optional[aug.CropDraws] = None
     strong: Optional[aug.CropDraws] = None
     rand_augment: Optional[RandAugmentDraws] = None
+
+
+def _mesh_of(state) -> Optional[Mesh]:
+    """The state's data-parallel mesh (None for a state that has none)."""
+    return getattr(state, "mesh", None)
 
 
 def _check_method(method: str) -> None:
@@ -239,7 +255,10 @@ def make_mix_fn(method: str, *, heatmap_fn: Optional[HeatmapFn] = None,
             heatmaps = None
             if draws.mix.gate:
                 with torch.no_grad():
-                    heatmaps = heatmap_fn(state.model, images, labels)
+                    heatmaps = on_rows(
+                        _mesh_of(state),
+                        lambda im, lb: heatmap_fn(state.model, im, lb),
+                        images, labels)
             images, y_a, y_b, lam_vec = aug.attentivemix(
                 images, labels, heatmaps, draws.mix)
         return images, y_a, y_b, lam, lam_vec, source
@@ -262,11 +281,13 @@ def encode_train(state: TrainState, images: torch.Tensor,
     ``_encode_train``) -> normalized features.  The RN50 tower normalizes
     with batch statistics (the reference's model.train()), which wait on
     the state for the update to fold them into the running statistics
-    (``TrainState.apply_update``); a ViT tower adds none."""
-    state.bn_updates = {}
-    return state.model.encode_image(images, normalize=True,
-                                    attention=attention, use_mega=use_mega,
-                                    updates=state.bn_updates)
+    (``TrainState.apply_update``); a ViT tower adds none.  Under a mesh
+    this rank's rows are encoded and the features gathered."""
+    mesh = _mesh_of(state)
+    state.bn_updates = BNUpdates(active(mesh))
+    return on_rows(mesh, lambda x: state.model.encode_image(
+        x, normalize=True, attention=attention, use_mega=use_mega,
+        updates=state.bn_updates), images)
 
 
 def check_accum(model, accum: int) -> None:
@@ -440,9 +461,9 @@ def _frozen_features(state: TrainState, batch, draws: StepDraws,
     if pre_extracted:
         return batch["features"]
     with torch.no_grad():
-        return state.model.encode_image(
-            _train_images(batch, draws, image_size), normalize=True,
-            attention=attention)
+        return on_rows(_mesh_of(state), lambda x: state.model.encode_image(
+            x, normalize=True, attention=attention),
+            _train_images(batch, draws, image_size))
 
 
 def _update(state: TrainState, val: torch.Tensor) -> torch.Tensor:
@@ -524,8 +545,8 @@ def make_flyp_loss(loss: LossFn = cross_entropy, image_size: int = 224,
     def flyp_loss(state: TrainState, batch, draws: StepDraws):
         img = encode_train(state, _train_images(batch, draws, image_size),
                            attention)
-        txt = state.model.encode_text(batch["prompt_tokens"],
-                                      normalize=True, attention=attention)
+        txt = on_rows(_mesh_of(state), lambda t: state.model.encode_text(
+            t, normalize=True, attention=attention), batch["prompt_tokens"])
         logits = torch.exp(state.logit_scale) * (img @ txt.t())
         labels = torch.arange(logits.shape[0], device=logits.device)
         source = batch["source"]

@@ -14,6 +14,14 @@
   and goes on at the epoch after it, its iteration count from the
   checkpoint's step.  The per-run draws start again from
   ``--training_seed``, as the JAX key does.
+
+Under a data-parallel mesh every rank runs this loop with the same draws:
+the loaders' local rows are gathered into the global batch before the
+draws are made (``Mesh.gather_batch``), so every rank holds the global
+loss and the same validation numbers.  Rank 0 alone writes the log lines,
+``loss.csv`` and the train checkpoints (the others have neither handler
+nor stream), and the others wait for a checkpoint at a barrier; ``--resume``
+loads on every rank.
 """
 
 from __future__ import annotations
@@ -27,6 +35,8 @@ from typing import Any, Callable, Dict, Iterable, Optional
 
 import numpy as np
 
+from swat_tpu_torch.core.mesh import Mesh, active
+from swat_tpu_torch.data.pipeline import local_keys
 from swat_tpu_torch.eval.metrics import calculate_scores
 from swat_tpu_torch.train.checkpoint import load_train_ckpt, save_train_ckpt
 from swat_tpu_torch.train.state import TrainState
@@ -86,7 +96,8 @@ def train_loop(*, cfg, state: TrainState, step_fn: Callable,
                test_fn: Callable, logger, loss_logger=None,
                epoch_runner: Optional[Callable] = None,
                ckpt_dir: Optional[str] = None,
-               post_epoch: Optional[Callable] = None):
+               post_epoch: Optional[Callable] = None,
+               mesh: Optional[Mesh] = None):
     """Runs cfg.epochs epochs -> (final state, BestSnapshot).
 
     ``step_fn(state, batch, draws)`` updates the state in place;
@@ -96,8 +107,12 @@ def train_loop(*, cfg, state: TrainState, step_fn: Callable,
     data.  ``ckpt_dir``: where --save_ckpt writes and --resume reads.
     ``post_epoch(state, epoch)`` (FLYP's head rebuild) updates the state in
     place on the validating epochs only, before the validation, as the
-    reference's train_flyp does (utils/training.py:488-490)."""
+    reference's train_flyp does (utils/training.py:488-490).  ``mesh``:
+    the loaders yield this rank's rows, gathered here into the global
+    batch."""
     every_epoch = cfg.method in VALIDATE_EVERY_EPOCH
+    main = mesh is None or mesh.is_main
+    data_mesh = active(mesh)
     # the draws' own stream: the loaders shuffle with default_rng(seed)
     rng = np.random.default_rng([cfg.training_seed, 1])
 
@@ -121,6 +136,9 @@ def train_loop(*, cfg, state: TrainState, step_fn: Callable,
             # per step would stall the launch queue
             epoch_losses = []
             for batch in train_batches():
+                if data_mesh is not None:
+                    batch = data_mesh.gather_batch(batch, state.head.device,
+                                                   local_keys(batch))
                 num_iter += 1
                 epoch_losses.append(step_fn(state, batch,
                                             sample_fn(rng, batch)))
@@ -164,9 +182,12 @@ def train_loop(*, cfg, state: TrainState, step_fn: Callable,
         # (utils/parser.py:141; its code tests num_iter, a bug)
         if cfg.save_ckpt and ckpt_dir and (
                 epoch % cfg.save_freq == 0 or epoch == cfg.epochs):
-            path = save_train_ckpt(ckpt_dir, f"ep{epoch}_it{num_iter}",
-                                   state, best.records)
-            logger.info(f"Model ckpt saved to: {path}")
+            if main:
+                path = save_train_ckpt(ckpt_dir, f"ep{epoch}_it{num_iter}",
+                                       state, best.records)
+                logger.info(f"Model ckpt saved to: {path}")
+            if mesh is not None:
+                mesh.barrier()
         if epoch == cfg.stop_epochs:
             break
 

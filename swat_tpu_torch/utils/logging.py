@@ -1,4 +1,4 @@
-# Copied from swat_tpu/utils/logging.py; the port keeps its own copy, permanently (it imports nothing of swat_tpu).
+# Copied from swat_tpu/utils/logging.py, plus set_logger's main flag; the port keeps its own copy, permanently (it imports nothing of swat_tpu).
 """Run logging: case-named output dirs, main logger, loss.csv stream.
 
 Output-format parity with reference utils/logger.py: same case-name scheme
@@ -12,7 +12,7 @@ import dataclasses
 import logging
 import os
 import sys
-from typing import TextIO, Tuple
+from typing import Optional, TextIO, Tuple
 
 
 def get_logger(dir_path: str, file_name: str = "main",
@@ -35,8 +35,17 @@ def get_logger(dir_path: str, file_name: str = "main",
     return logger
 
 
-def set_logger(cfg) -> Tuple[logging.Logger, TextIO]:
-    """Returns (logger, loss_logger). loss_logger is an open CSV stream."""
+def set_logger(cfg, main: bool = True
+               ) -> Tuple[logging.Logger, Optional[TextIO]]:
+    """Returns (logger, loss_logger). loss_logger is an open CSV stream.
+    ``main`` False (a rank other than 0 of a multi-process run): a logger
+    without handlers and no stream, so only rank 0 writes."""
+    if not main:
+        logger = logging.getLogger(f"swat.{cfg.output_dir}.main.quiet")
+        logger.handlers.clear()
+        logger.addHandler(logging.NullHandler())
+        logger.propagate = False
+        return logger, None
     output_dir = cfg.output_dir
     os.makedirs(output_dir, exist_ok=True)
     os.makedirs(os.path.join(output_dir, "model_ckpts"), exist_ok=True)

@@ -8,6 +8,8 @@ tensor-core forward and backward templates at the edges of their tiling; the
 retrieval ranking and both samplers on the card against the CPU.  Run them on
 a GPU machine with ``python -m pytest tests/test_torch_cuda.py``."""
 
+import contextlib
+
 import pytest
 import torch
 from torch_port_lib import (gapped_pool, mma_sum_dot, rank_inputs,
@@ -966,3 +968,199 @@ def test_samplers_cuda_equal_cpu(device, pool_name, strategy, engine):
     got = sample(pool, prompts, strategy, device=device, **kw)
     ref = sample(pool, prompts, strategy, device="cpu", **kw)
     assert got == ref
+
+
+# ---------------------------------------------------------------------------
+# the parallel layer on one card (core/mesh.py, models/clip.py): the two
+# tensor-parallel shards of a tower in one process through the kernels at
+# H / 2 heads, and the gradient sync through a world-size-1 NCCL group
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tower", ["image", "text"])
+def test_tp_shards_through_the_kernels(device, tower, dtype):
+    """test_tiny's towers cut in two by tp_shard_state_dict, both shards'
+    blocks run on the card (2 heads a shard) and summed in place of the
+    all-reduce: the output and the gradients (the input's, the first
+    block's qkv weight joined) against the whole tower; fp32 to 1e-4 of
+    each tensor's largest value (summation order), bf16 to 5e-2 (each
+    shard's partial output rounded before the sum)."""
+    from swat_tpu_torch.core.precision import (DEFAULT_PRECISION,
+                                               FP32_PRECISION)
+    from swat_tpu_torch.models.clip import (CLIPModel, TensorParallel,
+                                            lockstep_transformer, tp_join,
+                                            tp_shard_state_dict)
+    from swat_tpu_torch.models.configs import get_model_config
+
+    cfg = get_model_config("test_tiny")
+    prec = FP32_PRECISION if dtype == torch.float32 else DEFAULT_PRECISION
+    sd = CLIPModel(cfg).init_random(
+        torch.Generator().manual_seed(0)).state_dict()
+    full = CLIPModel(cfg, precision=prec)
+    full.load_state_dict(sd)
+    full.to(device)
+    shards = []
+    for r in range(2):
+        m = CLIPModel(cfg, precision=prec).tensor_parallel_(
+            TensorParallel(2, r, lambda t: t))
+        m.load_state_dict(tp_shard_state_dict(sd, cfg, 2, r))
+        shards.append(m.to(device))
+    causal, seq, heads = ((False, 17, cfg.vision.heads) if tower == "image"
+                          else (True, 16, cfg.text.heads))
+
+    def stack(m):
+        return m.visual.transformer if tower == "image" else m.transformer
+
+    width = stack(full).resblocks[0].ln_1.weight.shape[0]
+    g = torch.Generator(device=device).manual_seed(3)
+    x0 = torch.randn(8, seq, width, generator=g, device=device)
+    wt = torch.randn(8, seq, width, generator=g, device=device)
+    outs = []
+    for models in ([full], shards):
+        x = x0.to(dtype).clone().requires_grad_(True)
+        before = (FA.LAUNCHES, FA.LAUNCHES_BWD)
+        y = (stack(full)(x, causal, prec, FA.mha_qkv) if len(models) == 1
+             else lockstep_transformer([stack(m) for m in models], x,
+                                       causal, prec, FA.mha_qkv))
+        (y.float() * wt).sum().backward()
+        launched = (FA.LAUNCHES - before[0], FA.LAUNCHES_BWD - before[1])
+        w_grad = (stack(full).resblocks[0].attn.in_proj_weight.grad
+                  if len(models) == 1 else
+                  tp_join("qkv", [stack(m).resblocks[0].attn.in_proj_weight
+                                  .grad for m in models], heads))
+        outs.append((y.detach(), x.grad, w_grad))
+    layers = len(stack(full).resblocks)
+    assert launched == (2 * layers, 2 * layers)
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    for got, ref in zip(outs[1], outs[0]):
+        scale = ref.float().abs().max()
+        assert float((got.float() - ref.float()).abs().max()) <= tol * scale
+
+
+@contextlib.contextmanager
+def _one_rank_nccl():
+    """A world-size-1 NCCL group on this card, ended on leaving -> the
+    one-rank mesh given that group, whose collectives run
+    (``Mesh.live``)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from swat_tpu_torch.core.mesh import Mesh
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        yield Mesh(1, 1, 0, data_group=dist.group.WORLD)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_grad_sync_through_a_one_rank_nccl_group(device, tmp_path):
+    """A cutmix step of test_tiny on a one-rank NCCL mesh (its encode
+    through ``on_rows``' all_gather, its gradients through the flat
+    bucket's all-reduce) equals the step without a mesh, bit for bit."""
+    import numpy as np
+
+    from swat_tpu_torch.core.precision import FP32_PRECISION
+    from swat_tpu_torch.models.clip import CLIPModel
+    from swat_tpu_torch.models.configs import get_model_config
+    from swat_tpu_torch.train.state import create_train_state
+    from swat_tpu_torch.train.steps import make_mixing_step, make_sampler
+
+    with _one_rank_nccl() as one_rank:
+        cfg = get_model_config("test_tiny")
+        sd = CLIPModel(cfg).init_random(
+            torch.Generator().manual_seed(0)).state_dict()
+        rng = np.random.default_rng(0)
+        batch = {"canvases": rng.integers(0, 256, (8, 40, 40, 3)
+                                          ).astype(np.uint8),
+                 "valid_hw": np.full((8, 2), 40, np.int32),
+                 "labels": rng.integers(0, 3, 8).astype(np.int32),
+                 "source": rng.integers(0, 2, 8).astype(np.int32)}
+        draws = make_sampler("cutmix", mix_prob=1.0, image_size=32)(
+            np.random.default_rng(1), batch)
+        head = torch.from_numpy(rng.standard_normal((3, cfg.embed_dim)
+                                                    ).astype(np.float32))
+        got = []
+        for mesh in (None, one_rank):
+            model = CLIPModel(cfg, precision=FP32_PRECISION)
+            model.load_state_dict(sd)
+            model.to(device).eval().requires_grad_(False)
+            state = create_train_state(model, head, "cutmix",
+                                       lr_classifier=1e-2, lr_backbone=1e-4,
+                                       total_iter=10, mesh=mesh)
+            loss = make_mixing_step("cutmix", image_size=32)(state, batch,
+                                                             draws)
+            got.append((float(loss), {
+                k: v.detach().cpu().clone()
+                for k, v in model.state_dict().items()},
+                state.head.detach().cpu().clone()))
+        assert got[1][0] == got[0][0]
+        assert torch.equal(got[1][2], got[0][2])
+        for k, v in got[0][1].items():
+            assert torch.equal(got[1][1][k], v), k
+
+
+def test_collectives_through_a_one_rank_nccl_group(device):
+    """Each collective of the data-parallel layer on a one-rank NCCL mesh
+    gives what no mesh gives, bit for bit: the trainer's ``gather_batch``
+    of a loader's batch, a resident split's batch (its uint8 all-reduce),
+    ``on_rows`` forward and backward, ``reduce_sum`` and ``sync_grads``."""
+    import numpy as np
+
+    from swat_tpu_torch.core.mesh import on_rows, resident_sharding
+    from swat_tpu_torch.data.pipeline import local_keys
+    from swat_tpu_torch.train.resident import ResidentData
+
+    rng = np.random.default_rng(0)
+    batch = {"canvases": rng.integers(0, 256, (8, 40, 40, 3)
+                                      ).astype(np.uint8),
+             "valid_hw": np.full((8, 2), 40, np.int32),
+             "labels": rng.integers(0, 3, 8).astype(np.int32),
+             "canvases_fs": torch.from_numpy(rng.integers(
+                 0, 256, (4, 40, 40, 3)).astype(np.uint8)).to(device)}
+    idx = rng.permutation(16)[:8]
+    canvases = torch.from_numpy(rng.integers(
+        0, 256, (16, 40, 40, 3)).astype(np.uint8)).to(device)
+    valid_hw = np.full((16, 2), 40, np.int32)
+    labels = torch.arange(16, device=device)
+    x = torch.from_numpy(rng.standard_normal((8, 5)).astype(np.float32)
+                         ).to(device)
+    w = torch.from_numpy(rng.standard_normal((5, 3)).astype(np.float32)
+                         ).to(device)
+
+    def run(mesh):
+        out = {}
+        got = (batch if mesh is None
+               else mesh.gather_batch(batch, device, local_keys(batch)))
+        out.update({f"batch_{k}": torch.as_tensor(v).cpu()
+                    for k, v in got.items()})
+        split = ResidentData(canvases, valid_hw, labels, labels, mesh,
+                             resident_sharding(mesh, 16))
+        out["resident"] = split.batch(idx)["canvases"].cpu()
+        xg = x.clone().requires_grad_(True)
+        y = on_rows(mesh, lambda t: t @ w, xg)
+        y.square().sum().backward()
+        out["on_rows"], out["on_rows_grad"] = y.detach().cpu(), xg.grad.cpu()
+        out["reduce_sum"] = (x.sum(0) if mesh is None
+                             else mesh.reduce_sum(x.sum(0))).cpu()
+        p = torch.nn.Parameter(w.clone())
+        p.grad = x[:5, :3].clone()
+        if mesh is not None:
+            mesh.sync_grads([p])
+        out["sync_grads"] = p.grad.cpu()
+        return out
+
+    ref = run(None)
+    with _one_rank_nccl() as mesh:
+        assert resident_sharding(mesh, 16) == slice(0, 16)
+        assert sorted(local_keys(batch)) == ["canvases", "canvases_fs",
+                                             "valid_hw"]
+        got = run(mesh)
+    assert got.keys() == ref.keys()
+    for k, v in ref.items():
+        assert got[k].dtype == v.dtype and torch.equal(got[k], v), k

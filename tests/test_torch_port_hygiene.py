@@ -22,7 +22,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PORT_MODULES = [
     "swat_tpu_torch", "swat_tpu_torch.cli.convert", "swat_tpu_torch.cli.main",
+    "swat_tpu_torch.dryrun",
     "swat_tpu_torch.cli.test", "swat_tpu_torch.core.config",
+    "swat_tpu_torch.core.distributed", "swat_tpu_torch.core.mesh",
     "swat_tpu_torch.core.precision", "swat_tpu_torch.data.features",
     "swat_tpu_torch.data.native", "swat_tpu_torch.data.pipeline",
     "swat_tpu_torch.data.prompts", "swat_tpu_torch.data.registry",

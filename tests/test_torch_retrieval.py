@@ -18,6 +18,7 @@ from torch_port_lib import (TORCH_THREADS, gapped_pool, grid, rank_inputs,
 
 from swat_tpu.retrieval import rank as JR
 from swat_tpu.retrieval import sampler as JS
+from swat_tpu_torch.core.mesh import Mesh
 from swat_tpu_torch.retrieval import rank as R
 from swat_tpu_torch.retrieval import sampler as S
 
@@ -75,7 +76,8 @@ def test_rank_candidates_matches_swat_tpu(mode, top_k, monkeypatch):
 
 def test_rank_candidates_masked_rows_and_mesh():
     """Classes with fewer candidates than k pad with -1 / -inf, as
-    swat_tpu's; a mesh raises (one card)."""
+    swat_tpu's; a one-rank mesh ranks as no mesh (a 2-rank mesh:
+    tests/test_torch_distributed.py)."""
     prompts, cands, cls = rank_inputs(seed=1)
     assert np.bincount(cls).min() < 20
     for chunk in (None, 24):      # a last chunk of 16 rows, fewer than k
@@ -86,8 +88,13 @@ def test_rank_candidates_masked_rows_and_mesh():
         np.testing.assert_array_equal(idx, ref_idx)
         np.testing.assert_array_equal(sim, ref_sim)
         assert (idx == -1).any() and np.isneginf(sim[idx == -1]).all()
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        R.rank_candidates(prompts, cands, cls, 3, mesh=object(), device=CPU)
+    for chunk in (None, 24):
+        got = R.rank_candidates(prompts, cands, cls, 20, chunk=chunk,
+                                mesh=Mesh(1, 1), device=CPU)
+        ref = R.rank_candidates(prompts, cands, cls, 20, chunk=chunk,
+                                device=CPU)
+        np.testing.assert_array_equal(got[0], ref[0])
+        np.testing.assert_array_equal(got[1], ref[1])
 
 
 def test_select_keys_order_negative_zero_as_xla():
@@ -272,8 +279,9 @@ def test_missing_fewshot_features_raise_as_swat_tpu():
         with pytest.raises(ValueError, match=r"class\(es\) \[2\]"):
             engine(pool, prompts, "I2T-rank", num_samples=3, device=CPU,
                    fewshot_feats_by_class={0: fs[0], 4: fs[4]})
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        S.sample_retrieved_fused(pool, prompts, mesh=object(), device=CPU)
+    with pytest.raises(ValueError, match="fewshot"):
+        S.sample_retrieved_fused(pool, prompts, "I2I-rank", num_samples=3,
+                                 mesh=Mesh(1, 1), device=CPU)
 
 
 def test_split_and_debug_files_byte_equal(tmp_path):

@@ -336,8 +336,9 @@ def test_host_subcommands_byte_equal(tmp_path, capsys):
 
 
 def test_device_cuda_without_gpu_raises(runs, monkeypatch, tmp_path):
-    """--device cuda (the default) without a card raises before any output;
-    --mesh_data above 1 raises (one card)."""
+    """--device cuda (the default) without a card raises before any output,
+    with --mesh_data above 1 too (it runs data-parallel under a launcher,
+    tests/test_torch_multihost.py)."""
     base, ckpt, _ = runs
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     common = ["--mined_dir", str(base / "mined"), "--caption_map",
@@ -351,6 +352,6 @@ def test_device_cuda_without_gpu_raises(runs, monkeypatch, tmp_path):
                                               "mined_none.npz"),
                   "--prompts", "absent.npz", "--output",
                   str(tmp_path / "s.txt")])
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        cli.main(["extract", *common, "--mesh_data", "2", "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["extract", *common, "--mesh_data", "2"])
     assert not os.listdir(tmp_path)

@@ -144,7 +144,7 @@ def test_cli_main_prints_the_summary_on_cpu(setup, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"method": "finetune", "mesh_model": 2}, "Queue A"),
+    ({"method": "finetune", "trace_dir": "trace"}, "Queue A"),
 ])
 def test_unported_paths_raise(setup, tmp_path, kw, match):
     dataset_path, ckpt = setup
@@ -183,12 +183,26 @@ def test_test_imagenet_ood_sweeps_the_last_bundle(setup, tmp_path,
 
 
 @pytest.mark.parametrize("kw", [{"mesh_data": 4}, {"trace_dir": "trace"}])
-def test_unported_options_raise_at_start(setup, tmp_path, kw):
+def test_unported_options_raise_at_start(setup, tmp_path, kw, caplog):
+    """--trace_dir raises at start; a mesh is ported (ROADMAP Queue A item
+    10): larger than the one process here, it runs on it with a WARNING
+    naming both sizes and no process group, as swat_tpu drops a mesh too
+    large for its devices."""
+    import torch.distributed as dist
+
     dataset_path, ckpt = setup
     args = run_kwargs(dataset_path, tmp_path, checkpoint_path=ckpt)
     args.update(kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SwatPipeline(RunConfig(device="cpu", **args))
+    if "trace_dir" in kw:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            SwatPipeline(RunConfig(device="cpu", **args))
+        return
+    pipe = SwatPipeline(RunConfig(device="cpu", **args))
+    pipe.loss_logger.close()
+    assert pipe.mesh.shape == {"data": 1, "model": 1}
+    assert not dist.is_initialized()
+    with open(os.path.join(pipe.cfg.output_dir, "main.log")) as f:
+        assert "mesh 4x1 does not fit the 1 process(es)" in f.read()
 
 
 @pytest.mark.parametrize("fmt", ["full", "visual_only"])
