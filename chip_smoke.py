@@ -78,7 +78,13 @@ launches), and B/32's two towers
 cut into two tensor-parallel shards, both run in one process through the
 kernels at H / 2 heads with a sum in place of the all-reduce, forward and
 backward, fp32 and bf16, against the whole towers (the card has one GPU:
-no multi-GPU number comes from it).  The data are a synthetic
+no multi-GPU number comes from it).  Then ``[tooling]``: the
+reproduction runbook ``swat_tpu_torch.cli.repro --device cuda --execute``
+(zero-shot and SWAT for one epoch: its preflight on the card, plan, rows
+and score section, both CSVs) and the flagship run again under
+``--trace_dir``: the trace's mha_fwd / mha_bwd kernel events against the
+launches counted, its summary line and ``loss.csv`` against the untraced
+run's, the trace's size and the profiler's cost.  The data are a synthetic
 JPEG dataset (few-shot, retrieved, unlabeled and test splits, and
 dataset-cls's flagged splits over the first two) and a seeded
 OpenCLIP-format checkpoint.  Any failure raises and exits non-zero.  The
@@ -848,7 +854,7 @@ def phase_towers(workdir, smi):
     return ckpt
 
 
-def _write_dataset(root, n_classes=10, n_test_per_class=30, seed=0):
+def _write_dataset(root, n_classes=10, n_test_per_class=15, seed=0):
     """<root>/smoke10: class-colored JPEGs of camera-like sizes, test.txt,
     a few-shot split, FixMatch's unlabeled split (N_UNLABELED images) and
     the metrics json the prompts come from."""
@@ -1941,7 +1947,7 @@ RETRIEVAL_SPLIT = "retrieved_smoke.txt"
 UNLABELED_SPLIT = "u_train_in_oracle.txt"
 N_UNLABELED = 130
 CLI_BSZ = 64
-N_FEWSHOT, N_RETRIEVED, N_TEST = 40, 220, 300   # the smoke splits
+N_FEWSHOT, N_RETRIEVED, N_TEST = 40, 220, 150   # the smoke splits
 # the flagship run's batch: few-shot finetuning's drop-last loader refuses
 # a batch larger than the 40 few-shot images, in both packages
 FLAGSHIP_BSZ = 32
@@ -1950,15 +1956,15 @@ STAGE_FILES = ("test_confusion_matrix.npy", "test_scores.json",
 
 
 @contextlib.contextmanager
-def _stage2_counts(FA):
-    """The four launch counts of each stage-2 entry point of the runs made
-    inside: SwatPipeline.run_stage2_probing / run_stage2_fsft wrapped to
-    read the counts before and after -> {name: counts}."""
+def _entry_counts(FA, *names):
+    """The four launch counts of each named SwatPipeline entry point of the
+    runs made inside (by default the two of stage 2), each wrapped to read
+    the counts before and after -> {name: counts}."""
     from swat_tpu_torch.train import stages
 
     per = {}
     saved = {}
-    for name in ("run_stage2_probing", "run_stage2_fsft"):
+    for name in names or ("run_stage2_probing", "run_stage2_fsft"):
         fn = saved[name] = getattr(stages.SwatPipeline, name)
 
         def wrapped(self, *args, _fn=fn, _name=name):
@@ -2152,14 +2158,14 @@ def _flagship(workdir, ckpt, dataset, smi, layers):
     canvases), WiSE-FT, tau-norm, stage-2 probing on the few-shot
     train-transform snapshot features, few-shot finetuning; then stage 2
     alone from its stage-1 bundle (--skip_stage1).  -> (the runs' summed
-    counts, the stage-2 counts)."""
+    counts, the stage-2 counts, the full run's dict)."""
     import glob
     import math
     import re
 
     from swat_tpu_torch.kernels import flash_attention as FA
 
-    with _stage2_counts(FA) as per:
+    with _entry_counts(FA) as per:
         full = _train_cli_run(workdir, ckpt, dataset, "cutmix", "float32",
                               "auto", smi, bsz=FLAGSHIP_BSZ, rows_want=22,
                               stage2=True)
@@ -2211,7 +2217,7 @@ def _flagship(workdir, ckpt, dataset, smi, layers):
         raise AssertionError("--skip_stage1 from the stage-1 bundle gave "
                              f"other stage-2 fields: {b[9:]} vs {a[9:]}")
     return ([x + y for x, y in zip(full["counts"], skip["counts"])],
-            stage2)
+            stage2, full)
 
 
 def _resume(workdir, ckpt, dataset, smi, layers):
@@ -2497,12 +2503,13 @@ def phase_train_cli(workdir, ckpt, dataset, smi):
     at every step: --mix_prob 1) and mixup (resident) in fp32.  -> (the four
     counts summed over the runs, each run counted from 0; the stage-2
     counts of the flagship run; the stage-1 cutmix fp32 streaming run's
-    dict, which [dist] repeats through the launcher)."""
+    dict, which [dist] repeats through the launcher; the flagship run's
+    dict, which [tooling] repeats under --trace_dir)."""
     from swat_tpu_torch.models.configs import get_model_config
 
     layers = get_model_config(MODEL_CFG).vision.layers
     _write_retrieved(workdir, dataset, N_RETRIEVED // 10)
-    total, stage2 = _flagship(workdir, ckpt, dataset, smi, layers)
+    total, stage2, flagship = _flagship(workdir, ckpt, dataset, smi, layers)
     total = [t + c for t, c in zip(total, _resume(workdir, ckpt, dataset,
                                                   smi, layers))]
     runs = [("cutmix", "float32", "off", DIST_RUN_EXTRA, False),
@@ -2522,7 +2529,7 @@ def phase_train_cli(workdir, ckpt, dataset, smi):
         if extra == DIST_RUN_EXTRA:
             plain = run
         total = [t + c for t, c in zip(total, run["counts"])]
-    return total, stage2, plain
+    return total, stage2, plain, flagship
 
 
 # ---------------------------------------------------------------------------
@@ -2610,6 +2617,157 @@ def phase_dist_launcher(workdir, ckpt, dataset, smi, plain):
         raise AssertionError("the launched run differs from the run "
                              "without a launcher")
     return list(launched["counts"])
+
+
+# ---------------------------------------------------------------------------
+# [tooling]: the reproduction runbook (cli/repro.py, scored by
+# analysis/results.py) and --trace_dir (utils/profiling.py) on the card.
+
+REPRO_CONFIGS = ("zeroshot", "swat")
+# the device kernels a launch of each wrapper runs, by the name the trace
+# gives them: the forward one kernel a call; the backward one kernel a call
+# up to S = 128 rows (the head kernel), else a dq / dkv pair, whose dq
+# kernel is counted
+TRACE_KERNELS = {"mha_fwd": ("attention_fwd_kernel",),
+                 "mha_bwd": ("attention_bwd_head_kernel",
+                             "attention_bwd_dq_kernel")}
+
+
+def _repro_run(workdir, ckpt, dataset, smi):
+    """(a) ``python -m swat_tpu_torch.cli.repro --device cuda
+    --allow_hash_tokenizer --configs zeroshot swat --epochs_override 1
+    --execute`` on the smoke dataset (4 shots, seed 1, the smoke's
+    retrieved split), run in this process so that its launches count: the
+    preflight (the checkpoint encoded on the card), the plan, both runs'
+    rows, both CSVs and the score section.  -> its four counts."""
+    import io
+    import os
+    import re
+
+    from swat_tpu_torch.cli import repro
+    from swat_tpu_torch.kernels import flash_attention as FA
+
+    out_dir = f"{workdir}/repro"
+    argv = ["--checkpoint", ckpt, "--model_cfg", MODEL_CFG,
+            "--dataset_path", workdir, "--retrieved_path", workdir,
+            "--retrieval_split", RETRIEVAL_SPLIT, "--datasets", dataset,
+            "--configs", *REPRO_CONFIGS, "--shots", "4", "--seeds", "1",
+            "--epochs_override", "1", "--allow_hash_tokenizer",
+            "--out", out_dir, "--execute", "--device", "cuda"]
+    _reset_counts(FA)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = repro.run(argv)
+    wall = time.perf_counter() - t0
+    counts = _counts(FA)
+    out = buf.getvalue()
+    # the runbook's own lines; the runs' log lines carry a timestamp
+    for line in out.splitlines():
+        if line.strip() and not re.match(r"\d{4}-\d\d-\d\d ", line):
+            log(f"[tooling] (a) | {line}")
+    rows = {}
+    for cname in REPRO_CONFIGS:
+        path = os.path.join(out_dir, f"{cname}_{dataset}.csv")
+        with open(path) as f:
+            rows[cname] = f.read().splitlines()
+    log(f"[tooling] (a) repro --device cuda, configs {' '.join(REPRO_CONFIGS)}"
+        f": exit {rc} in {wall:.3f} s on {smi} | launches fwd {counts[0]} "
+        f"bwd {counts[1]} heads-first {counts[2]} / {counts[3]}")
+    accs = [float(x) for r in rows.values() for x in r[-1].split(",")[7:]]
+    if (rc != 0 or "== score vs paper ==" not in out
+            or any(len(r) != 2 or r[0] != repro.CSV_HEADER
+                   or len(r[1].split(",")) != 11 for r in rows.values())
+            or not all(a == -1.0 or 0.0 <= a <= 100.0 for a in accs)):
+        raise AssertionError(f"the runbook failed or its CSVs are malformed "
+                             f"(exit {rc}): {rows}\n{out[-2000:]}")
+    if counts[0] <= 0 or counts[1] <= 0 or counts[2:] != (0, 0):
+        raise AssertionError(f"the runbook's runs did not go through mha_fwd "
+                             f"and mha_bwd: {counts}")
+    return counts
+
+
+def _trace_kernels(trace_dir):
+    """The Chrome traces under trace_dir -> (their paths, MB, the kernels
+    of TRACE_KERNELS counted, every device kernel event, their device ms,
+    the attention kernels' names)."""
+    import glob
+    import os
+    import re
+
+    from swat_tpu_torch.utils.profiling import TRACE_SUFFIX
+
+    paths = sorted(glob.glob(f"{trace_dir}/*{TRACE_SUFFIX}"))
+    found = {k: 0 for k in TRACE_KERNELS}
+    n_kernels, busy_us, names = 0, 0.0, set()
+    for path in paths:
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        for e in events:
+            if e.get("cat") != "kernel":
+                continue
+            n_kernels += 1
+            busy_us += e.get("dur", 0)
+            for family, marks in TRACE_KERNELS.items():
+                if any(m in e.get("name", "") for m in marks):
+                    found[family] += 1
+                    m = re.search(r"attention_\w+_kernel<[^>]*>", e["name"])
+                    names.add(m.group(0) if m else e["name"][:90])
+    mb = sum(os.path.getsize(p) for p in paths) / 1e6
+    return paths, mb, found, n_kernels, busy_us / 1e3, sorted(names)
+
+
+def _traced_flagship(workdir, ckpt, dataset, smi, flagship):
+    """(b) The flagship run again (``[flagship]``'s flags, stage 2
+    included) with ``--trace_dir`` and ``--recal_fea`` (so that it extracts
+    its stage-2 features as the first run did, not from that run's cache):
+    one trace that parses, whose device events name mha_fwd's and mha_bwd's
+    kernels as often as the wrappers counted launches inside the traced
+    window, ``SwatPipeline.run`` (the pipeline's start, which encodes the
+    prompts, lies before it, as in ``swat_tpu``); the summary line and
+    loss.csv of the untraced run; the trace's size and the profiler's cost
+    in wall time.  -> the run's four counts."""
+    from swat_tpu_torch.kernels import flash_attention as FA
+
+    trace_dir = f"{workdir}/trace"
+    with _entry_counts(FA, "run") as per:
+        traced = _train_cli_run(
+            workdir, ckpt, dataset, "cutmix", "float32", "auto", smi,
+            bsz=FLAGSHIP_BSZ, tag="_traced", rows_want=22, stage2=True,
+            extra=("--recal_fea", "--trace_dir", trace_dir))
+    t0 = time.perf_counter()
+    paths, mb, found, n_kernels, busy, names = _trace_kernels(trace_dir)
+    parse = time.perf_counter() - t0
+    launched = dict(zip(TRACE_KERNELS, per["run"]))
+    rows = [list(r.values()) for r in traced["rows"]]
+    plain_rows = [list(r.values()) for r in flagship["rows"]]
+    log(f"[tooling] (b) --trace_dir: {len(paths)} trace(s), {mb:.1f} MB, "
+        f"parsed in {parse:.3f} s | {n_kernels} device kernel events, "
+        f"{busy:.3f} ms of device time | trace mha_fwd {found['mha_fwd']} "
+        f"mha_bwd {found['mha_bwd']}, wrappers' launches inside the trace "
+        f"{launched} (the whole run {traced['counts'][:2]}) | kernels "
+        f"{names}")
+    log(f"[tooling] (b) traced {traced['summary']} | untraced "
+        f"{flagship['summary']} | loss.csv rows equal: {rows == plain_rows}"
+        f" | wall traced {traced['wall']:.3f} s, untraced "
+        f"{flagship['wall']:.3f} s: the profiler costs "
+        f"{100 * (traced['wall'] / flagship['wall'] - 1):.1f} % on {smi}")
+    if len(paths) != 1 or n_kernels == 0:
+        raise AssertionError(f"the trace holds no device event: {paths}")
+    if found != launched or traced["counts"][2:] != (0, 0):
+        raise AssertionError(f"the trace's attention kernels {found} are not "
+                             f"the launches counted {per['run']}")
+    if traced["summary"] != flagship["summary"] or rows != plain_rows:
+        raise AssertionError("the traced run differs from the untraced one")
+    return traced["counts"]
+
+
+def phase_tooling(workdir, ckpt, dataset, smi, flagship):
+    """[tooling]: (a) the runbook, (b) the traced flagship run.  -> the four
+    counts summed over both."""
+    a = _repro_run(workdir, ckpt, dataset, smi)
+    b = _traced_flagship(workdir, ckpt, dataset, smi, flagship)
+    return [x + y for x, y in zip(a, b)]
 
 
 # the two tensor-parallel shards of a tower against the whole tower
@@ -4882,7 +5040,7 @@ def main() -> int:
         timed("train-step", phase_train_step, ckpt, smi)
         step_flash = timed("attentive-step", phase_attentive_step, ckpt, smi)
         step_flash_bwd = timed("fused-step", phase_fused_step, ckpt, smi)
-        cli_counts, stage2_counts, plain = timed(
+        cli_counts, stage2_counts, plain, flagship = timed(
             "train-cli", phase_train_cli, workdir, ckpt, "smoke10", smi)
         twin_counts = timed("twin-cli", phase_twin_cli, workdir, ckpt,
                             "smoke10", smi)
@@ -4898,9 +5056,11 @@ def main() -> int:
         dist_counts[1] += tp_bwd
         log(f"[dist] {time.perf_counter() - t_dist:.1f} s of the run, "
             f"launches fwd {dist_counts[0]} bwd {dist_counts[1]}, on {smi}")
-        cli_counts = [c + t + m + f + d for c, t, m, f, d in zip(
+        tool_counts = timed("tooling", phase_tooling, workdir, ckpt,
+                            "smoke10", smi, flagship)
+        cli_counts = [c + t + m + f + d + o for c, t, m, f, d, o in zip(
             cli_counts, twin_counts, method_counts, semi_counts,
-            dist_counts)]
+            dist_counts, tool_counts)]
         timed("twin-step", phase_twin_step, ckpt, smi)
         timed("flyp-step", phase_flyp_step, ckpt, smi)
         timed("fixmatch-step", phase_fixmatch_step, ckpt, smi)

@@ -137,7 +137,8 @@ class RunConfig:
     # device program (swat_tpu.train.scan_loop)
     resident: str = "auto"                    # 'auto' | 'on' | 'off'
     resident_budget_bytes: int = 6_000_000_000
-    # jax.profiler trace output dir (xplane, viewable in xprof/tensorboard)
+    # torch.profiler trace output dir (a Chrome trace per rank, viewable in
+    # Perfetto or TensorBoard)
     trace_dir: Optional[str] = None
     # port only: the torch device the run uses ('cuda' | 'cpu'); 'cuda'
     # without a GPU raises at start-up instead of falling back to the CPU

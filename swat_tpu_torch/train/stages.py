@@ -29,8 +29,9 @@ and restore train checkpoints, and ``--test_imagenet_ood`` sweeps the
 ImageNet OOD suite (``eval/ood.py``) with the most downstream bundle that
 ran.  ``--checkpoint_path`` takes an OpenCLIP ``.pt`` or a ``cli.convert``
 bundle, fp32 or int8; an int8 one gives the model the int8 layout
-(``CLIPModel.int8_``), for inference only.  ``--trace_dir`` is still to
-port and raises NotImplementedError naming its ROADMAP item.
+(``CLIPModel.int8_``), for inference only.  ``--trace_dir`` runs the
+whole of ``SwatPipeline.run`` under ``torch.profiler``
+(``utils/profiling.maybe_trace``) and writes one Chrome trace a rank there.
 
 Under a launcher (``torch.distributed.run``) the pipeline starts the
 process group (``core.distributed``) and runs data-parallel over a
@@ -67,6 +68,7 @@ from swat_tpu_torch.data import prompts as P
 from swat_tpu_torch.data.splits import (Sample, class_counts,
                                         read_pseudo_split, read_split)
 from swat_tpu_torch.utils.logging import set_logger
+from swat_tpu_torch.utils.profiling import maybe_trace
 from swat_tpu_torch.core.config import RunConfig
 from swat_tpu_torch.core.precision import DEFAULT_PRECISION, FP32_PRECISION
 from swat_tpu_torch.data.features import (encode_prompts,
@@ -172,20 +174,12 @@ def auto_memory_policy(model_cfg: str, remat, accum: int, bsz: int,
     return "full", accum
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to swat_tpu_torch yet (see ROADMAP, {item}); "
-        "run it with swat_tpu")
-
-
 class SwatPipeline:
     """Holds the model, prompts, head and eval engines for one run."""
 
     def __init__(self, cfg: RunConfig):
         self.cfg = cfg.derived()
         cfg = self.cfg
-        if cfg.trace_dir:
-            raise _not_ported("--trace_dir", "Queue A item 11")
         self.device = resolve_device(cfg.device)
         started = maybe_initialize_distributed(device=self.device.type)
         world = dist.get_world_size() if started else 1
@@ -1193,9 +1187,8 @@ class SwatPipeline:
     # ------------------------------------------------------------------
     # full run (reference __main__, main.py:544-606)
 
-    def _check_ported(self) -> None:
-        """Raise before any work for the parts of a run that are not
-        ported yet, or that cannot run."""
+    def _check_runnable(self) -> None:
+        """Raise before any work for a run that cannot run."""
         cfg = self.cfg
         if cfg.method == "zeroshot" or cfg.zeroshot_only:
             return
@@ -1207,7 +1200,12 @@ class SwatPipeline:
                 "its loss gets no source flag to weight by")
 
     def run(self) -> str:
-        self._check_ported()
+        self._check_runnable()
+        rank = dist.get_rank() if dist.is_initialized() else 0
+        with maybe_trace(self.cfg.trace_dir, self.device, rank):
+            return self._run_impl()
+
+    def _run_impl(self) -> str:
         cfg = self.cfg
         logger = self.logger
         start = time.time()

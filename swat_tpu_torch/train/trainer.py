@@ -6,7 +6,9 @@
 * the best snapshot when ``val_acc >= best_val_acc`` (ties move forward),
   taken only on those snapshot epochs;
 * one loss.csv row and one log line per epoch, with -1 before the first
-  validation;
+  validation; the line's img/s is a ``StepMeter`` reset at the top of the
+  epoch and ticked after its loss.csv row, so it counts the whole epoch,
+  validation and test pass included, as ``swat_tpu``'s;
 * ``--stop_epochs`` breaks early; ``--epochs 0`` snapshots the initial
   weights;
 * ``--save_ckpt`` writes a train checkpoint when ``epoch % save_freq == 0``
@@ -30,7 +32,6 @@ import dataclasses
 import glob
 import os
 import re
-import time
 from typing import Any, Callable, Dict, Iterable, Optional
 
 import numpy as np
@@ -40,6 +41,7 @@ from swat_tpu_torch.data.pipeline import local_keys
 from swat_tpu_torch.eval.metrics import calculate_scores
 from swat_tpu_torch.train.checkpoint import load_train_ckpt, save_train_ckpt
 from swat_tpu_torch.train.state import TrainState
+from swat_tpu_torch.utils.profiling import StepMeter
 
 VALIDATE_EVERY_EPOCH = {
     "probing", "REAL-Linear", "finetune-mixed", "finetune-multitask",
@@ -125,8 +127,9 @@ def train_loop(*, cfg, state: TrainState, step_fn: Callable,
         if resumed:
             start_epoch = resumed + 1
             num_iter = state.step
+    meter = StepMeter()
     for epoch in range(start_epoch, cfg.epochs + 1):
-        t0 = time.perf_counter()
+        meter.reset()
         if epoch_runner is not None:
             avg_loss = epoch_runner(state, epoch, rng)
             num_iter += steps_per_epoch
@@ -144,7 +147,6 @@ def train_loop(*, cfg, state: TrainState, step_fn: Callable,
                                             sample_fn(rng, batch)))
             train_loss_sum = (float(sum(epoch_losses[1:], epoch_losses[0]))
                               if epoch_losses else 0.0)
-        secs = time.perf_counter() - t0
 
         snapshot_epoch = cfg.early_stop or epoch == cfg.epochs
         if every_epoch or snapshot_epoch:
@@ -172,12 +174,13 @@ def train_loop(*, cfg, state: TrainState, step_fn: Callable,
                 f"{round(val_loss, 6)},{round(val_acc, 6)},"
                 f"{round(test_acc, 6)}\n")
             loss_logger.flush()
+        meter.tick(steps_per_epoch * cfg.bsz)
         logger.info(
             f"Epoch {epoch}, Iter {num_iter}, "
             f"Trn Loss: {round(train_loss_avg, 6)}, "
             f"Val Loss: {round(val_loss, 6)}, "
             f"Val Acc: {round(val_acc, 3)}, Test Acc: {round(test_acc, 3)}, "
-            f"{steps_per_epoch * cfg.bsz / max(secs, 1e-9):.0f} img/s")
+            f"{meter.items_per_sec:.0f} img/s")
         # save_freq counts epochs, as the reference documents it
         # (utils/parser.py:141; its code tests num_iter, a bug)
         if cfg.save_ckpt and ckpt_dir and (

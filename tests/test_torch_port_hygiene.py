@@ -21,14 +21,19 @@ from swat_tpu_torch.train import stages
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PORT_MODULES = [
-    "swat_tpu_torch", "swat_tpu_torch.cli.convert", "swat_tpu_torch.cli.main",
+    "swat_tpu_torch", "swat_tpu_torch.analysis",
+    "swat_tpu_torch.analysis.figures", "swat_tpu_torch.analysis.results",
+    "swat_tpu_torch.cli.convert", "swat_tpu_torch.cli.main",
+    "swat_tpu_torch.cli.prepare_data", "swat_tpu_torch.cli.repro",
     "swat_tpu_torch.dryrun",
     "swat_tpu_torch.cli.test", "swat_tpu_torch.core.config",
     "swat_tpu_torch.core.distributed", "swat_tpu_torch.core.mesh",
-    "swat_tpu_torch.core.precision", "swat_tpu_torch.data.features",
+    "swat_tpu_torch.core.precision", "swat_tpu_torch.data.creators",
+    "swat_tpu_torch.data.features", "swat_tpu_torch.data.legacy",
     "swat_tpu_torch.data.native", "swat_tpu_torch.data.pipeline",
     "swat_tpu_torch.data.prompts", "swat_tpu_torch.data.registry",
     "swat_tpu_torch.data.splits", "swat_tpu_torch.data.transforms",
+    "swat_tpu_torch.eval.analysis",
     "swat_tpu_torch.eval.heatmap", "swat_tpu_torch.eval.metrics",
     "swat_tpu_torch.eval.ood", "swat_tpu_torch.eval.resident",
     "swat_tpu_torch.eval.topk_prompts", "swat_tpu_torch.eval.validate",
@@ -51,7 +56,7 @@ PORT_MODULES = [
     "swat_tpu_torch.train.resident", "swat_tpu_torch.train.stages",
     "swat_tpu_torch.train.state", "swat_tpu_torch.train.steps",
     "swat_tpu_torch.train.trainer", "swat_tpu_torch.utils.logging",
-    "swat_tpu_torch.utils.native_build",
+    "swat_tpu_torch.utils.native_build", "swat_tpu_torch.utils.profiling",
 ]
 
 # a module of the JAX stack, or of the JAX package itself; and msgpack,

@@ -8,6 +8,7 @@ trajectories deterministic (no augmentation or mixing draws), so the
 summary line, the loss.csv rows, the WiSE-FT and tau-norm accuracies and
 the output files must agree."""
 
+import glob
 import json
 import os
 
@@ -187,15 +188,23 @@ def test_stage1_epochs0_matches_swat_tpu(setup, tmp_path):
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"trace_dir": "trace"}, "--trace_dir .*Queue A item 11"),
+    pytest.param({"trace_dir": "trace"}, "rank0.*.pt.trace.json",
+                 id="kw0---trace_dir .*Queue A item 11"),
 ])
-def test_unported_stage1_options_raise(setup, tmp_path, kw, match):
+def test_unported_stage1_options_raise(setup, jax_run, tmp_path, kw, match):
+    """The stage-1 options that raised until they were ported now run:
+    with --trace_dir the run is swat_tpu's, and its trace is written."""
     dataset_path, ckpt = setup
-    args = dict(STAGE1, **kw)
-    cfg = RunConfig(device="cpu", **run_kwargs(
-        dataset_path, tmp_path, checkpoint_path=ckpt, **args))
-    with pytest.raises(NotImplementedError, match=match):
-        SwatPipeline(cfg).run()
+    args = dict(STAGE1, **{k: str(tmp_path / v) for k, v in kw.items()})
+    pipe = SwatPipeline(RunConfig(device="cpu", **run_kwargs(
+        dataset_path, tmp_path / "port", checkpoint_path=ckpt,
+        **args)).derived())
+    summary = pipe.run()
+    pipe.loss_logger.close()
+    _check_against_jax(jax_run, pipe.cfg.output_dir, summary)
+    (trace,) = glob.glob(os.path.join(args["trace_dir"], match))
+    with open(trace) as f:
+        assert json.load(f)["traceEvents"]
 
 
 def test_stage1_test_imagenet_ood_matches_swat_tpu(setup, jax_run, tmp_path,

@@ -5,6 +5,8 @@ the device; off: the streaming loader).  Both runs use --recal_prompt, so
 each package encodes the prompts with its own text tower (the prompt cache
 path is shared)."""
 
+import glob
+import json
 import os
 
 import numpy as np
@@ -144,14 +146,23 @@ def test_cli_main_prints_the_summary_on_cpu(setup, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"method": "finetune", "trace_dir": "trace"}, "Queue A"),
+    pytest.param({"method": "finetune", "trace_dir": "trace",
+                  "skip_stage2": True}, "rank0.*.pt.trace.json",
+                 id="kw0-Queue A"),
 ])
 def test_unported_paths_raise(setup, tmp_path, kw, match):
+    """The paths that raised until they were ported now run: a finetune
+    run with --trace_dir prints its summary line and writes its trace."""
     dataset_path, ckpt = setup
-    cfg = RunConfig(device="cpu", **run_kwargs(
-        dataset_path, tmp_path, checkpoint_path=ckpt, **kw))
-    with pytest.raises(NotImplementedError, match=match):
-        SwatPipeline(cfg).run()
+    kw = dict(kw, trace_dir=str(tmp_path / kw["trace_dir"]))
+    pipe = SwatPipeline(RunConfig(device="cpu", **run_kwargs(
+        dataset_path, tmp_path, checkpoint_path=ckpt, **kw)))
+    summary = pipe.run()
+    pipe.loss_logger.close()
+    assert summary.startswith(f"{DATASET},finetune,")
+    (trace,) = glob.glob(os.path.join(kw["trace_dir"], match))
+    with open(trace) as f:
+        assert json.load(f)["traceEvents"]
 
 
 def test_test_imagenet_ood_sweeps_the_last_bundle(setup, tmp_path,
@@ -184,18 +195,20 @@ def test_test_imagenet_ood_sweeps_the_last_bundle(setup, tmp_path,
 
 @pytest.mark.parametrize("kw", [{"mesh_data": 4}, {"trace_dir": "trace"}])
 def test_unported_options_raise_at_start(setup, tmp_path, kw, caplog):
-    """--trace_dir raises at start; a mesh is ported (ROADMAP Queue A item
-    10): larger than the one process here, it runs on it with a WARNING
-    naming both sizes and no process group, as swat_tpu drops a mesh too
-    large for its devices."""
+    """Both options are ported and start: --trace_dir (ROADMAP Queue A item
+    11) traces nothing before the run; a mesh (item 10) larger than the one
+    process here runs on it with a WARNING naming both sizes and no process
+    group, as swat_tpu drops a mesh too large for its devices."""
     import torch.distributed as dist
 
     dataset_path, ckpt = setup
     args = run_kwargs(dataset_path, tmp_path, checkpoint_path=ckpt)
     args.update(kw)
     if "trace_dir" in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            SwatPipeline(RunConfig(device="cpu", **args))
+        args["trace_dir"] = str(tmp_path / kw["trace_dir"])
+        pipe = SwatPipeline(RunConfig(device="cpu", **args))
+        pipe.loss_logger.close()
+        assert not os.path.exists(args["trace_dir"])
         return
     pipe = SwatPipeline(RunConfig(device="cpu", **args))
     pipe.loss_logger.close()
