@@ -37,6 +37,7 @@ from swat_tpu_torch.core.mesh import Mesh, active, resident_sharding
 from swat_tpu_torch.data.splits import Sample
 from swat_tpu_torch.data.pipeline import train_canvases
 from swat_tpu_torch.train.state import TrainState
+from swat_tpu_torch.utils.profiling import span
 
 
 class ResidentData:
@@ -124,19 +125,25 @@ def make_resident_epoch(step_fn: Callable, sample_fn: Callable):
     """run(state, data, perm, rng[, twin, twin_perm]) -> mean loss over the
     epoch's steps (a 0-d device tensor); ``rng`` draws each step's crops
     and mix.  With ``twin``, step i's batch carries the twin split's rows
-    ``twin_perm[i]`` under *_fs keys."""
+    ``twin_perm[i]`` under *_fs keys.  Each step is a ``train.step`` span
+    holding ``train.batch`` (the gathers), ``train.draws`` and the step's
+    own phases (``steps._make_step``)."""
 
     def run(state: TrainState, data: ResidentData, perm: np.ndarray,
             rng: np.random.Generator, twin: Optional[ResidentData] = None,
             twin_perm: Optional[np.ndarray] = None) -> torch.Tensor:
         loss_sum = None
         for i, idx in enumerate(perm):
-            batch = data.batch(idx)
-            if twin is not None:
-                batch.update({f"{k}_fs": v for k, v in
-                              twin.batch(twin_perm[i]).items()})
-            val = step_fn(state, batch, sample_fn(rng, batch))
-            loss_sum = val if loss_sum is None else loss_sum + val
+            with span("train.step"):
+                with span("train.batch"):
+                    batch = data.batch(idx)
+                    if twin is not None:
+                        batch.update({f"{k}_fs": v for k, v in
+                                      twin.batch(twin_perm[i]).items()})
+                with span("train.draws"):
+                    draws = sample_fn(rng, batch)
+                val = step_fn(state, batch, draws)
+                loss_sum = val if loss_sum is None else loss_sum + val
         return loss_sum / perm.shape[0]
 
     return run

@@ -9,7 +9,11 @@ image tower forward and backward through the attention kernels, the mixed
 cross-entropy, and one optimizer update.  The per-step body is split as in
 the JAX package: ``make_mix_fn`` (augment + mix) and ``make_encode_loss``
 (encode + loss), shared by the streaming steps here and the resident epoch
-(``train/resident.py``).
+(``train/resident.py``).  The phases are profiler spans
+(``utils.profiling.span``): ``train.augment``, ``train.forward``,
+``train.backward``, ``train.optimizer``; the steps whose loss augments
+its own batch (the probes, FLYP, multitask, dataset-cls, FixMatch) run
+their augment inside ``train.forward``.
 
 Every random quantity comes in as explicit draws (``StepDraws``), made on
 the host by ``make_sampler`` from a ``numpy.random.Generator``; tests feed
@@ -65,6 +69,7 @@ from swat_tpu_torch.train.losses import (LossFn, cross_entropy,
                                          mixup_criterion,
                                          mixup_criterion_lam_vector)
 from swat_tpu_torch.train.state import TrainState
+from swat_tpu_torch.utils.profiling import span
 
 MIX_METHODS = ("finetune", "cutmix", "mixup", "resizemix", "saliencymix",
                "attentivemix")
@@ -359,10 +364,12 @@ def accum_backward(state: TrainState, encode_loss: Callable, mixed,
     val_sum = torch.zeros((), dtype=torch.float32, device=images.device)
     for i in range(accum):
         mb = [c[i] for c in chunks]
-        val = encode_loss(state, (mb[0], mb[1], mb[2], lam,
-                                  mb[4] if lam_vec is not None else None,
-                                  mb[3]))
-        val.backward()
+        with span("train.forward"):
+            val = encode_loss(state, (mb[0], mb[1], mb[2], lam,
+                                      mb[4] if lam_vec is not None else None,
+                                      mb[3]))
+        with span("train.backward"):
+            val.backward()
         val_sum = val_sum + val.detach()
     if lam_vec is not None:
         return val_sum
@@ -382,20 +389,31 @@ def _make_step(loss: LossFn, mix, attention: Attention, use_mega: bool,
 
     def step(state: TrainState, batch, draws: StepDraws) -> torch.Tensor:
         """One update of ``state`` in place -> the step's loss (a 0-d
-        tensor on the device, not synchronized)."""
+        tensor on the device, not synchronized).  Its phases are the spans
+        ``train.augment`` (augment + mix), ``train.forward``,
+        ``train.backward`` (a pair a microbatch under ``accum``) and
+        ``train.optimizer``; zero_grad stays ahead of the augment, so the
+        last step's gradients are freed before this one allocates."""
         batch = batch_to_device(batch, state.head.device)
         state.optimizer.zero_grad(set_to_none=True)
         if accum > 1:
             # the whole batch is mixed outside the gradient: the pairing
             # permutation spans the batch, and no gradient flows through
             # the mix (attentivemix's heatmaps are taken without one)
-            with torch.no_grad():
+            with span("train.augment"), torch.no_grad():
                 mixed = mix(state, batch, draws)
             val = accum_backward(state, encode_loss, mixed, accum)
         else:
-            val = encode_loss(state, mix(state, batch, draws))
-            val.backward()
-        state.apply_update()
+            with span("train.augment"):
+                mixed = mix(state, batch, draws)
+            with span("train.forward"):
+                val = encode_loss(state, mixed)
+            # the mixed batch lives on in the graph alone, freed with it
+            del mixed
+            with span("train.backward"):
+                val.backward()
+        with span("train.optimizer"):
+            state.apply_update()
         return val.detach()
 
     return step
@@ -467,20 +485,26 @@ def _frozen_features(state: TrainState, batch, draws: StepDraws,
 
 
 def _update(state: TrainState, val: torch.Tensor) -> torch.Tensor:
-    """Backward of the step's loss, one optimizer update -> the loss."""
+    """Backward of the step's loss, one optimizer update -> the loss; the
+    spans ``train.backward`` and ``train.optimizer``."""
     state.optimizer.zero_grad(set_to_none=True)
-    val.backward()
-    state.apply_update()
+    with span("train.backward"):
+        val.backward()
+    with span("train.optimizer"):
+        state.apply_update()
     return val.detach()
 
 
 def _loss_step(step_loss: Callable) -> Callable:
     """A step of ``step_loss(state, batch, draws)``: the batch to the
-    device, the loss, its backward, one update -> the loss."""
+    device, the loss (a ``train.forward`` span, the augment inside it), its
+    backward, one update -> the loss."""
 
     def step(state: TrainState, batch, draws) -> torch.Tensor:
         batch = batch_to_device(batch, state.head.device)
-        return _update(state, step_loss(state, batch, draws))
+        with span("train.forward"):
+            val = step_loss(state, batch, draws)
+        return _update(state, val)
 
     return step
 
@@ -499,10 +523,13 @@ def make_probing_step(loss: LossFn = cross_entropy,
 
     def step(state: TrainState, batch, draws: StepDraws) -> torch.Tensor:
         batch = batch_to_device(batch, state.head.device)
-        feats = _frozen_features(state, batch, draws, pre_extracted,
-                                 image_size, attention)
-        logits = head_logits(state.head, feats) * torch.exp(state.logit_scale)
-        return _update(state, loss(logits, batch["labels"], batch["source"]))
+        with span("train.forward"):
+            feats = _frozen_features(state, batch, draws, pre_extracted,
+                                     image_size, attention)
+            logits = (head_logits(state.head, feats)
+                      * torch.exp(state.logit_scale))
+            val = loss(logits, batch["labels"], batch["source"])
+        return _update(state, val)
 
     return step
 
@@ -519,13 +546,16 @@ def make_cmlp_step(loss: LossFn = cross_entropy,
 
     def step(state: TrainState, batch, draws: StepDraws) -> torch.Tensor:
         batch = batch_to_device(batch, state.head.device)
-        feats = torch.cat([_frozen_features(state, batch, draws,
-                                            pre_extracted, image_size,
-                                            attention),
-                           batch["text_features"]])
-        labels = torch.cat([batch["labels"], batch["text_labels"]])
-        logits = head_logits(state.head, feats) * torch.exp(state.logit_scale)
-        return _update(state, loss(logits, labels, None))
+        with span("train.forward"):
+            feats = torch.cat([_frozen_features(state, batch, draws,
+                                                pre_extracted, image_size,
+                                                attention),
+                               batch["text_features"]])
+            labels = torch.cat([batch["labels"], batch["text_labels"]])
+            logits = (head_logits(state.head, feats)
+                      * torch.exp(state.logit_scale))
+            val = loss(logits, labels, None)
+        return _update(state, val)
 
     return step
 
@@ -683,7 +713,8 @@ def make_fixmatch_step(threshold: float = 0.95, lambda_u: float = 1.0,
 
     def step(state: TrainState, batch, draws: FixmatchDraws):
         batch = batch_to_device(batch, state.head.device)
-        val, mask_rate, loss_u = fixmatch_loss(state, batch, draws)
+        with span("train.forward"):
+            val, mask_rate, loss_u = fixmatch_loss(state, batch, draws)
         val = _update(state, val)
         if aux:
             return val, mask_rate, loss_u.detach()

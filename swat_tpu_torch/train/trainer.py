@@ -9,6 +9,12 @@
   validation; the line's img/s is a ``StepMeter`` reset at the top of the
   epoch and ticked after its loss.csv row, so it counts the whole epoch,
   validation and test pass included, as ``swat_tpu``'s;
+* profiler spans (``utils.profiling.span``, recorded under
+  ``--trace_dir``): ``train.epoch`` around an epoch's training,
+  ``train.step`` around each step with ``train.batch`` (the wait for the
+  loader, the mesh's gather) and ``train.draws`` in it, then
+  ``train.validate`` (the post-epoch hook and the validation) and
+  ``train.test``;
 * ``--stop_epochs`` breaks early; ``--epochs 0`` snapshots the initial
   weights;
 * ``--save_ckpt`` writes a train checkpoint when ``epoch % save_freq == 0``
@@ -41,7 +47,7 @@ from swat_tpu_torch.data.pipeline import local_keys
 from swat_tpu_torch.eval.metrics import calculate_scores
 from swat_tpu_torch.train.checkpoint import load_train_ckpt, save_train_ckpt
 from swat_tpu_torch.train.state import TrainState
-from swat_tpu_torch.utils.profiling import StepMeter
+from swat_tpu_torch.utils.profiling import StepMeter, span
 
 VALIDATE_EVERY_EPOCH = {
     "probing", "REAL-Linear", "finetune-mixed", "finetune-multitask",
@@ -130,29 +136,41 @@ def train_loop(*, cfg, state: TrainState, step_fn: Callable,
     meter = StepMeter()
     for epoch in range(start_epoch, cfg.epochs + 1):
         meter.reset()
-        if epoch_runner is not None:
-            avg_loss = epoch_runner(state, epoch, rng)
-            num_iter += steps_per_epoch
-            train_loss_sum = float(avg_loss) * steps_per_epoch
-        else:
-            # losses stay on the device until the epoch ends: a host sync
-            # per step would stall the launch queue
-            epoch_losses = []
-            for batch in train_batches():
-                if data_mesh is not None:
-                    batch = data_mesh.gather_batch(batch, state.head.device,
-                                                   local_keys(batch))
-                num_iter += 1
-                epoch_losses.append(step_fn(state, batch,
-                                            sample_fn(rng, batch)))
-            train_loss_sum = (float(sum(epoch_losses[1:], epoch_losses[0]))
-                              if epoch_losses else 0.0)
+        with span("train.epoch"):
+            if epoch_runner is not None:
+                avg_loss = epoch_runner(state, epoch, rng)
+                num_iter += steps_per_epoch
+                train_loss_sum = float(avg_loss) * steps_per_epoch
+            else:
+                # losses stay on the device until the epoch ends: a host sync
+                # per step would stall the launch queue
+                epoch_losses = []
+                batches = iter(train_batches())
+                while True:
+                    # the wait for the loader is the step's train.batch, so
+                    # the call that finds it empty opens one more train.step
+                    with span("train.step"):
+                        with span("train.batch"):
+                            batch = next(batches, None)
+                            if batch is not None and data_mesh is not None:
+                                batch = data_mesh.gather_batch(
+                                    batch, state.head.device,
+                                    local_keys(batch))
+                        if batch is None:
+                            break
+                        num_iter += 1
+                        with span("train.draws"):
+                            draws = sample_fn(rng, batch)
+                        epoch_losses.append(step_fn(state, batch, draws))
+                train_loss_sum = (float(sum(epoch_losses[1:], epoch_losses[0]))
+                                  if epoch_losses else 0.0)
 
         snapshot_epoch = cfg.early_stop or epoch == cfg.epochs
         if every_epoch or snapshot_epoch:
-            if post_epoch is not None:
-                post_epoch(state, epoch)
-            val_acc, val_loss, cm = validate_fn(state)
+            with span("train.validate"):
+                if post_epoch is not None:
+                    post_epoch(state, epoch)
+                val_acc, val_loss, cm = validate_fn(state)
             scores = calculate_scores(cm) if cm is not None else {}
             if snapshot_epoch and val_acc >= best.val_acc:
                 best.val_acc = val_acc
@@ -165,7 +183,8 @@ def train_loop(*, cfg, state: TrainState, step_fn: Callable,
                     "best_scores": scores,
                     "best_confusion_matrix": cm,
                 }
-            test_acc = test_fn(state)
+            with span("train.test"):
+                test_acc = test_fn(state)
 
         train_loss_avg = train_loss_sum / max(steps_per_epoch, 1)
         if loss_logger is not None:

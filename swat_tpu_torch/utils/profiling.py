@@ -9,16 +9,26 @@ exit the trace is written as ``<trace_dir>/rank<R>.<pid>.pt.trace.json``
 (one file per rank under a launcher), a Chrome trace that Perfetto
 (ui.perfetto.dev) and TensorBoard's PyTorch profiler plugin open; it takes
 the place of ``swat_tpu``'s XPlane dump.  ``StepMeter`` is the wall-clock
-throughput meter the trainer logs per epoch (images/s)."""
+throughput meter the trainer logs per epoch (images/s).
+
+``span(name)`` marks a phase of the program (``train.epoch``, ``train.step``
+and the step's phases, ``train/trainer.py``, ``train/resident.py``,
+``train/steps.py``) as a ``torch.profiler.record_function`` range while a
+profiler session records, that of ``maybe_trace`` or any other; so the
+ranges share the trace's one clock with the card's kernels, copies and
+runtime calls.  With no session it hands back one shared null context
+after a single check (under a microsecond), so the spans stay in the hot
+loop without a switch."""
 
 from __future__ import annotations
 
 import contextlib
 import os
 import time
-from typing import Iterator, Optional
+from typing import ContextManager, Iterator, Optional
 
 TRACE_SUFFIX = ".pt.trace.json"
+_OFF = contextlib.nullcontext()
 
 
 def trace_path(trace_dir: str, rank: int = 0) -> str:
@@ -64,6 +74,16 @@ def maybe_trace(trace_dir: Optional[str], device=None,
         prof.export_chrome_trace(trace_path(trace_dir, rank))
 
 
+def span(name: str) -> ContextManager:
+    """A ``record_function(name)`` range while a profiler records, else
+    the shared null context."""
+    import torch
+
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return torch.profiler.record_function(name)
+
+
 class StepMeter:
     """Windowed wall-clock throughput meter."""
 
@@ -73,11 +93,9 @@ class StepMeter:
     def reset(self):
         self._t0 = time.perf_counter()
         self._items = 0
-        self._steps = 0
 
     def tick(self, items: int):
         self._items += items
-        self._steps += 1
 
     @property
     def elapsed(self) -> float:
@@ -86,7 +104,3 @@ class StepMeter:
     @property
     def items_per_sec(self) -> float:
         return self._items / max(self.elapsed, 1e-9)
-
-    @property
-    def ms_per_step(self) -> float:
-        return self.elapsed / max(self._steps, 1) * 1000.0

@@ -3,8 +3,13 @@ swat_tpu's: ``maybe_trace`` is a no-op without a directory and writes a
 torch.profiler Chrome trace with one; ``StepMeter`` and the trainer's use
 of it give swat_tpu's numbers under one fake clock (so the epoch log's
 img/s counts the whole epoch, validation included, in both packages); a
-traced CLI run gives the untraced run's summary line and loss.csv."""
+traced CLI run gives the untraced run's summary line and loss.csv, and
+holds the epoch loop's spans.  ``span`` is the shared null context with
+no profiler running, and a profiled resident cutmix step holds its phases
+in order inside its ``train.step``; ``--accum 2`` a forward / backward
+pair a microbatch."""
 
+import contextlib
 import glob
 import json
 import os
@@ -21,8 +26,13 @@ from torch_port_lib import (DATASET, TORCH_THREADS, make_dataset,
 
 from swat_tpu.train import trainer as jax_trainer
 from swat_tpu.utils import profiling as jax_profiling
+from swat_tpu_torch.core.precision import FP32_PRECISION
+from swat_tpu_torch.models.clip import CLIPModel
 from swat_tpu_torch.models.configs import get_model_config
 from swat_tpu_torch.train import trainer
+from swat_tpu_torch.train.resident import ResidentData, make_resident_epoch
+from swat_tpu_torch.train.state import create_train_state
+from swat_tpu_torch.train.steps import make_mixing_step, make_sampler
 from swat_tpu_torch.utils import profiling
 
 torch.set_num_threads(TORCH_THREADS)
@@ -65,6 +75,87 @@ def test_maybe_trace_writes_a_chrome_trace_on_the_cpu(tmp_path):
     assert not any(e.get("cat") == "kernel" for e in events)
 
 
+PHASES = ["train.batch", "train.draws", "train.augment", "train.forward",
+          "train.backward", "train.optimizer"]
+
+
+def test_span_without_a_profiler_is_the_shared_null_context():
+    """No profiler: every span is one shared null context, and a span
+    entered before a profiler starts records nothing in it; while one
+    records, a span is a range of its own."""
+    off = profiling.span("train.step")
+    assert off is profiling.span("train.forward")
+    assert isinstance(off, contextlib.nullcontext)
+    with off:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            torch.ones(4).sum()
+            with profiling.span("train.forward"):
+                torch.ones(4).sum()
+    names = [e.name for e in prof.events()]
+    assert "train.step" not in names and names.count("train.forward") == 1
+    assert profiling.span("train.step") is off
+
+
+def _tiny_cutmix(accum=1):
+    """A tiny ViT's cutmix state, step (``accum`` microbatches) and
+    sampler, and a resident split of 8 canvases."""
+    cfg = get_model_config("test_tiny")
+    model = CLIPModel(cfg, precision=FP32_PRECISION)
+    model.load_state_dict(random_state_dict(cfg, seed=0))
+    rng = np.random.default_rng(0)
+    state = create_train_state(
+        model, torch.from_numpy(rng.standard_normal(
+            (3, cfg.embed_dim)).astype(np.float32)), "cutmix",
+        total_iter=10)
+    canvases = torch.from_numpy(rng.integers(0, 256, (8, 40, 40, 3),
+                                             dtype=np.uint8))
+    data = ResidentData(canvases, np.full((8, 2), 40, np.int32),
+                        torch.from_numpy(rng.integers(0, 3, 8)),
+                        torch.from_numpy(rng.integers(0, 2, 8)))
+    return (state, make_mixing_step("cutmix", image_size=32, accum=accum),
+            make_sampler("cutmix", mix_prob=1.0, image_size=32), data)
+
+
+def _spans(prof):
+    """The program's spans of a CPU profile -> [(name, start, end)] by
+    start."""
+    return sorted(((e.name, e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.name.startswith("train.")),
+                  key=lambda s: s[1])
+
+
+def test_resident_step_spans_its_phases_in_order():
+    """One resident cutmix step: one ``train.step``, enclosing each of
+    the six phases once, in order, none overlapping the next."""
+    state, step, sample, data = _tiny_cutmix()
+    run = make_resident_epoch(step, sample)
+    perm = np.arange(4, dtype=np.int64).reshape(1, 4)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        run(state, data, perm, np.random.default_rng(1))
+    spans = _spans(prof)
+    assert [s[0] for s in spans] == ["train.step"] + PHASES
+    _, start, end = spans[0]
+    phases = spans[1:]
+    assert all(start <= a <= b <= end for _, a, b in phases)
+    assert all(b <= a2 for (_, _, b), (_, a2, _) in zip(phases, phases[1:]))
+
+
+def test_accumulated_step_spans_a_pair_a_microbatch():
+    """``accum=2``: the augment once, then a forward / backward pair for
+    each microbatch, then the optimizer."""
+    state, step, sample, data = _tiny_cutmix(accum=2)
+    batch = data.batch(np.arange(4))
+    draws = sample(np.random.default_rng(1), batch)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        step(state, batch, draws)
+    assert [s[0] for s in _spans(prof)] == [
+        "train.augment", "train.forward", "train.backward", "train.forward",
+        "train.backward", "train.optimizer"]
+
+
 class FakeClock:
     """time.perf_counter for both profiling modules: it moves only when a
     test advances it."""
@@ -95,14 +186,14 @@ def test_step_meter_matches_swat_tpu(clock):
         clock.advance(secs)
         for m, r in zip(meters, readings):
             m.tick(32 * (step + 1))
-            r.append((m.elapsed, m.items_per_sec, m.ms_per_step))
+            r.append((m.elapsed, m.items_per_sec))
     clock.advance(2.0)
     for m, r in zip(meters, readings):
         m.reset()
-        r.append((m.elapsed, m.items_per_sec, m.ms_per_step))
+        r.append((m.elapsed, m.items_per_sec))
     assert readings[0] == readings[1]
-    assert readings[0][2] == (2.5, 192 / 2.5, 2500 / 3)
-    assert readings[0][3] == (0.0, 0.0, 0.0)
+    assert readings[0][2] == (2.5, 192 / 2.5)
+    assert readings[0][3] == (0.0, 0.0)
 
 
 class Logger:
@@ -214,6 +305,22 @@ def test_trainer_meters_the_epoch_as_swat_tpu(clock, monkeypatch, tmp_path,
         assert line.endswith(f", {2 * 4 / secs:.0f} img/s"), line
 
 
+def test_streaming_loop_spans_each_step(clock):
+    """The per-batch loop of ``train_loop``: three epochs of two batches
+    give two ``train.step`` spans an epoch with their batch and draws, and
+    one more each holding only the ``train.batch`` that found the loader
+    empty; the last epoch is validated and tested."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        _run_port_loop(clock, "cutmix", Logger(), None)
+    names = [s[0] for s in _spans(prof)]
+    assert [names.count(n) for n in (
+        "train.epoch", "train.step", "train.batch", "train.draws",
+        "train.validate", "train.test")] == [3, 9, 9, 6, 1, 1]
+    assert names[:4] == ["train.epoch", "train.step", "train.batch",
+                         "train.draws"]
+
+
 @pytest.fixture(scope="module")
 def setup(tmp_path_factory):
     undo = register_dataset()
@@ -257,5 +364,11 @@ def test_traced_cli_run_matches_the_untraced_one(setup, tmp_path, capsys):
     assert len(plain[1].splitlines()) == 3
     (path,) = glob.glob(str(trace_dir / f"rank0.*{profiling.TRACE_SUFFIX}"))
     with open(path) as f:
-        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
     assert any(n.startswith("aten::") for n in names)
+    spans = [e["name"] for e in events if e.get("cat") == "user_annotation"]
+    # two resident epochs of 7 steps, the last one validated and tested
+    assert spans.count("train.epoch") == 2
+    assert [spans.count(n) for n in ["train.step"] + PHASES] == [14] * 7
+    assert spans.count("train.validate") == spans.count("train.test") == 1
