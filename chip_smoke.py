@@ -759,6 +759,210 @@ MODEL_CFG = "vitb32_openclip_laion400m"
 TOWER_MIN_COS = {"float32": 1 - 1e-5, "bfloat16": 1 - 1e-3}
 
 
+# (name, rows, width): the LayerNorm calls of the two towers the benchmark
+# trains, a block's rows at their batch (L/14: B = 64, S = 257; B/32:
+# B = 256, S = 50)
+LN_SHAPES = [("vitl14_block", 64 * 257, 1024), ("vitb32_block", 256 * 50, 768)]
+LN_DTYPES = (("float32", False), ("bfloat16", True))   # with the policy's
+LN_TIMED = 50                                          # variance
+
+
+def _ln_bound_ms(rows, width, dtype, backward):
+    """The least time the card could take for one LayerNorm call: its bytes
+    over 3.35 TB/s.  Forward: x read, y written, 8 bytes of statistics a
+    row; backward: x and dy read, dx written, the statistics read, dw and db
+    written (67.4 MB and 101.1 MB at L/14's block in bf16)."""
+    item = 4 if str(dtype).endswith("float32") else 2
+    moved = (3 if backward else 2) * rows * width * item + 8 * rows
+    return 1e3 * (moved + (8 * width if backward else 0)) / 3.35e12
+
+
+def _ln_registers(log_path):
+    """ptxas' registers and spill bytes of the LayerNorm kernels, by
+    instantiation: {(kind, dtype, iters, warps a row): (registers, spill
+    bytes)}."""
+    import re
+
+    out, entry, spilled = {}, None, 0
+    names = {"f": "fp32", "13__nv_bfloat16": "bf16"}
+    with open(log_path) as f:
+        for ln in f:
+            m = re.search(r"Compiling entry function '(\w+)'", ln)
+            if m:
+                entry, spilled = m.group(1), 0
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          ln)
+            if m:
+                spilled = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", ln)
+            if not (m and entry):
+                continue
+            k = re.search(r"layernorm_(fwd|bwd)_kernelI(f|13__nv_bfloat16)"
+                          r"Li(\d+)ELi(\d+)E", entry)
+            if k:
+                out[(k.group(1), names[k.group(2)], int(k.group(3)),
+                     int(k.group(4)))] = (int(m.group(1)), spilled)
+            entry = None
+    return out
+
+
+def _ln_blocks_per_sm(regs, smem_bytes):
+    """Resident blocks of 256 threads an SM from registers (allocated 8 at a
+    time a thread) and shared memory (227 KB a block's most, 228 KB an SM)."""
+    by_regs = 65536 // (256 * (-(-regs // 8) * 8))
+    by_smem = 233472 // (smem_bytes + 1024) if smem_bytes else 8
+    return max(0, min(8, by_regs, by_smem))
+
+
+def phase_layer_norm(smi):
+    """[layer-norm]: the LayerNorm kernel pair at the towers' block shapes
+    (L/14 and B/32, fp32 two-pass and bf16 fast variance): each output
+    against the plain twins; each kernel's device time (profiled, LN_TIMED
+    calls) beside its byte bound; the forward alone and the backward alone
+    (dx, dw and db), each by CUDA events, through the kernels'
+    LayerNormFunction, through autograd of the towers' plain formula and,
+    as a yardstick only, through F.layer_norm with fp32 weight and bias
+    that take gradients (the port calls it nowhere), in turns plain,
+    kernel, library, kernel, plain; registers and blocks an SM ->
+    {(shape, dtype): numbers}."""
+    import torch
+    import torch.nn.functional as F
+
+    from swat_tpu_torch.kernels import _build
+    from swat_tpu_torch.kernels import layer_norm as LN
+
+    regs = _ln_registers(_build.build_library().replace(_build.LIB_NAME,
+                                                        "build.log"))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    out = {}
+    for name, rows, width in LN_SHAPES:
+        for dname, fast in LN_DTYPES:
+            dtype = getattr(torch, dname)
+            x = (0.3 + 2 * torch.randn(rows, width, generator=gen,
+                                       device="cuda")).to(dtype)
+            w = 1 + 0.5 * torch.randn(width, generator=gen, device="cuda")
+            b = 0.5 * torch.randn(width, generator=gen, device="cuda")
+            dy = torch.randn(rows, width, generator=gen,
+                             device="cuda").to(dtype)
+            y, mu, rstd = LN.layer_norm_fwd(x, w, b, fast, 1e-5, dtype)
+            dx, dw, db = LN.layer_norm_bwd(x, dy, mu, rstd, w)
+            y_r, mu_r, rstd_r = LN.layer_norm_reference(x, w, b, fast, 1e-5,
+                                                        dtype)
+            refs = (y_r, *LN.layer_norm_bwd_reference(x, dy, mu_r, rstd_r, w))
+            # each output within a rounding flip of an element (bf16) and
+            # 1e-5 of its largest value (fp32 sums in another order)
+            errs = []
+            for a, r in zip((y, dx, dw, db), refs):
+                rel = 2 ** -7 if a.dtype == torch.bfloat16 else 0.0
+                a, r = a.float(), r.float()
+                err = (a - r).abs()
+                if not bool((err <= rel * r.abs()
+                             + 1e-5 * r.abs().max()).all()):
+                    raise AssertionError(
+                        f"[layer-norm] {name} {dname}: kernel vs twin "
+                        f"{float(err.max())} of {float(r.abs().max())}")
+                errs.append(float(err.max()))
+
+            def fwd():
+                LN.layer_norm_fwd(x, w, b, fast, 1e-5, dtype)
+
+            def bwd():
+                LN.layer_norm_bwd(x, dy, mu, rstd, w)
+
+            times = {}
+            for kind, run in (("fwd", fwd), ("bwd", bwd)):
+                prof, _ = _trace(lambda: [run() for _ in range(LN_TIMED)],
+                                 cpu=False)
+                times[kind] = {k: ms / LN_TIMED for ms, k in
+                               _device_kernels(prof)}
+            fwd_ms = sum(v for k, v in times["fwd"].items()
+                         if "layernorm_fwd_kernel" in k)
+            bwd_ms = sum(v for k, v in times["bwd"].items()
+                         if "layernorm_bwd_kernel" in k
+                         or "layernorm_join_kernel" in k)
+            join_ms = sum(v for k, v in times["bwd"].items()
+                          if "layernorm_join_kernel" in k)
+            bf = _ln_bound_ms(rows, width, dtype, False)
+            bb = _ln_bound_ms(rows, width, dtype, True)
+            xg = x.detach().requires_grad_(True)
+            wg = w.detach().requires_grad_(True)
+            bg = b.detach().requires_grad_(True)
+
+            def plain():
+                xf = xg.float()
+                mu_ = xf.mean(dim=-1, keepdim=True)
+                if fast:
+                    var = ((xf * xf).mean(dim=-1, keepdim=True)
+                           - mu_ * mu_).clamp_min(0.0)
+                else:
+                    d = xf - mu_
+                    var = (d * d).mean(dim=-1, keepdim=True)
+                return ((xf - mu_) * (torch.rsqrt(var + 1e-5) * wg)
+                        + bg).to(dtype)
+
+            def kernel():
+                return LN.layer_norm(xg, wg, bg, fast, 1e-5, dtype)
+
+            wl, bl, lib_weights = wg, bg, "fp32"
+            try:
+                F.layer_norm(xg, (width,), wl, bl)
+            except RuntimeError:
+                # no mixed dtypes in this build's F.layer_norm: the weights
+                # in x's dtype, still taking gradients
+                wl = w.detach().to(dtype).requires_grad_(True)
+                bl = b.detach().to(dtype).requires_grad_(True)
+                lib_weights = dname
+
+            def library():
+                return F.layer_norm(xg, (width,), wl, bl)
+
+            def split(make, leaves=(xg, wg, bg)):
+                """(forward ms, backward ms): the forward alone, then the
+                backward alone over one kept graph."""
+                y_ = make()
+                return (_time_ms(make), _time_ms(
+                    lambda: torch.autograd.grad(y_, leaves, dy,
+                                                retain_graph=True)))
+
+            p1, k1, l1, k2, p2 = (split(plain), split(kernel),
+                                  split(library, (xg, wl, bl)), split(kernel),
+                                  split(plain))
+            group, iters = LN.plan(width, dtype)
+            tname = "fp32" if dtype == torch.float32 else "bf16"
+            rf = regs.get(("fwd", tname, iters, group), (0, 0))
+            rb = regs.get(("bwd", tname, iters, group), (0, 0))
+            smem_b = 4 * (LN.WARPS // group) * 2 * width
+            out[(name, dname)] = dict(
+                fwd_ms=fwd_ms, bwd_ms=bwd_ms, bound_fwd_ms=bf,
+                bound_bwd_ms=bb, err=max(errs),
+                plain_fwd_ms=(p1[0] + p2[0]) / 2,
+                plain_bwd_ms=(p1[1] + p2[1]) / 2,
+                library_fwd_ms=l1[0], library_bwd_ms=l1[1])
+            log(f"[layer-norm] {name} T={rows} W={width} {dname} "
+                f"(fast variance {fast}): forward {fwd_ms * 1e3:.2f} us "
+                f"device, bound {bf * 1e3:.2f} us = "
+                f"{100 * bf / fwd_ms:.1f} % of it; backward "
+                f"{bwd_ms * 1e3:.2f} us (join {join_ms * 1e3:.2f}), bound "
+                f"{bb * 1e3:.2f} us = {100 * bb / bwd_ms:.1f} %; by events, "
+                f"forward / backward alone: the Function "
+                f"{k1[0]:.4f}/{k2[0]:.4f} / {k1[1]:.4f}/{k2[1]:.4f} ms, "
+                f"autograd of the plain formula {p1[0]:.4f}/{p2[0]:.4f} / "
+                f"{p1[1]:.4f}/{p2[1]:.4f} ms, F.layer_norm ({lib_weights} "
+                f"weights) {l1[0]:.4f} / {l1[1]:.4f} ms; "
+                f"registers forward {rf[0]} (+{rf[1]} B spilled, "
+                f"{group} warp(s) a row, {iters} vectors a lane, "
+                f"{_ln_blocks_per_sm(rf[0], 0)} blocks an SM), backward "
+                f"{rb[0]} (+{rb[1]} B, "
+                f"{_ln_blocks_per_sm(rb[0], smem_b)} blocks, "
+                f"{smem_b / 1024:.0f} KB shared); largest error vs twin "
+                f"(y, dx, dw, db) {', '.join(f'{e:.3g}' for e in errs)} on "
+                f"{smi}")
+    log(f"[layer-norm] spill bytes over all LayerNorm instantiations: "
+        f"{sum(v[1] for v in regs.values())}; most registers "
+        f"{max(v[0] for v in regs.values())} of {len(regs)} kernels")
+    return out
+
+
 def phase_towers(workdir, smi):
     """Seeded OpenCLIP-format ViT-B/32 state dict (saved for phase 6), then
     both full-width towers with the kernel and with plain attention."""
@@ -911,7 +1115,7 @@ def phase_cli(workdir, ckpt, smi):
     dataset, n_test = _write_dataset(workdir)
     runs = [(dt, res) for dt in ("float32", "bfloat16") for res in ("on", "off")]
     accs = {}
-    FA.LAUNCHES = 0
+    _reset_counts(FA)
     for dtype, resident in runs:
         before = FA.LAUNCHES
         buf = io.StringIO()
@@ -946,6 +1150,7 @@ def phase_cli(workdir, ckpt, smi):
         if launches < need:
             raise AssertionError("the main path did not go through the kernel")
     total = FA.LAUNCHES
+    _add_main_ln()
     for dtype in ("float32", "bfloat16"):
         if accs[(dtype, "on")] != accs[(dtype, "off")]:
             raise AssertionError(f"resident and streaming disagree in {dtype}: "
@@ -1138,13 +1343,37 @@ def _plain_heads_first(qkv, heads, causal):
 
 
 def _reset_counts(FA):
+    """The four attention counts and the two LayerNorm counts set to 0."""
+    from swat_tpu_torch.kernels import layer_norm as LN
+
     FA.LAUNCHES = FA.LAUNCHES_BWD = 0
     FA.LAUNCHES_FLASH = FA.LAUNCHES_FLASH_BWD = 0
+    LN.LAUNCHES_LN = LN.LAUNCHES_LN_BWD = 0
 
 
 def _counts(FA):
     return (FA.LAUNCHES, FA.LAUNCHES_BWD, FA.LAUNCHES_FLASH,
             FA.LAUNCHES_FLASH_BWD)
+
+
+def _ln_counts(FA=None):
+    """The LayerNorm kernels' launches: (forward, backward)."""
+    from swat_tpu_torch.kernels import layer_norm as LN
+
+    return (LN.LAUNCHES_LN, LN.LAUNCHES_LN_BWD)
+
+
+# the LayerNorm launches of the main-path runs (the CLI's, the serving and
+# retrieval runs', the counted towers and steps whose attention launches the
+# {"kernels"} line sums), each counted from 0 by _reset_counts
+MAIN_LN = [0, 0]
+
+
+def _add_main_ln(ln=None):
+    """Adds a main-path run's LayerNorm launches (``ln``, a child
+    process's; by default the counters since _reset_counts) to MAIN_LN."""
+    for i, n in enumerate(_ln_counts() if ln is None else ln):
+        MAIN_LN[i] += n
 
 
 # heatmaps (cosines in [-1, 1]) with the heads-first kernel against its
@@ -1984,36 +2213,37 @@ def _entry_counts(FA, *names):
 
 
 @contextlib.contextmanager
-def _train_loop_counts(FA):
-    """The launch counts of the training steps alone of each train_loop run
-    inside (SwatPipeline.train_method's, stage 2's included): the counts
-    over the loop less those made by its validate_fn and test_fn ->
-    [counts, ...] in the order of the loops."""
+def _train_loop_counts(FA, read=_counts):
+    """The launch counts (``read``: the four attention counts, or
+    _ln_counts) of the training steps alone of each train_loop run inside
+    (SwatPipeline.train_method's, stage 2's included): the counts over the
+    loop less those made by its validate_fn and test_fn -> [counts, ...] in
+    the order of the loops."""
     from swat_tpu_torch.train import stages
 
     per = []
     real = stages.train_loop
 
     def counted(*, validate_fn, test_fn, **kw):
-        evals = [0, 0, 0, 0]
+        evals = [0] * len(read(FA))
 
         def counting(fn):
             def wrapped(state):
-                before = _counts(FA)
+                before = read(FA)
                 try:
                     return fn(state)
                 finally:
-                    for i, (a, b) in enumerate(zip(_counts(FA), before)):
+                    for i, (a, b) in enumerate(zip(read(FA), before)):
                         evals[i] += a - b
             return wrapped
 
-        before = _counts(FA)
+        before = read(FA)
         try:
             return real(validate_fn=counting(validate_fn),
                         test_fn=counting(test_fn), **kw)
         finally:
             per.append(tuple(a - b - e for a, b, e in
-                             zip(_counts(FA), before, evals)))
+                             zip(read(FA), before, evals)))
 
     stages.train_loop = counted
     try:
@@ -2030,8 +2260,9 @@ def _train_cli_run(workdir, ckpt, dataset, method, dtype, resident, smi,
     unless ``stage2``), its summary line, loss.csv (``rows_want`` rows) and
     output files checked; without ``summary_row`` (dataset-cls) the run
     must print no summary line and write no stage file.  The four counts
-    are set to 0 just before the run and read just after -> dict of what
-    it gave.  ``launcher``: the run is one process started by
+    and the two LayerNorm counts are set to 0 just before the run and read
+    just after -> dict of what it gave (the LayerNorm launches, "ln", added
+    to MAIN_LN).  ``launcher``: the run is one process started by
     ``torch.distributed.run --standalone --nproc_per_node 1`` (on NCCL),
     which counts its own launches (``_dist_child``)."""
     import csv
@@ -2056,17 +2287,19 @@ def _train_cli_run(workdir, ckpt, dataset, method, dtype, resident, smi,
             "--resident", resident, "--num_workers", "8",
             "--recal_prompt", "--device", "cuda", *extra]
     if launcher:
-        out, counts, loops, wall = _launched_cli(workdir, argv)
+        out, counts, loops, ln, ln_loops, wall = _launched_cli(workdir, argv)
     else:
         _reset_counts(FA)
         buf = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf), \
-                _train_loop_counts(FA) as loops:
+                _train_loop_counts(FA) as loops, \
+                _train_loop_counts(FA, _ln_counts) as ln_loops:
             cli_main(argv)
         wall = time.perf_counter() - t0
-        counts = _counts(FA)
+        counts, ln = _counts(FA), _ln_counts()
         out = buf.getvalue()
+    _add_main_ln(ln)
     summary = [ln for ln in out.splitlines()
                if ln.startswith(f"{dataset},{method},")]
     if not summary_row:
@@ -2124,8 +2357,10 @@ def _train_cli_run(workdir, ckpt, dataset, method, dtype, resident, smi,
         f"streaming) on {smi} | kernel launches fwd {counts[0]} bwd "
         f"{counts[1]} heads-first fwd {counts[2]} heads-first bwd "
         f"{counts[3]}; the training steps' own fwd {loops[0][0]} bwd "
-        f"{loops[0][1]}")
-    return {"counts": counts, "loops": loops, "steps": steps,
+        f"{loops[0][1]}; LayerNorm fwd {ln[0]} bwd {ln[1]}, the training "
+        f"steps' own {ln_loops[0][0]} / {ln_loops[0][1]}")
+    return {"counts": counts, "loops": loops, "ln": ln,
+            "ln_loops": ln_loops, "steps": steps,
             "resident": resident_run,
             "out": out, "run_dir": run_dir, "rows": rows,
             "summary": summary[0], "wall": wall}
@@ -2135,7 +2370,11 @@ def _check_stage1_counts(run, method, layers, accum=1, remat=False):
     """Stage 1's training steps (the first train_loop of the run) launched
     exactly layers x accum x steps of mha_fwd plus the blocks remat
     recomputes, and as many mha_bwd; attentivemix as many heads-first
-    forwards (its heatmaps, mix_prob 1); the whole run at least those."""
+    forwards (its heatmaps, mix_prob 1); the whole run at least those.  And
+    LayerNorm: an image forward makes 2 x layers + 2 calls (ln_pre, two a
+    block, ln_post), a recomputed block 2 more, each a forward launch, and
+    its backward as many backward launches; attentivemix's heatmaps are
+    one more forward a step."""
     from swat_tpu_torch.models.clip import resolve_remat_policy
 
     _, _, first_k = resolve_remat_policy(remat)
@@ -2143,14 +2382,23 @@ def _check_stage1_counts(run, method, layers, accum=1, remat=False):
     micro = accum * run["steps"]
     need = ((layers + recomputed) * micro, layers * micro,
             layers * run["steps"] if method == "attentivemix" else 0, 0)
+    calls = 2 * layers + 2
+    need_ln = ((calls + 2 * recomputed) * micro
+               + (calls * run["steps"] if method == "attentivemix" else 0),
+               calls * micro)
     counts, train = run["counts"], run["loops"][0]
+    train_ln = run["ln_loops"][0]
     log(f"[train-cli] {method}: stage-1 steps launched {train} (need "
         f"{need}: {run['steps']} steps x accum {accum}, remat {remat!r}); "
-        f"the whole run {counts}")
+        f"the whole run {counts}; LayerNorm {train_ln} (need {need_ln})")
     if train != need or any(c < n for c, n in zip(counts, need)):
         raise AssertionError(f"{method} training did not go through the "
                              f"attention kernels as counted: {train}, "
                              f"{counts}")
+    if train_ln != need_ln:
+        raise AssertionError(f"{method} training did not go through the "
+                             f"LayerNorm kernels as counted: {train_ln}, "
+                             f"need {need_ln}")
 
 
 def _flagship(workdir, ckpt, dataset, smi, layers):
@@ -2197,7 +2445,7 @@ def _flagship(workdir, ckpt, dataset, smi, layers):
                              f"kernels: probing {probe}, FSFT {fsft}")
     _check_stage1_counts({"counts": tuple(
         c - p - f for c, p, f in zip(full["counts"], probe, fsft)),
-        "loops": full["loops"],
+        "loops": full["loops"], "ln_loops": full["ln_loops"],
         "steps": 2 * ((N_FEWSHOT + N_RETRIEVED) // FLAGSHIP_BSZ)},
         "cutmix", layers)
 
@@ -2543,8 +2791,9 @@ def phase_train_cli(workdir, ckpt, dataset, smi):
 
 def _dist_child(args_path: str) -> int:
     """The launcher's one process: ``swat_tpu_torch.cli.main`` on the argv
-    in ``args_path``, its four counts set to 0 just before and read just
-    after, printed with the training loops' own as the last line."""
+    in ``args_path``, its four counts and two LayerNorm counts set to 0
+    just before and read just after, printed with the training loops' own
+    as the last line."""
     from swat_tpu_torch.cli.main import main as cli_main
     from swat_tpu_torch.kernels import flash_attention as FA
 
@@ -2552,11 +2801,13 @@ def _dist_child(args_path: str) -> int:
         argv = json.load(f)
     _reset_counts(FA)
     t0 = time.perf_counter()
-    with _train_loop_counts(FA) as loops:
+    with _train_loop_counts(FA) as loops, \
+            _train_loop_counts(FA, _ln_counts) as ln_loops:
         cli_main(argv)
     wall = time.perf_counter() - t0
     print("DIST_CHILD " + json.dumps({"counts": _counts(FA),
-                                      "loops": loops, "wall": wall}),
+                                      "loops": loops, "ln": _ln_counts(),
+                                      "ln_loops": ln_loops, "wall": wall}),
           flush=True)
     return 0
 
@@ -2564,7 +2815,8 @@ def _dist_child(args_path: str) -> int:
 def _launched_cli(workdir, argv):
     """``argv`` through ``torch.distributed.run --standalone
     --nproc_per_node 1`` -> (its standard output, counts, training-loop
-    counts, wall seconds of the CLI inside it)."""
+    counts, LayerNorm counts, their training-loop counts, wall seconds of
+    the CLI inside it)."""
     import os
 
     path = f"{workdir}/dist_argv.json"
@@ -2587,7 +2839,8 @@ def _launched_cli(workdir, argv):
     log(f"[dist] launcher process: {launched:.3f} s wall, the CLI inside "
         f"{got['wall']:.3f} s")
     return (proc.stdout, tuple(got["counts"]),
-            [tuple(c) for c in got["loops"]], got["wall"])
+            [tuple(c) for c in got["loops"]], tuple(got["ln"]),
+            [tuple(c) for c in got["ln_loops"]], got["wall"])
 
 
 def phase_dist_launcher(workdir, ckpt, dataset, smi, plain):
@@ -2661,6 +2914,7 @@ def _repro_run(workdir, ckpt, dataset, smi):
         rc = repro.run(argv)
     wall = time.perf_counter() - t0
     counts = _counts(FA)
+    _add_main_ln()
     out = buf.getvalue()
     # the runbook's own lines; the runs' log lines carry a timestamp
     for line in out.splitlines():
@@ -2889,6 +3143,7 @@ def phase_dist_tp(ckpt, smi):
                     fwd += FA.LAUNCHES
                     bwd += FA.LAUNCHES_BWD
                     launched = (FA.LAUNCHES, FA.LAUNCHES_BWD)
+                    _add_main_ln()
                 w_grad = tp_join("qkv", [stack(m).resblocks[0].attn
                                          .in_proj_weight.grad
                                          for m in models], heads) \
@@ -3799,6 +4054,7 @@ def phase_vit_towers(smi):
             step(state, batch, draws)
             torch.cuda.synchronize()
             counts = _counts(FA)
+            _add_main_ln()
             total = [t + c for t, c in zip(total, counts)]
             torch.cuda.reset_peak_memory_stats()
             ms = _time_ms(lambda: step(state, batch, draws), iters=3,
@@ -3968,6 +4224,7 @@ def _cli_test(argv, device, bsz=SERVE_BSZ):
                    "--device", device])
     wall = time.perf_counter() - t0
     counts = _counts(FA)
+    _add_main_ln()
     out = buf.getvalue()
     lines = [ln for ln in out.splitlines()
              if ln.startswith(f"{dataset},{split},")]
@@ -4344,6 +4601,7 @@ def phase_w8a8(workdir, ckpt, converted, smi):
                                             normalize=True).cpu()]
             if tag == "int8":
                 run = {"counts": _counts(FA)}
+                _add_main_ln()
                 _check_counts("[w8a8] int8 towers", run,
                               cfg.vision.layers + cfg.text.layers)
                 total += run["counts"][0]
@@ -4386,6 +4644,7 @@ def phase_w8a8(workdir, ckpt, converted, smi):
         got = big_q.encode_image(limages, normalize=True)
         torch.cuda.synchronize()
         counts = _counts(FA)
+        _add_main_ln()
     _check_counts("[w8a8] vitl14 int8 image tower", {"counts": counts},
                   lcfg.vision.layers)
     cos = (got * ref).sum(-1)
@@ -4578,6 +4837,7 @@ def _retrieval_cli(argv, device=None):
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         retrieval_main(argv + (["--device", device] if device else []))
+    _add_main_ln()
     return _counts(FA), time.perf_counter() - t0, buf.getvalue()
 
 
@@ -5034,6 +5294,7 @@ def main() -> int:
     worst_flash = timed("flash-kernels-vs-plain",
                         phase_flash_kernels_vs_plain)
     times_flash = timed("flash-timing", phase_flash_timing, smi)
+    times_ln = timed("layer-norm", phase_layer_norm, smi)
     with tempfile.TemporaryDirectory(prefix="swat_smoke_") as workdir:
         ckpt = timed("towers", phase_towers, workdir, smi)
         launches = timed("cli", phase_cli, workdir, ckpt, smi)
@@ -5124,6 +5385,20 @@ def main() -> int:
             "max_abs_err": worst_mega[(kernel, "vitb32_image", "float32")],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": by, "library_ms": lib_ms})
+    # the LayerNorm pair at the same dtype and the B/32 block (T = 12800,
+    # W = 768); launches: the main-path runs' (MAIN_LN), each counted from
+    # 0.  No TPU kernel: swat_tpu leaves LayerNorm to XLA
+    ln = times_ln[("vitb32_block", "float32")]
+    for kernel, n_launches in (("ln_fwd", MAIN_LN[0]),
+                               ("ln_bwd", MAIN_LN[1])):
+        kind = kernel[3:]
+        kernels.append({
+            "name": kernel, "route": "cuda",
+            "source": "swat_tpu_torch/csrc/layer_norm.cu", "replaces": None,
+            "launches": n_launches, "max_abs_err": ln["err"],
+            "ms": ln[f"{kind}_ms"], "plain_ms": ln[f"plain_{kind}_ms"],
+            "bound_ms": ln[f"bound_{kind}_ms"], "bound_by": "bytes",
+            "library_ms": ln[f"library_{kind}_ms"]})
     probe, fsft = (stage2_counts[k] for k in ("run_stage2_probing",
                                                "run_stage2_fsft"))
     log(f"[launches] mha_fwd {kernels[0]['launches']}, of which stage 2 "

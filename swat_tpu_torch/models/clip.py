@@ -35,6 +35,13 @@ the card, in both precision policies too.  Training differentiates what the
 train state leaves ``requires_grad`` on: the image tower, and for FLYP the
 text tower too (its causal attention's gradient is the backward kernel's).
 
+LayerNorm.  On CUDA every ``layer_norm`` (``ln_pre``, the blocks',
+``ln_post``, ``ln_final``) goes through the hand-written kernel pair
+(``kernels.layer_norm``, one autograd Function: the forward kernel, and the
+backward kernel as its gradient, the scale and bias read in fp32); where no
+input needs a gradient the forward kernel runs alone and saves nothing.  A
+CPU tensor runs the plain formula of ``functional._layer_norm``.
+
 Remat (``CLIPModel(remat=...)``, ``--remat``; ``resolve_remat_policy``)
 recomputes blocks in the backward through ``torch.utils.checkpoint``
 (non-reentrant): every block, the first K, or every block keeping the
@@ -119,6 +126,7 @@ from torch.utils.checkpoint import (checkpoint,
 from swat_tpu_torch.core.precision import DEFAULT_PRECISION, Precision
 from swat_tpu_torch.kernels.attention import heads_first_attention
 from swat_tpu_torch.kernels.flash_attention import mha_qkv
+from swat_tpu_torch.kernels.layer_norm import layer_norm as fused_layer_norm
 from swat_tpu_torch.kernels.megablock import fused_transformer
 from swat_tpu_torch.models.configs import (CLIPConfig, ResNetConfig,
                                            TextConfig, VisionConfig)
@@ -131,7 +139,14 @@ Attention = Callable[[torch.Tensor, int, bool], torch.Tensor]
 def layer_norm(ln: nn.LayerNorm, x: torch.Tensor, precision: Precision,
                eps: float = 1e-5) -> torch.Tensor:
     """fp32 LayerNorm, one-pass (clamped) or exact two-pass variance,
-    output in the compute dtype (functional._layer_norm)."""
+    output in the compute dtype (functional._layer_norm).  A CUDA tensor
+    takes the hand-written kernel pair (``kernels.layer_norm``: the same
+    formula in one forward and one backward kernel, the scale and bias read
+    in fp32); any other runs the formula below."""
+    if x.device.type == "cuda":
+        return fused_layer_norm(x, ln.weight.float(), ln.bias.float(),
+                                precision.ln_fast_variance, eps,
+                                precision.compute_dtype)
     x = x.float()
     mu = x.mean(dim=-1, keepdim=True)
     if precision.ln_fast_variance:

@@ -5,17 +5,21 @@ bf16, strided and contiguous; the launch counts; determinism; the autograd
 Functions and the three backward modes; the wrappers' refusals; and the same
 for the three block-fused layer kernels (kernels/megablock.py); the
 tensor-core forward and backward templates at the edges of their tiling; the
-retrieval ranking and both samplers on the card against the CPU.  Run them on
-a GPU machine with ``python -m pytest tests/test_torch_cuda.py``."""
+retrieval ranking and both samplers on the card against the CPU; the
+LayerNorm kernel pair (kernels/layer_norm.py) bit for bit against the model
+of its arithmetic (torch_port_lib.ln_model_*) and within rounding of its
+plain twins.  Run them on a GPU machine with ``python -m pytest
+tests/test_torch_cuda.py``."""
 
 import contextlib
 
 import pytest
 import torch
-from torch_port_lib import (gapped_pool, mma_sum_dot, rank_inputs,
-                            reference_pool)
+from torch_port_lib import (gapped_pool, ln_model_bwd, ln_model_fwd,
+                            mma_sum_dot, rank_inputs, reference_pool)
 
 from swat_tpu_torch.kernels import flash_attention as FA
+from swat_tpu_torch.kernels import layer_norm as LN
 from swat_tpu_torch.kernels import megablock as MB
 
 pytestmark = pytest.mark.cuda
@@ -1164,3 +1168,161 @@ def test_collectives_through_a_one_rank_nccl_group(device):
     assert got.keys() == ref.keys()
     for k, v in ref.items():
         assert got[k].dtype == v.dtype and torch.equal(got[k], v), k
+
+
+# ---------------------------------------------------------------------------
+# the LayerNorm kernel pair
+
+LN_EPS = 1e-5
+
+
+def _ln_inputs(rows, width, dtype, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def normal(*shape, mean=0.0, std=1.0):
+        return mean + std * torch.randn(*shape, generator=g, device=device)
+
+    x = normal(rows, width, mean=0.3, std=2.0).to(dtype)
+    dy = normal(rows, width).to(dtype)
+    return x, normal(width, mean=1.0, std=0.5), normal(width, std=0.5), dy
+
+
+def _ln_run(x, w, b, dy, fast):
+    """Both kernels on the card -> (y, mu, rstd, dx, dw, db) on the CPU."""
+    y, mu, rstd = LN.layer_norm_fwd(x, w, b, fast, LN_EPS, x.dtype)
+    dx, dw, db = LN.layer_norm_bwd(x, dy, mu, rstd, w)
+    torch.cuda.synchronize()
+    return tuple(t.cpu() for t in (y, mu, rstd, dx, dw, db))
+
+
+def _ln_model(x, w, b, dy, fast):
+    y, mu, rstd = ln_model_fwd(x.cpu(), w.cpu(), b.cpu(), fast, LN_EPS,
+                               x.dtype)
+    return (y, mu, rstd, *ln_model_bwd(x.cpu(), dy.cpu(), mu, rstd, w.cpu()))
+
+
+LN_NAMES = ("y", "mu", "rstd", "dx", "dw", "db")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("rows,width", [
+    (131, 512), (131, 768), (131, 1024), (3, 64), (70, 1001), (33, 1280),
+    (65, 3000), (17, 6000), (256 * 50, 768), (64 * 257, 1024)])
+def test_ln_kernels_are_the_model_bit_for_bit(device, dtype, fast, rows,
+                                              width):
+    """Every output of both kernels equals the model of their arithmetic:
+    the towers' widths and shapes (B/32's and L/14's blocks), a width of
+    no whole vectors, rows of 2, 4 and 8 warps, both dtypes."""
+    x, w, b, dy = _ln_inputs(rows, width, dtype, device)
+    got = _ln_run(x, w, b, dy, fast)
+    ref = _ln_model(x, w, b, dy, fast)
+    for name, a, r in zip(LN_NAMES, got, ref):
+        assert a.dtype == r.dtype and torch.equal(a, r), (
+            name, (a.float() - r.float()).abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,width", [(256 * 50, 768), (64 * 257, 1024),
+                                        (1024 * 77, 512)])
+def test_ln_kernels_match_plain_twins(device, dtype, rows, width):
+    """Both kernels against their plain twins on the card at the towers'
+    shapes, under the policy's variance: fp32 within summation order, bf16
+    within a rounding flip of an element."""
+    fast = dtype == torch.bfloat16
+    x, w, b, dy = _ln_inputs(rows, width, dtype, device, seed=1)
+    y, mu, rstd, dx, dw, db = _ln_run(x, w, b, dy, fast)
+    y_ref, mu_ref, rstd_ref = LN.layer_norm_reference(x, w, b, fast, LN_EPS,
+                                                      dtype)
+    grads = LN.layer_norm_bwd_reference(x, dy, mu_ref, rstd_ref, w)
+    for name, a, r in zip(LN_NAMES, (y, mu, rstd, *(dx, dw, db)),
+                          (y_ref, mu_ref, rstd_ref, *grads)):
+        r = r.cpu().float()
+        err = (a.float() - r).abs()
+        scale = r.abs().max()
+        rel = 2 ** -7 if a.dtype == torch.bfloat16 else 0.0
+        assert bool((err <= rel * r.abs() + 1e-5 * scale).all()), (
+            name, err.max().item(), scale.item())
+
+
+def test_ln_parameter_gradients_are_deterministic(device):
+    x, w, b, dy = _ln_inputs(64 * 257, 1024, torch.bfloat16, device)
+    first = _ln_run(x, w, b, dy, True)
+    second = _ln_run(x, w, b, dy, True)
+    for name, a, r in zip(LN_NAMES, first, second):
+        assert torch.equal(a, r), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ln_function_runs_both_kernels_once_a_call(device, dtype):
+    """Through clip.layer_norm: one forward launch, one backward launch a
+    call, the gradients of the saved x, weight and bias; under no_grad the
+    forward alone, nothing saved, no backward."""
+    from torch import nn
+
+    from swat_tpu_torch.core.precision import (DEFAULT_PRECISION,
+                                               FP32_PRECISION)
+    from swat_tpu_torch.models import clip
+
+    p = DEFAULT_PRECISION if dtype == torch.bfloat16 else FP32_PRECISION
+    ln = nn.LayerNorm(768).to(device)
+    x, w, b, dy = _ln_inputs(9 * 50, 768, dtype, device)
+    with torch.no_grad():
+        ln.weight.copy_(w)
+        ln.bias.copy_(b)
+    x = x.reshape(9, 50, 768).requires_grad_(True)
+    fwd, bwd = LN.LAUNCHES_LN, LN.LAUNCHES_LN_BWD
+    y = clip.layer_norm(ln, x, p)
+    assert type(y.grad_fn).__name__ == "LayerNormFunctionBackward"
+    assert (LN.LAUNCHES_LN, LN.LAUNCHES_LN_BWD) == (fwd + 1, bwd)
+    y.backward(dy.reshape(9, 50, 768))
+    assert (LN.LAUNCHES_LN, LN.LAUNCHES_LN_BWD) == (fwd + 1, bwd + 1)
+    ref = _ln_model(x.detach().reshape(-1, 768), w, b, dy,
+                    p.ln_fast_variance)
+    assert torch.equal(y.detach().reshape(-1, 768).cpu(), ref[0])
+    assert torch.equal(x.grad.reshape(-1, 768).cpu(), ref[3])
+    assert torch.equal(ln.weight.grad.cpu(), ref[4])
+    assert torch.equal(ln.bias.grad.cpu(), ref[5])
+    with torch.no_grad():
+        assert clip.layer_norm(ln, x, p).grad_fn is None
+    assert (LN.LAUNCHES_LN, LN.LAUNCHES_LN_BWD) == (fwd + 2, bwd + 1)
+
+
+def test_ln_takes_the_class_token_view_and_unaligned_rows(device):
+    """ln_post's x[:, 0] (rows strided by S * W) and rows that start off a
+    16-byte boundary (element by element) give the model's bits."""
+    seq, w, b, _ = _ln_inputs(9 * 50, 768, torch.bfloat16, device)
+    seq = seq.reshape(9, 50, 768)
+    for x in (seq[:, 0], seq[:, 0, 3:]):
+        width = x.shape[-1]
+        dy = torch.randn(9, width, device=device).bfloat16()
+        got = _ln_run(x, w[:width], b[:width], dy, True)
+        ref = _ln_model(x, w[:width], b[:width], dy, True)
+        for name, a, r in zip(LN_NAMES, got, ref):
+            assert torch.equal(a, r), name
+
+
+def test_ln_refusals_raise_and_do_not_count(device):
+    x, w, b, dy = _ln_inputs(8, 512, torch.float32, device)
+    wide = torch.zeros(2, LN.MAX_WIDTH + 8, device=device)
+    before = (LN.LAUNCHES_LN, LN.LAUNCHES_LN_BWD)
+    with pytest.raises(TypeError):
+        LN.layer_norm_fwd(x.half(), w, b, True, LN_EPS, torch.float16)
+    # the output in another dtype than x's
+    with pytest.raises(TypeError):
+        LN.layer_norm_fwd(x, w, b, True, LN_EPS, torch.bfloat16)
+    with pytest.raises(ValueError, match="weight"):
+        LN.layer_norm_fwd(x, w.cpu(), b, True, LN_EPS, torch.float32)
+    with pytest.raises(ValueError, match="weight"):
+        LN.layer_norm_fwd(x, w.bfloat16(), b, True, LN_EPS, torch.float32)
+    with pytest.raises(ValueError, match="beyond"):
+        LN.layer_norm_fwd(wide, wide[0] + 1, wide[0], True, LN_EPS,
+                          torch.float32)
+    assert (LN.LAUNCHES_LN, LN.LAUNCHES_LN_BWD) == before
+    _, mu, rstd = LN.layer_norm_fwd(x, w, b, True, LN_EPS, torch.float32)
+    before = (LN.LAUNCHES_LN, LN.LAUNCHES_LN_BWD)
+    with pytest.raises(ValueError, match="dy must match"):
+        LN.layer_norm_bwd(x, dy[:4], mu, rstd, w)
+    with pytest.raises(TypeError):
+        LN.layer_norm_bwd(x, dy.half(), mu, rstd, w)
+    assert (LN.LAUNCHES_LN, LN.LAUNCHES_LN_BWD) == before

@@ -40,6 +40,7 @@ PORT_MODULES = [
     "swat_tpu_torch.kernels._ablate", "swat_tpu_torch.kernels._build",
     "swat_tpu_torch.kernels.attention",
     "swat_tpu_torch.kernels.augment", "swat_tpu_torch.kernels.flash_attention",
+    "swat_tpu_torch.kernels.layer_norm",
     "swat_tpu_torch.kernels.megablock", "swat_tpu_torch.kernels.randaugment",
     "swat_tpu_torch.models.clip", "swat_tpu_torch.models.configs",
     "swat_tpu_torch.models.head", "swat_tpu_torch.models.loader",

@@ -971,3 +971,155 @@ def gapped_pool():
                for k in (0, 2, 4)}
     fs = {k: grid(rng.normal(size=(4, d)) / 4, 2.0 ** -6) for k in range(5)}
     return (files, labels, img, cap), prompts, fs
+
+
+# ---------------------------------------------------------------------------
+# the LayerNorm kernels' arithmetic (csrc/layer_norm.cu), launch by launch:
+# every fp32 step the kernels round, in their order, so that the model
+# repeats them bit for bit (tests/test_torch_cuda.py) and stands for them
+# on the CPU (tests/test_torch_layer_norm.py)
+
+
+def _ln_lanes(t, group: int, iters: int, vec: int):
+    """fp32 rows [T, W] -> [T, iters, group, 32, vec]: lane l of warp g of a
+    row's group holds the vectors i * 32 * group + g * 32 + l, i < iters;
+    zeros past the width."""
+    import torch
+
+    rows, width = t.shape
+    held = iters * group * 32 * vec
+    padded = torch.zeros(rows, held, dtype=torch.float32, device=t.device)
+    padded[:, :width] = t
+    return padded.reshape(rows, iters, group, 32, vec)
+
+
+def _ln_row_sum(lanes):
+    """A row's sum over its lanes' elements [T, iters, group, 32, vec]: each
+    lane in order (i, then the element), the warp's lanes xor 16, 8, 4, 2,
+    1, then the group's warps in order -> [T]."""
+    import torch
+
+    acc = torch.zeros(lanes.shape[0], lanes.shape[2], 32,
+                      dtype=torch.float32, device=lanes.device)
+    for i in range(lanes.shape[1]):
+        for e in range(lanes.shape[4]):
+            acc = acc + lanes[:, i, :, :, e]
+    idx = torch.arange(32, device=lanes.device)
+    for o in (16, 8, 4, 2, 1):
+        acc = acc + acc[:, :, idx ^ o]
+    total = acc[:, 0, 0]
+    for g in range(1, acc.shape[1]):
+        total = total + acc[:, g, 0]
+    return total
+
+
+def _ln_div(s, n: int):
+    """s / n, an IEEE fp32 division (never a product by 1 / n)."""
+    import torch
+
+    return s / torch.full_like(s, float(n))
+
+
+def _ln_layout(width: int, dtype):
+    import torch
+
+    from swat_tpu_torch.kernels import layer_norm as LN
+
+    group, iters = LN.plan(width, dtype)
+    return group, iters, 16 * 8 // torch.finfo(dtype).bits
+
+
+def ln_model_fwd(x, weight, bias, fast: bool, eps: float, out_dtype):
+    """The forward kernel's arithmetic -> (y in ``out_dtype``, fp32 mu and
+    rstd [*x.shape[:-1]], rstd negated where the clamp acted)."""
+    import torch
+
+    width = x.shape[-1]
+    xr = x.reshape(-1, width).float()
+    group, iters, vec = _ln_layout(width, x.dtype)
+    lanes = _ln_lanes(xr, group, iters, vec)
+    mu = _ln_div(_ln_row_sum(lanes), width)
+    if fast:
+        var = _ln_div(_ln_row_sum(lanes * lanes), width) - mu * mu
+        clamped = var < 0
+        var = torch.where(clamped, torch.zeros_like(var), var)
+    else:
+        held = _ln_lanes(torch.ones_like(xr), group, iters, vec) > 0
+        d = torch.where(held, lanes - mu[:, None, None, None, None],
+                        torch.zeros_like(lanes))
+        var = _ln_div(_ln_row_sum(d * d), width)
+        clamped = torch.zeros_like(var, dtype=torch.bool)
+    eps32 = torch.full_like(var, eps)
+    # 1 / sqrt correctly rounded to fp32 (__frsqrt_rn), through float64
+    rstd = torch.rsqrt((var + eps32).double()).float()
+    y = ((xr - mu[:, None]) * (rstd[:, None] * weight.float()[None])
+         + bias.float()[None])
+    lead = x.shape[:-1]
+    return (y.to(out_dtype).reshape(x.shape), mu.reshape(lead),
+            torch.where(clamped, -rstd, rstd).reshape(lead))
+
+
+def ln_model_colsum(p, groups: int):
+    """The backward's column sums of fp32 p [T, W] with ``groups`` row
+    groups a block: block b sums rows [64 b, 64 b + 64), group g the rows
+    64 b + k * groups + g in order of k; the groups joined in a tree (g adds
+    g + half, half = groups / 2 .. 1); then the blocks' partial rows in
+    JOIN_WARPS contiguous chunks, each in order, the chunks in order -> [W]."""
+    import torch
+
+    from swat_tpu_torch.kernels import layer_norm as LN
+
+    rows, width = p.shape
+    rb = LN.ROWS_PER_BLOCK
+    blocks = -(-rows // rb)
+    padded = torch.zeros(blocks * rb, width, dtype=torch.float32,
+                         device=p.device)
+    padded[:rows] = p
+    by = padded.reshape(blocks, rb // groups, groups, width)
+    acc = torch.zeros(blocks, groups, width, dtype=torch.float32,
+                      device=p.device)
+    for k in range(rb // groups):
+        acc = acc + by[:, k]
+    half = groups // 2
+    while half >= 1:
+        acc = torch.cat([acc[:, :half] + acc[:, half:2 * half],
+                         acc[:, half:]], dim=1)
+        half //= 2
+    part = acc[:, 0]
+    chunk = -(-blocks // LN.JOIN_WARPS)
+    sums = []
+    for j in range(LN.JOIN_WARPS):
+        s = torch.zeros(width, dtype=torch.float32, device=p.device)
+        for b in range(j * chunk, min(blocks, (j + 1) * chunk)):
+            s = s + part[b]
+        sums.append(s)
+    total = sums[0]
+    for s in sums[1:]:
+        total = total + s
+    return total
+
+
+def ln_model_bwd(x, dy, mu, rstd, weight):
+    """The backward kernel's arithmetic and its join's -> (dx in x's dtype,
+    fp32 dw, db)."""
+    import torch
+
+    from swat_tpu_torch.kernels import layer_norm as LN
+
+    width = x.shape[-1]
+    xr = x.reshape(-1, width).float()
+    dyr = dy.reshape(-1, width).float()
+    group, iters, vec = _ln_layout(width, x.dtype)
+    rs = rstd.reshape(-1)
+    r = rs.abs()[:, None]
+    xh = (xr - mu.reshape(-1)[:, None]) * r
+    g = dyr * weight.float()[None]
+    s1 = _ln_row_sum(_ln_lanes(g, group, iters, vec))
+    s2 = _ln_row_sum(_ln_lanes(g * xh, group, iters, vec))
+    m1 = _ln_div(s1, width)[:, None]
+    m2 = torch.where(rs > 0, _ln_div(s2, width),
+                     torch.zeros_like(s2))[:, None]
+    dx = r * ((g - m1) - xh * m2)
+    groups = LN.WARPS // group
+    return (dx.to(x.dtype).reshape(x.shape),
+            ln_model_colsum(dyr * xh, groups), ln_model_colsum(dyr, groups))
