@@ -35,6 +35,11 @@ such leaf, and an integer tensor would not mix in WiSE-FT).  The math is
   ``torch.matmul`` and ``softmax``, as ``swat_tpu`` computes it in XLA
   outside any Pallas kernel.  ``pool=False`` returns ``c_proj(v_proj(t))``
   of every token (the heatmaps' surface).
+
+Tracing (``utils/profiling.py``, nothing while no profiler records): a
+train-mode ``AffineBN`` runs in a ``resnet.bn`` span and its backward in a
+``resnet.bn_backward`` one, the attention pool in ``resnet.attnpool``;
+``BN_BATCH_STATS`` counts the train-mode ``AffineBN`` calls.
 """
 
 from __future__ import annotations
@@ -47,7 +52,12 @@ from torch import nn
 
 from swat_tpu_torch.core.precision import Precision
 from swat_tpu_torch.models.configs import ResNetConfig
+from swat_tpu_torch.utils.profiling import backward_span, span
 
+# train-mode AffineBN calls (batch statistics) since the process started:
+# 55 an RN50 train forward (3 in the stem, 3 a bottleneck, 4 downsamples),
+# none in eval
+BN_BATCH_STATS = 0
 
 
 class BNUpdates(dict):
@@ -92,9 +102,25 @@ class AffineBN(nn.Module):
     def forward(self, x: torch.Tensor, precision: Precision,
                 updates: Optional[BNUpdates] = None) -> torch.Tensor:
         """x [B, C, H, W] in the compute dtype; ``updates`` None: eval
-        mode, else train mode, this module's batch statistics added."""
+        mode, else train mode, this module's batch statistics added (a
+        ``resnet.bn`` span, its backward a ``resnet.bn_backward`` one, and
+        one more ``BN_BATCH_STATS``)."""
+        if updates is None:
+            return self._normalize(x, self.running_mean, self.running_var,
+                                   precision)
+        global BN_BATCH_STATS
+        BN_BATCH_STATS += 1
+        with span("resnet.bn"):
+            y = self._normalize(x, *self._batch_stats(x, updates), precision)
+        backward_span("resnet.bn_backward", y, x)
+        return y
+
+    def _batch_stats(self, x: torch.Tensor, updates: BNUpdates):
+        """-> the batch mean and biased variance of fp32 ``x`` over N, H,
+        W, with gradients through them; the mean and the unbiased variance
+        go to ``updates``, detached."""
         mesh = getattr(updates, "mesh", None)
-        if updates is not None and mesh is not None and mesh.data > 1:
+        if mesh is not None and mesh.data > 1:
             # the global batch's statistics, as swat_tpu's AffineBN takes
             # them over the sharded batch: mean = sum / n, then the biased
             # variance from the centred squares, each sum all-reduced
@@ -103,17 +129,18 @@ class AffineBN(nn.Module):
             mean = mesh.reduce_sum(x32.sum(dim=(0, 2, 3))) / n
             d = x32 - mean.view(1, -1, 1, 1)
             var = mesh.reduce_sum((d * d).sum(dim=(0, 2, 3))) / n
-            updates[self] = (mean.detach(),
-                             (var * (n / max(n - 1, 1))).detach())
-        elif updates is not None:
+        else:
             x32 = x.float()
             mean = x32.mean(dim=(0, 2, 3))
             var = x32.var(dim=(0, 2, 3), correction=0)
             n = x.numel() // x.shape[1]
-            updates[self] = (mean.detach(),
-                             (var * (n / max(n - 1, 1))).detach())
-        else:
-            mean, var = self.running_mean, self.running_var
+        updates[self] = (mean.detach(), (var * (n / max(n - 1, 1))).detach())
+        return mean, var
+
+    def _normalize(self, x: torch.Tensor, mean: torch.Tensor,
+                   var: torch.Tensor, precision: Precision) -> torch.Tensor:
+        """The affine of the statistics in fp32, rounded once to the
+        compute dtype, applied as ``x * a + b``."""
         cd = precision.compute_dtype
         rstd = torch.rsqrt(var + self.EPS)
         a = (self.weight * rstd).to(cd)
@@ -247,7 +274,8 @@ class ModifiedResNet(nn.Module):
         for stage in range(len(self.cfg.layers)):
             for block in getattr(self, f"layer{stage + 1}"):
                 x = block(x, precision, updates)
-        return self.attnpool(x, precision, pool)
+        with span("resnet.attnpool"):
+            return self.attnpool(x, precision, pool)
 
     @torch.no_grad()
     def init_random(self, generator: torch.Generator) -> None:

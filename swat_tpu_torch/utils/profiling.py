@@ -18,7 +18,9 @@ profiler session records, that of ``maybe_trace`` or any other; so the
 ranges share the trace's one clock with the card's kernels, copies and
 runtime calls.  With no session it hands back one shared null context
 after a single check (under a microsecond), so the spans stay in the hot
-loop without a switch."""
+loop without a switch.  ``backward_span`` marks the backward of a region
+of the forward the same way (``resnet.bn_backward``, ``models/resnet.py``),
+from gradient hooks registered only while a session records."""
 
 from __future__ import annotations
 
@@ -82,6 +84,33 @@ def span(name: str) -> ContextManager:
     if not torch.autograd._profiler_enabled():
         return _OFF
     return torch.profiler.record_function(name)
+
+
+def backward_span(name: str, out, inp) -> None:
+    """While a profiler records, a ``record_function(name)`` range over
+    the backward of the region that made ``out`` from ``inp``: a hook on
+    ``out``'s gradient opens it just before the region's first backward
+    node runs, and a hook on ``inp``'s closes it once the region has
+    produced that gradient, before ``inp``'s own producer runs.  Both run
+    on the thread that runs the backward (autograd's device thread on a
+    GPU), which launches the region's kernels.  With no session, or where
+    either tensor takes no gradient, nothing is registered."""
+    import torch
+
+    if not (torch.autograd._profiler_enabled() and out.requires_grad
+            and inp.requires_grad):
+        return
+    opened = []
+
+    def open_range(grad):
+        opened.append(torch.profiler.record_function(name).__enter__())
+
+    def close_range(grad):
+        if opened:
+            opened.pop().__exit__(None, None, None)
+
+    out.register_hook(open_range)
+    inp.register_hook(close_range)
 
 
 class StepMeter:
