@@ -962,6 +962,263 @@ def phase_layer_norm(smi):
         f"{max(v[0] for v in regs.values())} of {len(regs)} kernels")
     return out
 
+# (name, rows, channels): RN50's stem BatchNorm at bsz 256 (B x 112 x 112
+# rows of 32 channels) and a layer-3 one (B x 14 x 14 rows of 1024), timed
+BN_SHAPES = [("rn50_stem", 256 * 112 * 112, 32),
+             ("rn50_layer3", 256 * 14 * 14, 1024)]
+BN_TIMED = 20
+# the batch of the BatchNorm phase: the RN50 cell's
+BN_BSZ = 256
+# kernel vs twin (tests/test_torch_cuda.py's bounds): each output within
+# 1e-5 of its largest value (fp32 sums in another order) and, in bf16,
+# within a rounding flip of its element, y and dx bit-equal in at least
+# BN_MIN_EQUAL_SHARE of their elements
+BN_MIN_EQUAL_SHARE = 0.99
+
+
+def _bn_inputs(gen, side, c, dtype):
+    """x and dy channels-last [BN_BSZ, c, side, side] in ``dtype``, fp32
+    weight and bias, on the card."""
+    import torch
+
+    def normal(*shape, mean=0.0, std=1.0):
+        return mean + std * torch.randn(*shape, generator=gen, device="cuda")
+
+    x = normal(BN_BSZ, side, side, c, mean=0.4, std=1.5).to(dtype)
+    dy = normal(BN_BSZ, side, side, c).to(dtype)
+    return (x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2),
+            normal(c, mean=1.0, std=0.3), normal(c, std=0.2))
+
+
+def _bn_check(x, dy, w, b, relu, what):
+    """The kernels against their twins on one input: y, the mean and the
+    unbiased variance against batch_norm_reference, dx, dw and db against
+    batch_norm_bwd_reference on the kernels' statistics; raises past the
+    bounds -> (the largest error of each of the six, the bit-equal share
+    of y and of dx)."""
+    import torch
+
+    from swat_tpu_torch.kernels import batch_norm as BN
+
+    y, mean, var, rstd, a, bb = BN.batch_norm_fwd(x, w, b, 1e-5, relu)
+    grads = BN.batch_norm_bwd(x, dy, mean, rstd, w, a, bb, relu)
+    y_r, mean_r, var_r, *_ = BN.batch_norm_reference(x, w, b, 1e-5, relu)
+    grads_r = BN.batch_norm_bwd_reference(x, dy, mean, rstd, w, a, bb, relu)
+    errs = []
+    for name, g_, r in zip(("y", "mean", "var", "dx", "dw", "db"),
+                           (y, mean, var, *grads),
+                           (y_r, mean_r, var_r, *grads_r)):
+        rel = 2 ** -7 if g_.dtype == torch.bfloat16 else 0.0
+        g_, r = g_.float(), r.float()
+        err = (g_ - r).abs()
+        if not bool((err <= rel * r.abs() + 1e-5 * r.abs().max()).all()):
+            raise AssertionError(f"[batch-norm] {what} {name}: kernel vs "
+                                 f"twin {float(err.max())} of "
+                                 f"{float(r.abs().max())}")
+        errs.append(float(err.max()))
+    equal = [float((g_ == r).float().mean()) for g_, r in
+             ((y, y_r), (grads[0], grads_r[0]))]
+    if x.dtype == torch.bfloat16 and min(equal) < BN_MIN_EQUAL_SHARE:
+        raise AssertionError(f"[batch-norm] {what}: bit-equal share of y, "
+                             f"dx {equal}")
+    return errs, equal
+
+
+def _bn_bound_ms(rows, channels, dtype, backward):
+    """The least time the card could take for one BatchNorm call, its bytes
+    over 3.35 TB/s, each input read once and each output written once.
+    Forward: x read, y written; backward: x and dy read, dx written (the
+    [C] vectors besides).  The kernels' own two-pass traffic is 1.5x
+    (forward: x read twice) and 5/3x (backward: x and dy read twice)
+    that."""
+    item = 4 if str(dtype).endswith("float32") else 2
+    moved = (3 if backward else 2) * rows * channels * item
+    return 1e3 * (moved + 16 * channels) / 3.35e12
+
+
+def _bn_registers(log_path):
+    """ptxas' registers and spill bytes of the BatchNorm kernels, by
+    instantiation: {(kernel, dtype, elements a thread): (registers, spill
+    bytes)}; the joins' dtype and width are those they are built for."""
+    import re
+
+    out, entry, spilled = {}, None, 0
+    names = {"f": "fp32", "13__nv_bfloat16": "bf16", None: "-"}
+    with open(log_path) as f:
+        for ln in f:
+            m = re.search(r"Compiling entry function '(\w+)'", ln)
+            if m:
+                entry, spilled = m.group(1), 0
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          ln)
+            if m:
+                spilled = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", ln)
+            if not (m and entry):
+                continue
+            k = re.search(r"batchnorm_(\w+?)_kernel(?:I(f|13__nv_bfloat16)"
+                          r"(?:Li(\d+)E)?)?", entry)
+            if k:
+                out[(k.group(1), names[k.group(2)], int(k.group(3) or 0))] = (
+                    int(m.group(1)), spilled)
+            entry = None
+    return out
+
+
+def phase_batch_norm(smi):
+    """[batch-norm]: the BatchNorm kernel set against its plain twins
+    (``_bn_check``) at every distinct (channels, side) of RN50's BatchNorms
+    at bsz 256, fp32 and bf16, with and without its ReLU; then with its
+    ReLU at RN50's stem and a layer-3 shape: each direction's device time
+    (profiled, BN_TIMED calls) beside its byte bound; the forward alone and
+    the backward alone (dx, dw and db), each by CUDA events, through the
+    kernels' BatchNormFunction, through autograd of AffineBN's plain passes
+    and F.relu and, as a yardstick only, through
+    F.batch_norm(training=True) and F.relu (the port calls it nowhere), in
+    turns plain, kernel, library, kernel, plain; registers and blocks an SM
+    -> {(shape, dtype): numbers}."""
+    import os
+
+    import torch
+    import torch.nn.functional as F
+
+    from swat_tpu_torch.kernels import _build
+    from swat_tpu_torch.kernels import batch_norm as BN
+    from swat_tpu_torch.models.configs import get_model_config
+
+    regs = _bn_registers(_build.build_library().replace(_build.LIB_NAME,
+                                                        "build.log"))
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    from torch_port_lib import rn50_bn_shapes
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    checked = {}
+    t0 = time.perf_counter()
+    for c, side in sorted({(c, side) for c, side, _ in rn50_bn_shapes(
+            get_model_config(RN50_CFG).vision)}):
+        for dname in ("float32", "bfloat16"):
+            x, dy, w, b = _bn_inputs(gen, side, c, getattr(torch, dname))
+            for relu in (False, True):
+                checked[(c, side, dname, relu)] = _bn_check(
+                    x, dy, w, b, relu, f"C={c} {side}x{side} {dname} "
+                    f"relu={relu}")
+            del x, dy
+            torch.cuda.empty_cache()
+    log(f"[batch-norm] kernels vs twins at every distinct (C, side) of "
+        f"RN50's 55 BatchNorms, bsz {BN_BSZ}, fp32 and bf16, with and "
+        f"without ReLU ({len(checked)} checks, "
+        f"{time.perf_counter() - t0:.1f} s), largest error (y, mean, var, "
+        f"dx, dw, db) and bit-equal share of y, dx: "
+        + "; ".join(f"C={c} {side}^2 {d[:4]} relu={int(r)} "
+                    + "/".join(f"{e:.2g}" for e in errs)
+                    + f" eq {eq[0]:.5f}/{eq[1]:.5f}"
+                    for (c, side, d, r), (errs, eq) in checked.items())
+        + f" on {smi}")
+    out = {}
+    for name, rows, c in BN_SHAPES:
+        side = int(round((rows // BN_BSZ) ** 0.5))
+        for dname in ("float32", "bfloat16"):
+            dtype = getattr(torch, dname)
+            x, dy, w, b = _bn_inputs(gen, side, c, dtype)
+            errs, equal = checked[(c, side, dname, True)]
+            y, mean, var, rstd, a, bb = BN.batch_norm_fwd(x, w, b, 1e-5,
+                                                          True)
+
+            def fwd():
+                BN.batch_norm_fwd(x, w, b, 1e-5, True)
+
+            def bwd():
+                BN.batch_norm_bwd(x, dy, mean, rstd, w, a, bb, True)
+
+            times = {}
+            for kind, run in (("fwd", fwd), ("bwd", bwd)):
+                prof, _ = _trace(lambda: [run() for _ in range(BN_TIMED)],
+                                 cpu=False)
+                times[kind] = {k: ms / BN_TIMED for ms, k in
+                               _device_kernels(prof) if "batchnorm" in k}
+            fwd_ms, bwd_ms = (sum(times[k].values()) for k in ("fwd", "bwd"))
+            join_ms = sum(v for k, v in {**times["fwd"], **times["bwd"]}
+                          .items() if "join" in k)
+            bf = _bn_bound_ms(rows, c, dtype, False)
+            bb_ms = _bn_bound_ms(rows, c, dtype, True)
+            xg = x.detach().requires_grad_(True)
+            wg = w.detach().requires_grad_(True)
+            bg = b.detach().requires_grad_(True)
+
+            def plain():
+                return F.relu(BN.batch_norm_reference(xg, wg, bg, 1e-5,
+                                                      False)[0])
+
+            def kernel():
+                return BN.batch_norm(xg, wg, bg, 1e-5, True)[0]
+
+            wl, bl, lib_weights = wg, bg, "fp32"
+            try:
+                F.batch_norm(xg, None, None, wl, bl, training=True)
+            except RuntimeError:
+                # no mixed dtypes in this build's F.batch_norm: the weights
+                # in x's dtype, still taking gradients
+                wl = w.detach().to(dtype).requires_grad_(True)
+                bl = b.detach().to(dtype).requires_grad_(True)
+                lib_weights = dname
+
+            def library():
+                return F.relu(F.batch_norm(xg, None, None, wl, bl,
+                                           training=True, momentum=0.1,
+                                           eps=1e-5))
+
+            def split(make, leaves=(xg, wg, bg)):
+                """(forward ms, backward ms): the forward alone, then the
+                backward alone over one kept graph."""
+                y_ = make()
+                return (_time_ms(make, iters=10), _time_ms(
+                    lambda: torch.autograd.grad(y_, leaves, dy,
+                                                retain_graph=True),
+                    iters=10))
+
+            p1, k1, l1, k2, p2 = (split(plain), split(kernel),
+                                  split(library, (xg, wl, bl)), split(kernel),
+                                  split(plain))
+            pl = BN.plan(rows, c, dtype)
+            tname = "fp32" if dtype == torch.float32 else "bf16"
+            kregs = {k: regs.get((k, tname, pl.vec), (0, 0)) for k in
+                     ("stats", "apply", "bwd_reduce", "dx")}
+            out[(name, dname)] = dict(
+                fwd_ms=fwd_ms, bwd_ms=bwd_ms, bound_fwd_ms=bf,
+                bound_bwd_ms=bb_ms, err=max(errs),
+                plain_fwd_ms=(p1[0] + p2[0]) / 2,
+                plain_bwd_ms=(p1[1] + p2[1]) / 2,
+                library_fwd_ms=l1[0], library_bwd_ms=l1[1])
+            log(f"[batch-norm] {name} M={rows} C={c} {dname} with ReLU "
+                f"(plan {tuple(pl)}, {pl.blocks} blocks): forward "
+                f"{fwd_ms * 1e3:.2f} us device, bound {bf * 1e3:.2f} us = "
+                f"{100 * bf / fwd_ms:.1f} % of it (two-pass traffic "
+                f"{150 * bf / fwd_ms:.1f} %); backward {bwd_ms * 1e3:.2f} us, "
+                f"bound {bb_ms * 1e3:.2f} us = {100 * bb_ms / bwd_ms:.1f} % "
+                f"(two-pass {500 / 3 * bb_ms / bwd_ms:.1f} %); joins "
+                f"{join_ms * 1e3:.2f} us; by kernel "
+                + ", ".join(f"{k[:40]} {v * 1e3:.2f}" for k, v in
+                            {**times["fwd"], **times["bwd"]}.items())
+                + f" us; by events, forward / backward alone: the Function "
+                f"{k1[0]:.4f}/{k2[0]:.4f} / {k1[1]:.4f}/{k2[1]:.4f} ms, "
+                f"autograd of the plain passes {p1[0]:.4f}/{p2[0]:.4f} / "
+                f"{p1[1]:.4f}/{p2[1]:.4f} ms, F.batch_norm + F.relu "
+                f"({lib_weights} weights) {l1[0]:.4f} / {l1[1]:.4f} ms; "
+                f"registers (+B spilled, blocks an SM) "
+                + ", ".join(f"{k} {r}+{sp} ({_ln_blocks_per_sm(r, 0)})"
+                            for k, (r, sp) in kregs.items())
+                + f"; largest error vs twin (y, mean, var, dx, dw, db) "
+                f"{', '.join(f'{e:.3g}' for e in errs)}; bit-equal share "
+                f"y {equal[0]:.5f}, dx {equal[1]:.5f} on {smi}")
+            del x, dy, xg, y
+            torch.cuda.empty_cache()
+    log(f"[batch-norm] spill bytes over all BatchNorm instantiations: "
+        f"{sum(v[1] for v in regs.values())}; registers by kernel: "
+        + ", ".join(f"{'/'.join(map(str, k))} {v[0]}"
+                    for k, v in sorted(regs.items())))
+    return out
+
 
 def phase_towers(workdir, smi):
     """Seeded OpenCLIP-format ViT-B/32 state dict (saved for phase 6), then
@@ -1150,7 +1407,7 @@ def phase_cli(workdir, ckpt, smi):
         if launches < need:
             raise AssertionError("the main path did not go through the kernel")
     total = FA.LAUNCHES
-    _add_main_ln()
+    _add_main()
     for dtype in ("float32", "bfloat16"):
         if accs[(dtype, "on")] != accs[(dtype, "off")]:
             raise AssertionError(f"resident and streaming disagree in {dtype}: "
@@ -1343,12 +1600,15 @@ def _plain_heads_first(qkv, heads, causal):
 
 
 def _reset_counts(FA):
-    """The four attention counts and the two LayerNorm counts set to 0."""
+    """The four attention counts, the two LayerNorm counts and the two
+    BatchNorm counts set to 0."""
+    from swat_tpu_torch.kernels import batch_norm as BN
     from swat_tpu_torch.kernels import layer_norm as LN
 
     FA.LAUNCHES = FA.LAUNCHES_BWD = 0
     FA.LAUNCHES_FLASH = FA.LAUNCHES_FLASH_BWD = 0
     LN.LAUNCHES_LN = LN.LAUNCHES_LN_BWD = 0
+    BN.LAUNCHES_BN = BN.LAUNCHES_BN_BWD = 0
 
 
 def _counts(FA):
@@ -1363,17 +1623,30 @@ def _ln_counts(FA=None):
     return (LN.LAUNCHES_LN, LN.LAUNCHES_LN_BWD)
 
 
-# the LayerNorm launches of the main-path runs (the CLI's, the serving and
-# retrieval runs', the counted towers and steps whose attention launches the
-# {"kernels"} line sums), each counted from 0 by _reset_counts
+def _bn_counts(FA=None):
+    """The BatchNorm kernels' calls: (forward, backward), three launches
+    each."""
+    from swat_tpu_torch.kernels import batch_norm as BN
+
+    return (BN.LAUNCHES_BN, BN.LAUNCHES_BN_BWD)
+
+
+# the LayerNorm launches and BatchNorm calls of the main-path runs (the
+# CLI's, the serving and retrieval runs', the counted towers and steps whose
+# attention launches the {"kernels"} line sums), each counted from 0 by
+# _reset_counts
 MAIN_LN = [0, 0]
+MAIN_BN = [0, 0]
 
 
-def _add_main_ln(ln=None):
-    """Adds a main-path run's LayerNorm launches (``ln``, a child
-    process's; by default the counters since _reset_counts) to MAIN_LN."""
-    for i, n in enumerate(_ln_counts() if ln is None else ln):
-        MAIN_LN[i] += n
+def _add_main(ln=None, bn=None):
+    """Adds a main-path run's LayerNorm launches and BatchNorm calls
+    (``ln``, ``bn``: a child process's; by default the counters since
+    _reset_counts) to MAIN_LN and MAIN_BN."""
+    for main, got in ((MAIN_LN, _ln_counts() if ln is None else ln),
+                      (MAIN_BN, _bn_counts() if bn is None else bn)):
+        for i, n in enumerate(got):
+            main[i] += n
 
 
 # heatmaps (cosines in [-1, 1]) with the heads-first kernel against its
@@ -2260,11 +2533,12 @@ def _train_cli_run(workdir, ckpt, dataset, method, dtype, resident, smi,
     unless ``stage2``), its summary line, loss.csv (``rows_want`` rows) and
     output files checked; without ``summary_row`` (dataset-cls) the run
     must print no summary line and write no stage file.  The four counts
-    and the two LayerNorm counts are set to 0 just before the run and read
-    just after -> dict of what it gave (the LayerNorm launches, "ln", added
-    to MAIN_LN).  ``launcher``: the run is one process started by
-    ``torch.distributed.run --standalone --nproc_per_node 1`` (on NCCL),
-    which counts its own launches (``_dist_child``)."""
+    and the LayerNorm and BatchNorm counts are set to 0 just before the run
+    and read just after -> dict of what it gave (the LayerNorm launches,
+    "ln", added to MAIN_LN, the BatchNorm calls, "bn", to MAIN_BN).
+    ``launcher``: the run is one process started by ``torch.distributed.run
+    --standalone --nproc_per_node 1`` (on NCCL), which counts its own
+    launches (``_dist_child``)."""
     import csv
     import io
     import math
@@ -2287,7 +2561,8 @@ def _train_cli_run(workdir, ckpt, dataset, method, dtype, resident, smi,
             "--resident", resident, "--num_workers", "8",
             "--recal_prompt", "--device", "cuda", *extra]
     if launcher:
-        out, counts, loops, ln, ln_loops, wall = _launched_cli(workdir, argv)
+        out, counts, loops, ln, ln_loops, bn, wall = _launched_cli(workdir,
+                                                                   argv)
     else:
         _reset_counts(FA)
         buf = io.StringIO()
@@ -2297,9 +2572,9 @@ def _train_cli_run(workdir, ckpt, dataset, method, dtype, resident, smi,
                 _train_loop_counts(FA, _ln_counts) as ln_loops:
             cli_main(argv)
         wall = time.perf_counter() - t0
-        counts, ln = _counts(FA), _ln_counts()
+        counts, ln, bn = _counts(FA), _ln_counts(), _bn_counts()
         out = buf.getvalue()
-    _add_main_ln(ln)
+    _add_main(ln, bn)
     summary = [ln for ln in out.splitlines()
                if ln.startswith(f"{dataset},{method},")]
     if not summary_row:
@@ -2358,9 +2633,10 @@ def _train_cli_run(workdir, ckpt, dataset, method, dtype, resident, smi,
         f"{counts[1]} heads-first fwd {counts[2]} heads-first bwd "
         f"{counts[3]}; the training steps' own fwd {loops[0][0]} bwd "
         f"{loops[0][1]}; LayerNorm fwd {ln[0]} bwd {ln[1]}, the training "
-        f"steps' own {ln_loops[0][0]} / {ln_loops[0][1]}")
+        f"steps' own {ln_loops[0][0]} / {ln_loops[0][1]}; BatchNorm calls "
+        f"fwd {bn[0]} bwd {bn[1]}")
     return {"counts": counts, "loops": loops, "ln": ln,
-            "ln_loops": ln_loops, "steps": steps,
+            "ln_loops": ln_loops, "bn": bn, "steps": steps,
             "resident": resident_run,
             "out": out, "run_dir": run_dir, "rows": rows,
             "summary": summary[0], "wall": wall}
@@ -2791,9 +3067,9 @@ def phase_train_cli(workdir, ckpt, dataset, smi):
 
 def _dist_child(args_path: str) -> int:
     """The launcher's one process: ``swat_tpu_torch.cli.main`` on the argv
-    in ``args_path``, its four counts and two LayerNorm counts set to 0
-    just before and read just after, printed with the training loops' own
-    as the last line."""
+    in ``args_path``, its four counts and the LayerNorm and BatchNorm
+    counts set to 0 just before and read just after, printed with the
+    training loops' own as the last line."""
     from swat_tpu_torch.cli.main import main as cli_main
     from swat_tpu_torch.kernels import flash_attention as FA
 
@@ -2807,7 +3083,8 @@ def _dist_child(args_path: str) -> int:
     wall = time.perf_counter() - t0
     print("DIST_CHILD " + json.dumps({"counts": _counts(FA),
                                       "loops": loops, "ln": _ln_counts(),
-                                      "ln_loops": ln_loops, "wall": wall}),
+                                      "ln_loops": ln_loops,
+                                      "bn": _bn_counts(), "wall": wall}),
           flush=True)
     return 0
 
@@ -2815,8 +3092,8 @@ def _dist_child(args_path: str) -> int:
 def _launched_cli(workdir, argv):
     """``argv`` through ``torch.distributed.run --standalone
     --nproc_per_node 1`` -> (its standard output, counts, training-loop
-    counts, LayerNorm counts, their training-loop counts, wall seconds of
-    the CLI inside it)."""
+    counts, LayerNorm counts, their training-loop counts, BatchNorm counts,
+    wall seconds of the CLI inside it)."""
     import os
 
     path = f"{workdir}/dist_argv.json"
@@ -2840,7 +3117,8 @@ def _launched_cli(workdir, argv):
         f"{got['wall']:.3f} s")
     return (proc.stdout, tuple(got["counts"]),
             [tuple(c) for c in got["loops"]], tuple(got["ln"]),
-            [tuple(c) for c in got["ln_loops"]], got["wall"])
+            [tuple(c) for c in got["ln_loops"]], tuple(got["bn"]),
+            got["wall"])
 
 
 def phase_dist_launcher(workdir, ckpt, dataset, smi, plain):
@@ -2914,7 +3192,7 @@ def _repro_run(workdir, ckpt, dataset, smi):
         rc = repro.run(argv)
     wall = time.perf_counter() - t0
     counts = _counts(FA)
-    _add_main_ln()
+    _add_main()
     out = buf.getvalue()
     # the runbook's own lines; the runs' log lines carry a timestamp
     for line in out.splitlines():
@@ -3143,7 +3421,7 @@ def phase_dist_tp(ckpt, smi):
                     fwd += FA.LAUNCHES
                     bwd += FA.LAUNCHES_BWD
                     launched = (FA.LAUNCHES, FA.LAUNCHES_BWD)
-                    _add_main_ln()
+                    _add_main()
                 w_grad = tp_join("qkv", [stack(m).resblocks[0].attn
                                          .in_proj_weight.grad
                                          for m in models], heads) \
@@ -3805,7 +4083,10 @@ def _rn50_split(prof, steps):
              "optimizer": 0.0, "other": 0.0}
     largest = []
     for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:
+        # the program's spans appear on the device's timeline too, as user
+        # annotations over the kernels they hold
+        if evt.device_type != DeviceType.CUDA or getattr(
+                evt, "is_user_annotation", False):
             continue
         name = evt.key.lower()
         ms = evt.self_device_time_total / 1e3 / steps
@@ -3819,7 +4100,8 @@ def _rn50_split(prof, steps):
         elif "adam" in name or "multi_tensor" in name:
             fam = "optimizer"
         elif any(t in name for t in ("elementwise", "reduce", "pool",
-                                     "batch_norm", "vectorized")):
+                                     "batch_norm", "batchnorm",
+                                     "vectorized")):
             fam = "bn-elementwise"
             largest.append((ms, evt.key[:70]))
         else:
@@ -3834,10 +4116,12 @@ def phase_rn50_step(ckpt, smi):
     BN forward and backward, AdamW, the BN statistics folded after it):
     first at 4 images, fp32, the card against the CPU on the same weights,
     canvases and draws (the loss, every gradient, the folded statistics);
-    then at bsz 256, fp32 and bf16: a warm-up step, 3 steps timed, the
-    peak allocated memory over them, 2 steps profiled (busy time by kernel
-    family: convolutions, GEMMs, BN and elementwise, AdamW; the idle share
-    of the window).  -> {dtype: (ms, busy, window, peak)}."""
+    then at bsz 256, fp32 and bf16: a warm-up step, one step with the
+    counts set to 0 just before it and read just after (55 BatchNorm calls
+    each way, no attention launch), 3 steps timed, the peak allocated
+    memory over them, 2 steps profiled (busy time by kernel family:
+    convolutions, GEMMs, BN and elementwise, AdamW; the idle share of the
+    window).  -> {dtype: (ms, busy, window, peak)}."""
     import copy
 
     import numpy as np
@@ -3912,16 +4196,20 @@ def phase_rn50_step(ckpt, smi):
         state = create_train_state(model, head, "cutmix", total_iter=100)
         step(state, batch, draws)
         torch.cuda.synchronize()
+        _reset_counts(FA)
+        step(state, batch, draws)
+        torch.cuda.synchronize()
+        counts, bn_calls = _counts(FA), _bn_counts()
+        _add_main()
         torch.cuda.reset_peak_memory_stats()
         resting = torch.cuda.memory_allocated()
-        _reset_counts(FA)
         ms = _time_ms(lambda: step(state, batch, draws), iters=3, warmup=0)
         peak = torch.cuda.max_memory_allocated()
-        counts = _counts(FA)
         busy, window, split, others = _profiled(
             lambda: step(state, batch, draws), 2, _rn50_split)
         val = float(step(state, batch, draws))
-        ok = np.isfinite(val) and counts == (0, 0, 0, 0)
+        ok = (np.isfinite(val) and counts == (0, 0, 0, 0)
+              and bn_calls == (55, 55))
         log(f"[rn50-step] {RN50_CFG} cutmix bsz {RN50_STEP_BSZ} {dname}: "
             f"{ms:.2f} ms/step ({RN50_STEP_BSZ * 1e3 / ms:.1f} images/s), "
             f"peak {peak / 2 ** 30:.3f} GiB allocated (at rest "
@@ -3932,10 +4220,12 @@ def phase_rn50_step(ckpt, smi):
                 for k, v in split.items())
             + "; largest elementwise or other kernels: "
             + "; ".join(f"{t:.2f} {n}" for t, n in others)
-            + f"); attention launches {counts} on {smi} "
-            f"{'ok' if ok else 'FAIL'}")
+            + f"); the counted step's attention launches {counts} and "
+            f"BatchNorm calls forward / backward {bn_calls} (need 55 each) "
+            f"on {smi} {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"RN50 step failed ({dname}): {counts}")
+            raise AssertionError(f"RN50 step failed ({dname}): {counts}, "
+                                 f"{bn_calls}")
         results[dname] = (ms, busy, window, peak)
         del state
     del model, base
@@ -3955,13 +4245,15 @@ def phase_rn50_cli(workdir, ckpt, dataset, smi):
     run = _train_cli_run(workdir, ckpt, dataset, "cutmix", "float32", "auto",
                          smi, (), bsz=FLAGSHIP_BSZ, tag="_rn50", rows_want=22,
                          stage2=True, model_cfg=RN50_CFG)
-    train = run["loops"][0]
-    ok = train == (0, 0, 0, 0)
+    train, bn = run["loops"][0], run["bn"]
+    ok = train == (0, 0, 0, 0) and min(bn) >= 55 * steps
     log(f"[rn50-cli] cutmix: stage-1 steps launched {train} (need none: "
         f"{steps} steps at bsz {FLAGSHIP_BSZ}); the whole run "
-        f"{run['counts']} {'ok' if ok else 'FAIL'}")
+        f"{run['counts']}; BatchNorm calls forward / backward {bn} (need at "
+        f"least 55 a stage-1 step each, {55 * steps}) "
+        f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"RN50 cutmix launches {train}")
+        raise AssertionError(f"RN50 cutmix launches {train}, BatchNorm {bn}")
     for method, extra, why in (("FLYP", (), "no such tensor"),
                                ("cutmix", ("--accum", "2"), "ViT-only")):
         try:
@@ -4054,7 +4346,7 @@ def phase_vit_towers(smi):
             step(state, batch, draws)
             torch.cuda.synchronize()
             counts = _counts(FA)
-            _add_main_ln()
+            _add_main()
             total = [t + c for t, c in zip(total, counts)]
             torch.cuda.reset_peak_memory_stats()
             ms = _time_ms(lambda: step(state, batch, draws), iters=3,
@@ -4175,7 +4467,8 @@ def _new_tower_phases(workdir, smi):
     phase_l14_memory(smi)
     log(f"[new-towers] RN50 phases {t1 - t0:.1f} s, ViT phases "
         f"{time.perf_counter() - t1:.1f} s; launches: RN50 CLI runs "
-        f"{rn50_counts}, ViT steps {vit_counts}")
+        f"{rn50_counts}, ViT steps {vit_counts}; BatchNorm calls of the "
+        f"main-path runs so far (forward, backward) {MAIN_BN}")
     return [a + b for a, b in zip(rn50_counts, vit_counts)]
 
 
@@ -4224,7 +4517,7 @@ def _cli_test(argv, device, bsz=SERVE_BSZ):
                    "--device", device])
     wall = time.perf_counter() - t0
     counts = _counts(FA)
-    _add_main_ln()
+    _add_main()
     out = buf.getvalue()
     lines = [ln for ln in out.splitlines()
              if ln.startswith(f"{dataset},{split},")]
@@ -4601,7 +4894,7 @@ def phase_w8a8(workdir, ckpt, converted, smi):
                                             normalize=True).cpu()]
             if tag == "int8":
                 run = {"counts": _counts(FA)}
-                _add_main_ln()
+                _add_main()
                 _check_counts("[w8a8] int8 towers", run,
                               cfg.vision.layers + cfg.text.layers)
                 total += run["counts"][0]
@@ -4644,7 +4937,7 @@ def phase_w8a8(workdir, ckpt, converted, smi):
         got = big_q.encode_image(limages, normalize=True)
         torch.cuda.synchronize()
         counts = _counts(FA)
-        _add_main_ln()
+        _add_main()
     _check_counts("[w8a8] vitl14 int8 image tower", {"counts": counts},
                   lcfg.vision.layers)
     cos = (got * ref).sum(-1)
@@ -4837,7 +5130,7 @@ def _retrieval_cli(argv, device=None):
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         retrieval_main(argv + (["--device", device] if device else []))
-    _add_main_ln()
+    _add_main()
     return _counts(FA), time.perf_counter() - t0, buf.getvalue()
 
 
@@ -5295,6 +5588,7 @@ def main() -> int:
                         phase_flash_kernels_vs_plain)
     times_flash = timed("flash-timing", phase_flash_timing, smi)
     times_ln = timed("layer-norm", phase_layer_norm, smi)
+    times_bn = timed("batch-norm", phase_batch_norm, smi)
     with tempfile.TemporaryDirectory(prefix="swat_smoke_") as workdir:
         ckpt = timed("towers", phase_towers, workdir, smi)
         launches = timed("cli", phase_cli, workdir, ckpt, smi)
@@ -5399,6 +5693,21 @@ def main() -> int:
             "ms": ln[f"{kind}_ms"], "plain_ms": ln[f"plain_{kind}_ms"],
             "bound_ms": ln[f"bound_{kind}_ms"], "bound_by": "bytes",
             "library_ms": ln[f"library_{kind}_ms"]})
+    # the BatchNorm kernel set at the same dtype and RN50's stem at bsz 256
+    # (M = 3,211,264, C = 32); launches: three a call of the main-path runs
+    # (MAIN_BN: the RN50 CLI runs and the counted RN50 steps), each counted
+    # from 0.  No TPU kernel: swat_tpu leaves AffineBN to XLA
+    bn = times_bn[("rn50_stem", "float32")]
+    for kernel, n_launches in (("bn_fwd", 3 * MAIN_BN[0]),
+                               ("bn_bwd", 3 * MAIN_BN[1])):
+        kind = kernel[3:]
+        kernels.append({
+            "name": kernel, "route": "cuda",
+            "source": "swat_tpu_torch/csrc/batch_norm.cu", "replaces": None,
+            "launches": n_launches, "max_abs_err": bn["err"],
+            "ms": bn[f"{kind}_ms"], "plain_ms": bn[f"plain_{kind}_ms"],
+            "bound_ms": bn[f"bound_{kind}_ms"], "bound_by": "bytes",
+            "library_ms": bn[f"library_{kind}_ms"]})
     probe, fsft = (stage2_counts[k] for k in ("run_stage2_probing",
                                                "run_stage2_fsft"))
     log(f"[launches] mha_fwd {kernels[0]['launches']}, of which stage 2 "

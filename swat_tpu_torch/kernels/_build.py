@@ -29,10 +29,10 @@ BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build",
 # kernels instantiate the templates of attention_fwd.cuh and
 # attention_bwd.cuh, the three block-fused layer kernels those,
 # megablock.cuh and (forward and MLP backward) megablock_mma.cuh;
-# layer_norm.cu stands alone
+# layer_norm.cu and batch_norm.cu stand alone
 SOURCES = ("mha_fwd.cu", "mha_bwd.cu", "flash_fwd.cu", "flash_bwd.cu",
            "megablock_fwd.cu", "megablock_mlp_bwd.cu",
-           "megablock_attn_bwd.cu", "layer_norm.cu")
+           "megablock_attn_bwd.cu", "layer_norm.cu", "batch_norm.cu")
 # sm_90a: the Hopper target with wgmma / setmaxnreg (plain sm_90 lacks them);
 # -Xptxas -v writes each kernel's registers and spills into build.log
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -138,6 +138,13 @@ def load() -> ctypes.CDLL:
     lib.swat_ln_bwd.restype = i
     lib.swat_ln_bwd.argtypes = [p, ll, i, p, ll, p, p, p, p, ll, p, p, p, i,
                                 i, p]
+    f = ctypes.c_float
+    lib.swat_bn_fwd.restype = i
+    lib.swat_bn_fwd.argtypes = [p, i, i, i, i, i, i, p, p, f, f, i, p, p,
+                                p, p, p, p, p, p]
+    lib.swat_bn_bwd.restype = i
+    lib.swat_bn_bwd.argtypes = [p, p, i, i, i, i, i, i, p, p, p, p, p, i,
+                                p, p, p, p, p, p]
     lib.swat_cuda_error_string.restype = ctypes.c_char_p
     lib.swat_cuda_error_string.argtypes = [i]
     return lib

@@ -19,7 +19,13 @@ such leaf, and an integer tensor would not mix in WiSE-FT).  The math is
   toward them by the momentum, which a train step does after its
   optimizer update.  Either way the affine is computed in fp32 and
   rounded once to the compute dtype, ``x * a + b``; ``F.batch_norm``
-  would round at other points in bf16.
+  would round at other points in bf16.  ``relu=True`` applies the ReLU
+  that follows 35 of the 55 (the stem's three, each bottleneck's bn1 and
+  bn2).  Train mode on a CUDA tensor outside a data-parallel mesh runs
+  the hand-written kernels of ``kernels/batch_norm.py`` (the same
+  function, the ReLU fused, no fp32 copy of the activation saved); the
+  CPU, eval mode and the sharded mesh (whose sums are all-reduced between
+  the statistics and the affine) keep the plain passes.
 * convolutions without bias, padding k // 2 on both sides, the stem's
   first at stride 2; a stride-2 bottleneck average-pools before ``conv3``
   and before its downsampling convolution (anti-aliased stride).  They run
@@ -37,9 +43,10 @@ such leaf, and an integer tensor would not mix in WiSE-FT).  The math is
   of every token (the heatmaps' surface).
 
 Tracing (``utils/profiling.py``, nothing while no profiler records): a
-train-mode ``AffineBN`` runs in a ``resnet.bn`` span and its backward in a
-``resnet.bn_backward`` one, the attention pool in ``resnet.attnpool``;
-``BN_BATCH_STATS`` counts the train-mode ``AffineBN`` calls.
+train-mode ``AffineBN`` (its ReLU included) runs in a ``resnet.bn`` span
+and its backward in a ``resnet.bn_backward`` one, the attention pool in
+``resnet.attnpool``; ``BN_BATCH_STATS`` counts the train-mode ``AffineBN``
+calls.
 """
 
 from __future__ import annotations
@@ -51,6 +58,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from swat_tpu_torch.core.precision import Precision
+from swat_tpu_torch.kernels import batch_norm as BN
 from swat_tpu_torch.models.configs import ResNetConfig
 from swat_tpu_torch.utils.profiling import backward_span, span
 
@@ -100,18 +108,30 @@ class AffineBN(nn.Module):
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
     def forward(self, x: torch.Tensor, precision: Precision,
-                updates: Optional[BNUpdates] = None) -> torch.Tensor:
-        """x [B, C, H, W] in the compute dtype; ``updates`` None: eval
-        mode, else train mode, this module's batch statistics added (a
-        ``resnet.bn`` span, its backward a ``resnet.bn_backward`` one, and
-        one more ``BN_BATCH_STATS``)."""
+                updates: Optional[BNUpdates] = None,
+                relu: bool = False) -> torch.Tensor:
+        """x [B, C, H, W] in the compute dtype -> the normalized x, then
+        max(., 0) where ``relu``; ``updates`` None: eval mode, else train
+        mode, this module's batch statistics added (a ``resnet.bn`` span,
+        its backward a ``resnet.bn_backward`` one, and one more
+        ``BN_BATCH_STATS``)."""
         if updates is None:
-            return self._normalize(x, self.running_mean, self.running_var,
-                                   precision)
+            y = self._normalize(x, self.running_mean, self.running_var,
+                                precision)
+            return F.relu(y) if relu else y
         global BN_BATCH_STATS
         BN_BATCH_STATS += 1
+        mesh = getattr(updates, "mesh", None)
         with span("resnet.bn"):
-            y = self._normalize(x, *self._batch_stats(x, updates), precision)
+            if x.is_cuda and (mesh is None or mesh.data == 1):
+                y, mean, var = BN.batch_norm(x, self.weight, self.bias,
+                                             self.EPS, relu)
+                updates[self] = (mean, var)
+            else:
+                y = self._normalize(x, *self._batch_stats(x, updates),
+                                    precision)
+                if relu:
+                    y = F.relu(y)
         backward_span("resnet.bn_backward", y, x)
         return y
 
@@ -130,9 +150,7 @@ class AffineBN(nn.Module):
             d = x32 - mean.view(1, -1, 1, 1)
             var = mesh.reduce_sum((d * d).sum(dim=(0, 2, 3))) / n
         else:
-            x32 = x.float()
-            mean = x32.mean(dim=(0, 2, 3))
-            var = x32.var(dim=(0, 2, 3), correction=0)
+            mean, var = BN.batch_stats(x)
             n = x.numel() // x.shape[1]
         updates[self] = (mean.detach(), (var * (n / max(n - 1, 1))).detach())
         return mean, var
@@ -140,12 +158,9 @@ class AffineBN(nn.Module):
     def _normalize(self, x: torch.Tensor, mean: torch.Tensor,
                    var: torch.Tensor, precision: Precision) -> torch.Tensor:
         """The affine of the statistics in fp32, rounded once to the
-        compute dtype, applied as ``x * a + b``."""
-        cd = precision.compute_dtype
-        rstd = torch.rsqrt(var + self.EPS)
-        a = (self.weight * rstd).to(cd)
-        b = (self.bias - mean * self.weight * rstd).to(cd)
-        return x * a.view(1, -1, 1, 1) + b.view(1, -1, 1, 1)
+        compute dtype, applied as ``x * a + b`` (the kernels' twin's)."""
+        return BN.affine(x, mean, var, self.weight, self.bias, self.EPS,
+                         precision.compute_dtype)[0]
 
 
 def _conv(conv: nn.Conv2d, x: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
@@ -154,8 +169,9 @@ def _conv(conv: nn.Conv2d, x: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
                     padding=k // 2)
 
 
-def _conv_bn(conv, bn, x, precision, updates):
-    return bn(_conv(conv, x, precision.compute_dtype), precision, updates)
+def _conv_bn(conv, bn, x, precision, updates, relu=False):
+    return bn(_conv(conv, x, precision.compute_dtype), precision, updates,
+              relu)
 
 
 class Bottleneck(nn.Module):
@@ -178,8 +194,8 @@ class Bottleneck(nn.Module):
 
     def forward(self, x, precision: Precision,
                 updates: Optional[BNUpdates] = None):
-        h = F.relu(_conv_bn(self.conv1, self.bn1, x, precision, updates))
-        h = F.relu(_conv_bn(self.conv2, self.bn2, h, precision, updates))
+        h = _conv_bn(self.conv1, self.bn1, x, precision, updates, True)
+        h = _conv_bn(self.conv2, self.bn2, h, precision, updates, True)
         if self.stride > 1:
             h = F.avg_pool2d(h, self.stride)
         h = _conv_bn(self.conv3, self.bn3, h, precision, updates)
@@ -269,7 +285,7 @@ class ModifiedResNet(nn.Module):
         x = images.to(cd).permute(0, 3, 1, 2)        # channels-last view
         for conv, bn in ((self.conv1, self.bn1), (self.conv2, self.bn2),
                          (self.conv3, self.bn3)):
-            x = F.relu(_conv_bn(conv, bn, x, precision, updates))
+            x = _conv_bn(conv, bn, x, precision, updates, True)
         x = F.avg_pool2d(x, 2)
         for stage in range(len(self.cfg.layers)):
             for block in getattr(self, f"layer{stage + 1}"):

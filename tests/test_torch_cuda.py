@@ -8,7 +8,10 @@ tensor-core forward and backward templates at the edges of their tiling; the
 retrieval ranking and both samplers on the card against the CPU; the
 LayerNorm kernel pair (kernels/layer_norm.py) bit for bit against the model
 of its arithmetic (torch_port_lib.ln_model_*) and within rounding of its
-plain twins.  Run them on a GPU machine with ``python -m pytest
+plain twins; the BatchNorm kernel set (kernels/batch_norm.py) against its
+plain twins at every RN50 BatchNorm shape, its determinism, its launches in
+an RN50 train forward and backward, and an RN50 step against the plain
+path's.  Run them on a GPU machine with ``python -m pytest
 tests/test_torch_cuda.py``."""
 
 import contextlib
@@ -16,11 +19,14 @@ import contextlib
 import pytest
 import torch
 from torch_port_lib import (gapped_pool, ln_model_bwd, ln_model_fwd,
-                            mma_sum_dot, rank_inputs, reference_pool)
+                            mma_sum_dot, rank_inputs, reference_pool,
+                            rn50_bn_shapes)
 
+from swat_tpu_torch.kernels import batch_norm as BN
 from swat_tpu_torch.kernels import flash_attention as FA
 from swat_tpu_torch.kernels import layer_norm as LN
 from swat_tpu_torch.kernels import megablock as MB
+from swat_tpu_torch.models.configs import get_model_config
 
 pytestmark = pytest.mark.cuda
 
@@ -1326,3 +1332,247 @@ def test_ln_refusals_raise_and_do_not_count(device):
     with pytest.raises(TypeError):
         LN.layer_norm_bwd(x, dy.half(), mu, rstd, w)
     assert (LN.LAUNCHES_LN, LN.LAUNCHES_LN_BWD) == before
+
+
+# ---------------------------------------------------------------------------
+# the BatchNorm kernel set (kernels/batch_norm.py)
+
+BN_EPS = 1e-5
+RN50 = get_model_config("rn50_openclip_openai")
+# every distinct (C, side) of RN50's 55 BatchNorms at 8 images, and the
+# stem's first at the cell's 256 (3.2 M rows, the most slabs)
+BN_SHAPES = sorted({(8, c, side) for c, side, _ in
+                    rn50_bn_shapes(RN50.vision)}) + [(256, 32, 112)]
+# kernel vs twin: the statistics differ in summation order only (fp32
+# Welford partials over slabs against torch's reductions), so a, b and the
+# backward's sums by an fp32 ulp or two; an output elementwise within
+# 1e-5 of its largest value, and in bf16 within a rounding flip of its
+# element (2^-7 relative), bit-equal in BN_MIN_EQUAL_SHARE of it
+BN_MIN_EQUAL_SHARE = 0.99
+
+
+def _bn_inputs(bsz, c, side, dtype, device, seed=0):
+    """x and dy channels-last [B, C, side, side], fp32 weight and bias."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def normal(*shape, mean=0.0, std=1.0):
+        return mean + std * torch.randn(*shape, generator=g, device=device)
+
+    x = normal(bsz, side, side, c, mean=0.4, std=1.5).to(dtype)
+    dy = normal(bsz, side, side, c).to(dtype)
+    return (x.permute(0, 3, 1, 2), normal(c, mean=1.0, std=0.3),
+            normal(c, std=0.2), dy.permute(0, 3, 1, 2))
+
+
+def _bn_close(name, got, ref):
+    rel = 2 ** -7 if got.dtype == torch.bfloat16 else 0.0
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs()
+    scale = ref.abs().max()
+    assert bool((err <= rel * ref.abs() + 1e-5 * scale).all()), (
+        name, err.max().item(), scale.item())
+
+
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bsz,c,side", BN_SHAPES)
+def test_bn_kernels_match_plain_twins(device, bsz, c, side, dtype, relu):
+    """Forward and backward against the twins: the statistics, a, b and y
+    against batch_norm_reference; dx, dw and db against
+    batch_norm_bwd_reference on the kernels' own statistics."""
+    x, w, b, dy = _bn_inputs(bsz, c, side, dtype, device)
+    got = BN.batch_norm_fwd(x, w, b, BN_EPS, relu)
+    ref = BN.batch_norm_reference(x, w, b, BN_EPS, relu)
+    y, mean, var, rstd, a, bb = got
+    assert y.dtype == a.dtype == dtype and mean.dtype == torch.float32
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    for name, g_, r in zip(("y", "mean", "var", "rstd", "a", "b"), got, ref):
+        _bn_close(name, g_, r)
+    grads = BN.batch_norm_bwd(x, dy, mean, rstd, w, a, bb, relu)
+    grads_ref = BN.batch_norm_bwd_reference(x, dy, mean, rstd, w, a, bb, relu)
+    for name, g_, r in zip(("dx", "dw", "db"), grads, grads_ref):
+        _bn_close(name, g_, r)
+    assert grads[0].is_contiguous(memory_format=torch.channels_last)
+    if dtype == torch.bfloat16:
+        for g_, r in ((y, ref[0]), (grads[0], grads_ref[0])):
+            assert float((g_ == r).float().mean()) >= BN_MIN_EQUAL_SHARE
+
+
+def test_bn_kernels_are_deterministic(device):
+    x, w, b, dy = _bn_inputs(32, 32, 112, torch.bfloat16, device)
+    outs = []
+    for _ in range(2):
+        y, mean, var, rstd, a, bb = BN.batch_norm_fwd(x, w, b, BN_EPS, True)
+        outs.append((y, mean, var, rstd, a, bb,
+                     *BN.batch_norm_bwd(x, dy, mean, rstd, w, a, bb, True)))
+    for first, second in zip(*outs):
+        assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "unaligned_start",
+                                    "channels_last"])
+def test_bn_takes_other_layouts_and_unaligned_starts(device, layout):
+    """A contiguous x and dy, or channels-last ones that start off a 16-byte
+    boundary, are copied to aligned channels-last ones (3 copies counted:
+    x and dy for the backward, x for the forward) and give the twins'
+    outputs; channels-last ones on a boundary are taken as they are."""
+    x, w, b, dy = _bn_inputs(3, 64, 9, torch.float32, device, seed=2)
+    if layout == "contiguous":
+        x, dy = x.contiguous(), dy.contiguous()
+    elif layout == "unaligned_start":
+        def shifted(t):
+            flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=device)
+            out = flat[1:].view(3, 9, 9, 64).permute(0, 3, 1, 2)
+            out.copy_(t)
+            assert out.is_contiguous(memory_format=torch.channels_last)
+            return out
+
+        x, dy = shifted(x), shifted(dy)
+        assert x.data_ptr() % 16 and dy.data_ptr() % 16
+    copies = BN.COPIES_BN
+    y, mean, var, rstd, a, bb = BN.batch_norm_fwd(x, w, b, BN_EPS, True)
+    grads = BN.batch_norm_bwd(x, dy, mean, rstd, w, a, bb, True)
+    assert BN.COPIES_BN - copies == (0 if layout == "channels_last" else 3)
+    _bn_close("y", y, BN.batch_norm_reference(x, w, b, BN_EPS, True)[0])
+    for name, g_, r in zip(("dx", "dw", "db"), grads,
+                           BN.batch_norm_bwd_reference(
+                               x, dy, mean, rstd, w, a, bb, True)):
+        _bn_close(name, g_, r)
+
+
+def test_bn_refusals_raise_and_do_not_count(device):
+    x, w, b, dy = _bn_inputs(2, 16, 4, torch.float32, device)
+    before = (BN.LAUNCHES_BN, BN.LAUNCHES_BN_BWD)
+    with pytest.raises(TypeError):
+        BN.batch_norm_fwd(x.half(), w, b, BN_EPS, False)
+    with pytest.raises(ValueError, match="weight"):
+        BN.batch_norm_fwd(x, w.cpu(), b, BN_EPS, False)
+    with pytest.raises(ValueError, match="bias"):
+        BN.batch_norm_fwd(x, w, b.bfloat16(), BN_EPS, False)
+    with pytest.raises(ValueError, match="B, C, H, W"):
+        BN.batch_norm_fwd(x[0], w, b, BN_EPS, False)
+    # channels that 16-byte vectors do not divide: 4 fp32 or 8 bf16
+    for dtype, c in ((torch.float32, 22), (torch.bfloat16, 12)):
+        xc, wc, bc, _ = _bn_inputs(2, c, 4, dtype, device)
+        with pytest.raises(ValueError, match="16-byte"):
+            BN.batch_norm_fwd(xc, wc, bc, BN_EPS, False)
+    assert (BN.LAUNCHES_BN, BN.LAUNCHES_BN_BWD) == before
+    y, mean, var, rstd, a, bb = BN.batch_norm_fwd(x, w, b, BN_EPS, False)
+    before = (BN.LAUNCHES_BN, BN.LAUNCHES_BN_BWD)
+    with pytest.raises(ValueError, match="dy must match"):
+        BN.batch_norm_bwd(x, dy[:1], mean, rstd, w, a, bb, False)
+    with pytest.raises(ValueError, match="dy must match"):
+        BN.batch_norm_bwd(x, dy.bfloat16(), mean, rstd, w, a, bb, False)
+    assert (BN.LAUNCHES_BN, BN.LAUNCHES_BN_BWD) == before
+
+
+def _rn50_tower(device):
+    from swat_tpu_torch.models.resnet import ModifiedResNet
+
+    torch.manual_seed(0)
+    model = ModifiedResNet(RN50.vision).to(device)
+    # its fp32 calibration pass runs on the card: 55 forward calls
+    model.init_random(torch.Generator().manual_seed(0))
+    return model
+
+
+def test_bn_rn50_train_forward_runs_55_calls_each_way(device):
+    """One RN50 train forward and backward at 2 images, bf16: 55 forward
+    calls, 55 backward calls, no layout copy, 55 update pairs."""
+    from swat_tpu_torch.core.precision import DEFAULT_PRECISION
+    from swat_tpu_torch.models import resnet
+
+    model = _rn50_tower(device)
+    images = torch.randn(2, 224, 224, 3, device=device)
+    before = (BN.LAUNCHES_BN, BN.LAUNCHES_BN_BWD, BN.COPIES_BN,
+              resnet.BN_BATCH_STATS)
+    updates = resnet.BNUpdates()
+    feats = model(images, DEFAULT_PRECISION, updates=updates)
+    assert BN.LAUNCHES_BN - before[0] == 55 == len(updates)
+    assert BN.LAUNCHES_BN_BWD == before[1]
+    feats.float().square().mean().backward()
+    torch.cuda.synchronize()
+    assert BN.LAUNCHES_BN_BWD - before[1] == 55
+    assert BN.COPIES_BN == before[2]
+    assert resnet.BN_BATCH_STATS - before[3] == 55
+
+
+# the RN50 step against the plain path on the card.  fp32: chip_smoke.py's
+# bounds for the card against the CPU (the loss and the folded statistics
+# relative to their largest value, RN50_REL; each gradient's cosine,
+# GRAD_MIN_COS).  bf16: a statistic summed in another order flips a
+# rounding of a or b now and then, which 16 bottlenecks carry on, so the
+# loss and the statistics are held to tests/test_torch_resnet.py's bf16
+# BN_REL, and the gradients to the fp32 step's: each leaf's gap over the
+# larger of its fp32 norm and the median leaf's (the cell's grad_norm_gap
+# measure, by vector), on average over the leaves no larger than the
+# plain path's own
+BN_STEP_REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+BN_STEP_MIN_COS = 1 - 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_rn50_step_matches_the_plain_path(device, dtype, monkeypatch):
+    """An RN50 train forward, a loss, every gradient and the running
+    statistics folded after it, at 4 images: the kernels against
+    AffineBN's plain passes (the twin under autograd) on the same card."""
+    import statistics
+
+    from swat_tpu_torch.core.precision import (DEFAULT_PRECISION,
+                                               FP32_PRECISION)
+    from swat_tpu_torch.models import resnet
+
+    images = torch.randn(4, 224, 224, 3, device=device,
+                         generator=torch.Generator(device=device)
+                         .manual_seed(1))
+
+    def step(precision):
+        precision.apply_backend_flags()
+        model = _rn50_tower(device)
+        updates = resnet.BNUpdates()
+        feats = model(images, precision, updates=updates)
+        loss = feats.square().mean()
+        loss.backward()
+        resnet.fold_bn_updates(updates)
+        # the key bias's gradient is rounding noise (the softmax cancels a
+        # shift of every score of a query)
+        return (float(loss.detach()), {
+            n: p.grad.double().flatten() for n, p in model.named_parameters()
+            if not n.endswith("k_proj.bias")},
+            {k: v.double() for k, v in model.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))})
+
+    precision = FP32_PRECISION if dtype == torch.float32 \
+        else DEFAULT_PRECISION
+    calls = BN.LAUNCHES_BN
+    loss, grads, stats = step(precision)
+    assert BN.LAUNCHES_BN - calls == 2 * 55   # init_random's pass, the step
+
+    def plain(x, w, b, eps, relu):
+        y, mean, var, *_ = BN.batch_norm_reference(x, w, b, eps, relu)
+        return y, mean.detach(), var.detach()
+
+    monkeypatch.setattr(resnet.BN, "batch_norm", plain)
+    loss_p, grads_p, stats_p = step(precision)
+    rel = BN_STEP_REL[dtype]
+    assert abs(loss - loss_p) <= rel * abs(loss_p), (loss, loss_p)
+    for k, v in stats.items():
+        err = float((v - stats_p[k]).abs().max() / stats_p[k].abs().max())
+        assert err <= rel, (k, err)
+    if dtype == torch.float32:
+        for name, g in grads.items():
+            cos = float(torch.nn.functional.cosine_similarity(
+                g, grads_p[name], dim=0))
+            assert cos >= BN_STEP_MIN_COS, (name, cos)
+        return
+    _, grads_32, _ = step(FP32_PRECISION)
+    med = statistics.median(float(g.norm()) for g in grads_32.values())
+
+    def gaps(got):
+        return [float((got[k] - g.view_as(got[k])).norm())
+                / max(float(g.norm()), med) for k, g in grads_32.items()]
+
+    kernel, plain_gaps = gaps(grads), gaps(grads_p)
+    assert statistics.mean(kernel) <= statistics.mean(plain_gaps), (
+        statistics.mean(kernel), max(kernel), statistics.mean(plain_gaps),
+        max(plain_gaps))

@@ -38,7 +38,7 @@ PORT_MODULES = [
     "swat_tpu_torch.eval.ood", "swat_tpu_torch.eval.resident",
     "swat_tpu_torch.eval.topk_prompts", "swat_tpu_torch.eval.validate",
     "swat_tpu_torch.kernels._ablate", "swat_tpu_torch.kernels._build",
-    "swat_tpu_torch.kernels.attention",
+    "swat_tpu_torch.kernels.attention", "swat_tpu_torch.kernels.batch_norm",
     "swat_tpu_torch.kernels.augment", "swat_tpu_torch.kernels.flash_attention",
     "swat_tpu_torch.kernels.layer_norm",
     "swat_tpu_torch.kernels.megablock", "swat_tpu_torch.kernels.randaugment",

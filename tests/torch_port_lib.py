@@ -215,6 +215,29 @@ def rn50_configs(name: str):
                           text=JC.TextConfig(**text)))
 
 
+def rn50_bn_shapes(vision) -> list:
+    """(channels, side, relu) of each train-mode AffineBN of a ModifiedResNet
+    forward (``vision``: its ResNetConfig), in call order: the stem's three
+    at half the image side, then each bottleneck's bn1 and bn2 at its input
+    side, bn3 at its output side and, in a stage's first, the downsample's
+    BN; ``relu``: a ReLU follows it (the stem's, bn1, bn2).  55 for layers
+    (3, 4, 6, 3)."""
+    w, side = vision.width, vision.image_size // 2
+    shapes = [(w // 2, side, True), (w // 2, side, True), (w, side, True)]
+    side //= 2
+    planes = w
+    for stage, blocks in enumerate(vision.layers):
+        for i in range(blocks):
+            out = side // 2 if stage and not i else side
+            shapes += [(planes, side, True), (planes, side, True),
+                       (4 * planes, out, False)]
+            if not i:
+                shapes.append((4 * planes, out, False))
+            side = out
+        planes *= 2
+    return shapes
+
+
 def port_bn_updates(model, updates) -> dict:
     """A train-mode encode's BN batch statistics (AffineBN module -> (mean,
     var)) folded as a train step folds them (``resnet.fold_bn_updates``),
